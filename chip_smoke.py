@@ -5,24 +5,38 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from pointnerf_tpu_torch/csrc (one nvcc per
+  2. build the four kernels from pointnerf_tpu_torch/csrc (one nvcc per
      source, in parallel) and print the build time and ptxas summary;
-  3. the scene of the main path — a 65,536-point sphere_scene (seed 0), its
-     grid with the prebuilt neighbor tables, random aggregator weights from a
-     seed — at bench_config with knn_select="pallas", fused_decode=True and
-     fused_march=True. The requests are rendered once to record each
-     kernel's real inputs; then each kernel is held against its plain
-     PyTorch version on the card on those inputs (K1 at C = 36,352 slots x
-     QP = 243 candidates and K2 at R = 3600 x SR = 80 on the first request,
-     K3 at M = 290,816 rows in bf16 and in f32 on every request), with its
-     time, the plain version's time and the bound;
-  4. the main path: the launch counts are set to 0, eval_step serves 4
+  3. the scene of both main paths — a 65,536-point sphere_scene (seed 0),
+     its grid with the prebuilt neighbor tables, random aggregator weights
+     from a seed — at bench_config with knn_select="pallas",
+     fused_decode=True and fused_march=True. The requests are rendered once
+     to record each kernel's real inputs; then each kernel is held against
+     its plain PyTorch version on the card on those inputs (K1 at C = 36,352
+     slots x QP = 243 candidates and K2 at R = 3600 x SR = 80 on the first
+     request, K3 at M = 290,816 rows in bf16 and in f32 on every request),
+     with its time, the plain version's time and the bound;
+  4. the serving path: the launch counts are set to 0, eval_step serves 4
      requests of 3,600 rays (4 views), every kernel's count must grow with
      every request, colors must be finite;
   5. one 512-ray request on the card and the same on the CPU through the
      plain versions: integers equal, colors of the rays that hit within the
      bf16 bar;
-  6. the kernels JSON line, the card line, and the final status line.
+  6. one training step records K4's real inputs (M = 290,816 rows and the
+     upstream gradients); K4 is held against its plain version on them, in
+     bf16 and in f32, on the row gradients and every dW/db, with its time,
+     the plain version's time and the bound;
+  7. the training path: the launch counts are set to 0, train_step takes 3
+     warm-up and 20 timed steps of 3,600 rays on one batch, as bench.py
+     does; each step must launch K1, K3 and K4 once each (training takes
+     the plain march, as the JAX package does, so K2 is not launched); the
+     loss must be finite at every step and the mean of the last 5 below the
+     mean of the first 5; prints the train rays/s;
+  8. the gradients of one 512-ray training step (the state after phase 7,
+     the same jitter draw) on the card and on the CPU: integers equal, the
+     loss, the MLP gradients and the point-payload gradients within their
+     bf16 bars;
+  9. the kernels JSON line, the card line, and the final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -48,6 +62,14 @@ K3_F32_TOL = 2e-4      # decode in f32: the parity bar, relative to max|plain|
 # colors 2.3e-6 vs 9.8e-5 (absolute)
 K3_BF16_TOL = 1e-5     # decode in bf16, relative to max|plain|
 COLOR_BF16_TOL = 1e-5  # card vs CPU colors of the rays that hit, bf16 decode
+K4_F32_TOL = 2e-4      # decode backward in f32, per gradient, of max|plain|
+# K4 in bf16, per gradient of max|plain|: read 9.4e-4 vs control 2.4e-1
+K4_BF16_TOL = 1e-2
+# card vs CPU training step (bf16 decode), relative: the loss (read 1.1e-6
+# vs control 8.3e-4), and each gradient leaf of max|CPU| (MLP 5.3e-3 vs
+# 3.0e-1, points 6.6e-3 vs 2.4e-1)
+LOSS_BF16_TOL = 1e-4
+GRAD_BF16_TOL = 3e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_BF16 = 989e12             # dense bf16 tensor-core rate
 PEAK_F32 = 67e12               # f32 outside the tensor cores
@@ -55,6 +77,9 @@ PEAK_F32 = 67e12               # f32 outside the tensor cores
 N_POINTS = 65536
 N_RAYS = 3600
 N_REQUESTS = 4
+N_TRAIN_WARMUP = 3     # bench.py's step loop
+N_TRAIN_STEPS = 20
+TRAIN_KERNELS = ("knn_select", "fused_decode", "fused_decode_bwd")
 
 
 def fail(msg: str) -> None:
@@ -298,14 +323,21 @@ def check_k3(captured):
     return res
 
 
-def main_path(params, pc, st, grid, reqs, cfg):
-    import torch
-    from pointnerf_tpu_torch.ops.fused_decode import fused_decode
+def kernel_wrappers():
+    """{name: wrapper}; each wrapper counts its kernel launches in
+    `.launches`."""
+    from pointnerf_tpu_torch.ops.fused_decode import (fused_decode,
+                                                      fused_decode_bwd)
     from pointnerf_tpu_torch.ops.fused_march import fused_march
     from pointnerf_tpu_torch.ops.knn_select import knn_select
+    return {"knn_select": knn_select, "fused_decode": fused_decode,
+            "fused_march": fused_march, "fused_decode_bwd": fused_decode_bwd}
+
+
+def main_path(params, pc, st, grid, reqs, cfg):
+    import torch
     from pointnerf_tpu_torch.train.step import eval_step
-    kernels = {"knn_select": knn_select, "fused_decode": fused_decode,
-               "fused_march": fused_march}
+    kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -316,7 +348,7 @@ def main_path(params, pc, st, grid, reqs, cfg):
         out = eval_step({"mlp": params, "points": pc}, st, grid, batch, cfg)
         outs.append(out)
         for n, k in kernels.items():
-            if k.launches <= before[n]:
+            if n != "fused_decode_bwd" and k.launches <= before[n]:
                 fail(f"request {i}: {n} was not launched")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -328,9 +360,27 @@ def main_path(params, pc, st, grid, reqs, cfg):
         log(f"request {i}: rays hit {int(out.ray_mask.sum())}/{N_RAYS}, "
             f"decode_dropped {int(out.decode_dropped)}")
     n = len(reqs) * N_RAYS
-    log(f"main path: {len(reqs)} requests x {N_RAYS} rays in {dt:.4f} s = "
+    log(f"serving path: {len(reqs)} requests x {N_RAYS} rays in {dt:.4f} s = "
         f"{n / dt:.1f} rays/s (host clock, synchronized), launches {counts}")
     return counts
+
+
+def same_integers(o_card, o_cpu):
+    """Fail unless two renders agree on every integer output."""
+    import torch
+    for f in ("ray_valid", "ray_mask", "decode_dropped"):
+        if not torch.equal(getattr(o_card, f).cpu(), getattr(o_cpu, f)):
+            fail(f"{f} differs between the card and the CPU")
+    pk, pc_ = o_card.neighbor_pidx.cpu(), o_cpu.neighbor_pidx
+    bad_rows = (pk != pc_).any(-1).nonzero()[:, 0].tolist()
+    if bad_rows:
+        # an equal id set in another order can only come from a d2 tie
+        for r in bad_rows[:20]:
+            tie = sorted(pk[r].tolist()) == sorted(pc_[r].tolist())
+            log(f"  slot {r}: card {pk[r].tolist()} cpu {pc_[r].tolist()} "
+                f"({'same set: a d2 tie' if tie else 'different sets'})")
+        fail(f"neighbor ids differ between the card and the CPU in "
+             f"{len(bad_rows)} slots")
 
 
 def cpu_parity(params, pc, st, grid, cfg):
@@ -355,19 +405,7 @@ def cpu_parity(params, pc, st, grid, cfg):
     o_card = eval_step({"mlp": params, "points": pc}, st, grid, b_card, cfg)
     o_cpu = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
                       cfg)
-    for f in ("ray_valid", "ray_mask", "decode_dropped"):
-        if not torch.equal(mv(getattr(o_card, f)), getattr(o_cpu, f)):
-            fail(f"{f} differs between the card and the CPU")
-    pk, pc_ = mv(o_card.neighbor_pidx), o_cpu.neighbor_pidx
-    bad_rows = (pk != pc_).any(-1).nonzero()[:, 0].tolist()
-    if bad_rows:
-        # an equal id set in another order can only come from a d2 tie
-        for r in bad_rows[:20]:
-            tie = sorted(pk[r].tolist()) == sorted(pc_[r].tolist())
-            log(f"  slot {r}: card {pk[r].tolist()} cpu {pc_[r].tolist()} "
-                f"({'same set: a d2 tie' if tie else 'different sets'})")
-        fail(f"neighbor ids differ between the card and the CPU in "
-             f"{len(bad_rows)} slots")
+    same_integers(o_card, o_cpu)
     cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
                                                   compute_dtype="f32"))
     o_ctl = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
@@ -382,6 +420,227 @@ def cpu_parity(params, pc, st, grid, cfg):
               float((col - o_cpu.coarse_raycolor[hit]).abs().max()),
               float((col - o_ctl.coarse_raycolor[hit]).abs().max()),
               COLOR_BF16_TOL)
+
+
+def capture_k4_inputs(state, st, grid, batch, cfg):
+    """Take one training step with a recording wrapper around K4's entry
+    point; returns its arguments as the step's backward called it."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.step import train_step
+    real, seen = fd.fused_decode_bwd, []
+
+    def rec(*a, **k):
+        seen.append(a)
+        fd.fused_decode_bwd = real      # the wrapper counts on its own name
+        return real(*a, **k)
+    fd.fused_decode_bwd = rec
+    try:
+        train_step(state, st, grid, batch, cfg)
+    finally:
+        fd.fused_decode_bwd = real
+    if len(seen) != 1:
+        fail(f"a training step called the decode backward {len(seen)} times")
+    return seen[0]
+
+
+def decode_grad_leaves(out):
+    """(names, tensors) of a decode backward's result: the row gradients,
+    then every dW/db in parameter order."""
+    g_feat, g_dists, g_extras, g_w, gp = out
+    names = ["g_feat", "g_dists", "g_extras", "g_w"]
+    leaves = [g_feat, g_dists, g_extras, g_w]
+    for blk in ("block1", "block3", "alpha"):
+        for i, layer in enumerate(gp[blk]):
+            for n in ("w", "b"):
+                names.append(f"d{blk}[{i}].{n}")
+                leaves.append(layer[n])
+    return names, leaves
+
+
+def check_k4(args):
+    """K4 against its plain version on the inputs of a real training step,
+    in bf16 and in f32, on the row gradients and every dW/db (each relative
+    to its own max|plain|); times and bound in each precision."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (flops, fused_decode_bwd,
+                                                      fused_decode_bwd_plain,
+                                                      param_count)
+    feat, dists, extras, w, params, spec, g_fagg, g_alpha = args
+    M = feat.shape[0]
+
+    def run(fn, bf16):
+        return decode_grad_leaves(fn(feat, dists, extras, w, params,
+                                     spec._replace(bf16=bf16), g_fagg,
+                                     g_alpha))
+
+    def rel(a_list, b_list):
+        out = []
+        for a, b in zip(a_list, b_list):
+            scale = float(b.abs().max())
+            if not scale > 0:
+                fail("K4: a gradient of the plain backward is all zero")
+            out.append(float((a - b).abs().max()) / scale)
+        return out
+
+    res = {}
+    with torch.no_grad():
+        names, plain32 = run(fused_decode_bwd_plain, False)
+        _, plain16 = run(fused_decode_bwd_plain, True)
+        control = max(rel(plain32, plain16))
+        for label, plain in (("bf16", plain16), ("f32", plain32)):
+            _, out = run(fused_decode_bwd, label == "bf16")
+            torch.cuda.synchronize()
+            errs = rel(out, plain)
+            worst = max(range(len(errs)), key=errs.__getitem__)
+            abs_err = max(float((a - b).abs().max())
+                          for a, b in zip(out, plain))
+            log(f"K4 fused_decode_bwd {label}, M={M} H={spec.H}: max abs "
+                f"err {abs_err:.3e}, max err relative to its gradient's "
+                f"max|plain| {errs[worst]:.3e} ({names[worst]})")
+            if label == "bf16":
+                hold_bf16("K4 bf16 vs plain, per gradient, relative",
+                          errs[worst], control, K4_BF16_TOL)
+            elif not errs[worst] <= K4_F32_TOL:
+                fail("K4 (f32) disagrees with its plain version")
+            res[label] = {"max_abs_err": abs_err}
+        del plain32, plain16, out
+
+        # rows this run's data needs: those with a nonzero weight (a row
+        # without weight has all-zero gradients); all M gradient rows are
+        # written
+        rows = int((w != 0).sum())
+        wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
+                     for layer in params[n] for p in layer.values())
+        width = spec.Fi + spec.Dd + spec.E + 1
+        nbytes = (rows * width * 4 + M * 4 + wbytes
+                  + (M // spec.K) * (spec.H + 1) * 4
+                  + M * width * 4 + param_count(spec) * 4)
+        for label in res:
+            sp = spec._replace(bf16=label == "bf16")
+            ms = cuda_ms(lambda: fused_decode_bwd(feat, dists, extras, w,
+                                                  params, sp, g_fagg,
+                                                  g_alpha),
+                         iters=3, warmup=1)
+            plain_ms = cuda_ms(lambda: fused_decode_bwd_plain(
+                feat, dists, extras, w, params, sp, g_fagg, g_alpha),
+                iters=3, warmup=1)
+            # the forward again, dW, and the input gradients: 3 x K3's
+            b, by = bound_ms(nbytes, 3 * flops(rows, sp),
+                             PEAK_BF16 if sp.bf16 else PEAK_F32)
+            log(f"K4 {label} time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b:.4f} ms ({by}: {rows} of {M} rows carry weight), "
+                f"library: none (no single PyTorch call computes the decode "
+                f"backward)")
+            res[label].update({"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": b, "bound_by": by,
+                               "library_ms": None})
+    return res
+
+
+def train_path(state, st, grid, batch, cfg):
+    """bench.py's loop: 3 warm-up and 20 timed train steps on one batch.
+    Every step must launch K1, K3 and K4 once each; the loss must be finite
+    and fall. Returns (launch counts, final state)."""
+    import torch
+    from pointnerf_tpu_torch.train.step import train_step
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, dropped = [], []
+    for i in range(N_TRAIN_WARMUP + N_TRAIN_STEPS):
+        if i == N_TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = {n: kernels[n].launches for n in TRAIN_KERNELS}
+        state, items = train_step(state, st, grid, batch, cfg)
+        for n in TRAIN_KERNELS:
+            if kernels[n].launches != before[n] + 1:
+                fail(f"train step {i}: {n} launched "
+                     f"{kernels[n].launches - before[n]} times, not once")
+        losses.append(items["loss_total"])
+        dropped.append(items["n_decode_dropped"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in kernels.items()}
+    if counts["fused_march"]:
+        fail("training launched the fused march (JAX trains through the "
+             "plain march)")
+    losses = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"a training loss is not finite: {losses.tolist()}")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    log(f"train losses {[round(float(v), 6) for v in losses]}")
+    log(f"train: mean loss of the first 5 steps {first:.6f}, of the last 5 "
+        f"{last:.6f}; decode_dropped per step "
+        f"{sorted(set(int(d) for d in dropped))}")
+    if not last < first:
+        fail("the training loss did not fall")
+    rate = N_TRAIN_STEPS * N_RAYS / dt
+    log(f"train path: {N_TRAIN_STEPS} steps x {N_RAYS} rays after "
+        f"{N_TRAIN_WARMUP} warm-up steps in {dt:.4f} s = {rate:.1f} train "
+        f"rays/s (fwd + bwd + Adam, host clock, synchronized), launches "
+        f"{counts}")
+    return counts, state
+
+
+def train_cpu_parity(state, st, grid, cfg):
+    """The gradients of one 512-ray training step on the card and on the CPU
+    (plain versions), from the same state with the same jitter draw; the
+    control takes them on the CPU with an f32 decode."""
+    import torch
+    from pointnerf_tpu_torch.models.renderer import render_rays
+    from pointnerf_tpu_torch.train.optim import tree_leaves, tree_map
+    from pointnerf_tpu_torch.train.step import loss_and_grads
+    cpu = torch.device("cpu")
+    params_c = tree_map(lambda t: t.to(cpu), state.params)
+    st_c = type(st)(*[t.to(cpu) for t in st])
+    grid_c = type(grid)(*[None if t is None else t.to(cpu) for t in grid])
+    dev = state.step.device
+    b_card = batches(cfg, 512, 1, dev, seed0=11)[0]
+    b_cpu = type(b_card)(*[None if t is None else t.to(cpu) for t in b_card])
+    u = torch.rand((512, cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        o_card = render_rays(state.params["mlp"], state.params["points"], st,
+                             grid, b_card, cfg, train=True, u=u.to(dev))
+        o_cpu = render_rays(params_c["mlp"], params_c["points"], st_c, grid_c,
+                            b_cpu, cfg, train=True, u=u)
+    same_integers(o_card, o_cpu)
+    t_card, i_card, g_card = loss_and_grads(state.params, st, grid, b_card,
+                                            cfg, u=u.to(dev))
+    t_cpu, i_cpu, g_cpu = loss_and_grads(params_c, st_c, grid_c, b_cpu, cfg,
+                                         u=u)
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  compute_dtype="f32"))
+    t_ctl, _i, g_ctl = loss_and_grads(params_c, st_c, grid_c, b_cpu, cfg32,
+                                      u=u)
+    for k in ("n_miss", "n_decode_dropped"):
+        if int(i_card[k]) != int(i_cpu[k]):
+            fail(f"train step: {k} differs between the card and the CPU")
+    log(f"card vs CPU train step, 512 rays: integers equal, "
+        f"{int(o_cpu.ray_mask.sum())} rays hit, loss {float(t_cpu):.6f}")
+
+    def rel_leaves(a_tree, b_tree):
+        worst = 0.0
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            a = a.to(cpu)
+            scale = float(b.abs().max())
+            if scale == 0:
+                if float(a.abs().max()) != 0:
+                    fail("train step: a gradient is zero on the CPU only")
+                continue
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        return worst
+    hold_bf16("card vs CPU train loss, relative",
+              abs(float(t_card) - float(t_cpu)) / abs(float(t_cpu)),
+              abs(float(t_ctl) - float(t_cpu)) / abs(float(t_cpu)),
+              LOSS_BF16_TOL)
+    for grp in ("mlp", "points"):
+        hold_bf16(f"card vs CPU {grp} gradients, per leaf, relative",
+                  rel_leaves(g_card[grp], g_cpu[grp]),
+                  rel_leaves(g_ctl[grp], g_cpu[grp]), GRAD_BF16_TOL)
 
 
 def main() -> None:
@@ -429,20 +688,35 @@ def main() -> None:
     k3 = check_k3([s["fused_decode"] for s in seen])
     results["fused_decode"] = k3["bf16"]     # the main path decodes in bf16
 
-    counts = main_path(params, pc, st, grid, reqs, cfg)
+    serve_counts = main_path(params, pc, st, grid, reqs, cfg)
     cpu_parity(params, pc, st, grid, cfg)
+
+    from pointnerf_tpu_torch.train.step import create_train_state
+    state = create_train_state(torch.Generator(device=dev).manual_seed(2),
+                               params, pc, cfg)
+    tbatch = batches(cfg, N_RAYS, 1, dev)[0]      # bench.py's one batch
+    k4 = check_k4(capture_k4_inputs(state, st, grid, tbatch, cfg))
+    results["fused_decode_bwd"] = k4["bf16"]  # the training path is bf16
+    train_counts, state = train_path(state, st, grid, tbatch, cfg)
+    train_cpu_parity(state, st, grid, cfg)
 
     meta = {"knn_select": ("pointnerf_tpu_torch/csrc/knn_select.cu",
                            "pointnerf_tpu/ops/pallas_knn.py:89"),
             "fused_decode": ("pointnerf_tpu_torch/csrc/fused_decode.cu",
                              "pointnerf_tpu/ops/pallas_decode.py:404"),
             "fused_march": ("pointnerf_tpu_torch/csrc/fused_march.cu",
-                            "pointnerf_tpu/ops/pallas_march.py:69")}
+                            "pointnerf_tpu/ops/pallas_march.py:69"),
+            "fused_decode_bwd": ("pointnerf_tpu_torch/csrc/fused_decode_bwd.cu",
+                                 "pointnerf_tpu/ops/pallas_decode.py:467")}
     rows = []
     for name, (src, rep) in meta.items():
         r = results[name]
+        # launches over both main paths' runs: the serving requests and the
+        # training steps
+        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts[name],
+                     "replaces": rep, "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

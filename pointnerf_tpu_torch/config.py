@@ -404,6 +404,16 @@ def generator_kwargs(cfg: PointNeRFConfig) -> Tuple:
     return ()
 
 
+def hits_tracked(cfg: PointNeRFConfig) -> bool:
+    """Resolve TrainConfig.track_hits (None = auto: on iff a consumer
+    lever is enabled)."""
+    t = cfg.train
+    if t.track_hits is not None:
+        return t.track_hits
+    return (t.hit_lr_boost > 1.0 or t.prune_min_hits > 0
+            or t.split_iter > 0)
+
+
 def lego_config() -> PointNeRFConfig:
     """The canonical lego per-scene config (dev_scripts/w_n360/lego.sh)."""
     return PointNeRFConfig()

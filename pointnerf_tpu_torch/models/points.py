@@ -2,10 +2,10 @@
 
 Counterpart of `pointnerf_tpu/models/points.py` (`PointCloud`,
 `PointCloudStatic`, `round_capacity`, `make_point_cloud`, `SampledPoints`,
-`gather_points`). The cloud is padded to a fixed capacity: `num_active`
-points are live, the tail is dead padding with conf=0 and xyz parked far
-outside any scene box so the voxel grid never indexes it. Only the forward
-gather is ported here; its backward comes with training.
+`gather_points` with both `gather_bwd` backward modes). The cloud is
+padded to a fixed capacity: `num_active` points are live, the tail is dead
+padding with conf=0 and xyz parked far outside any scene box so the voxel
+grid never indexes it.
 """
 from __future__ import annotations
 
@@ -95,17 +95,55 @@ class SampledPoints(NamedTuple):
     mask: torch.Tensor       # [..., K] bool
 
 
+class _TableGatherSortBwd(torch.autograd.Function):
+    """table[idx] whose backward is a sorted segment sum: the cotangent rows
+    are argsorted by point id and summed per id in that order (the JAX
+    `_table_gather_sortbwd`), deterministic on every device."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        ids = idx.reshape(-1)
+        ctf = ct.reshape(-1, ct.shape[-1])
+        order = torch.argsort(ids, stable=True)
+        lengths = torch.bincount(ids, minlength=ctx.n)
+        g = torch.segment_reduce(ctf[order], "sum", lengths=lengths,
+                                 unsafe=True)
+        return g, None
+
+
 def gather_points(pc: PointCloud, xyz_pers: torch.Tensor,
-                  sample_pidx: torch.Tensor) -> SampledPoints:
+                  sample_pidx: torch.Tensor,
+                  bwd: str = "scatter") -> SampledPoints:
     """Gather neighbor payloads. xyz_pers [N, 3] are the perspective coords
     of all points for the current camera; sample_pidx [..., K] (-1 invalid;
     invalid rows gather point 0 and are masked downstream). All payloads
-    ride one [N, 13+F] table, so this is one row gather."""
+    ride one [N, 13+F] table, so this is one row gather.
+
+    bwd: QueryConfig.gather_bwd — "scatter" (autograd of the row gather, an
+    index_add_ scatter-add) or "sort" (argsort + sorted segment sum,
+    `_TableGatherSortBwd`). Both give the same gradient up to f32 summation
+    order."""
+    if bwd not in ("scatter", "sort"):
+        raise ValueError(f"gather_bwd must be 'scatter' or 'sort', got {bwd!r}")
     mask = sample_pidx >= 0
     idx = sample_pidx.clamp(min=0).long()
     F = pc.features.shape[-1]
     table = torch.cat([pc.xyz, xyz_pers, pc.features, pc.conf, pc.color,
                        pc.dirs], dim=-1)
-    rows = table[idx]                                  # [..., K, 13+F]
+    if bwd == "sort" and table.requires_grad:
+        rows = _TableGatherSortBwd.apply(table, idx)   # [..., K, 13+F]
+    else:
+        # index_select, not table[idx]: its backward is index_add_ (a
+        # scatter-add), where advanced indexing's backward sorts the
+        # duplicate ids and was ~110 ms a step at bench_config on an H100
+        rows = table.index_select(0, idx.reshape(-1)).view(
+            *idx.shape, table.shape[-1])
     splits = rows.split([3, 3, F, 1, 3, 3], dim=-1)
     return SampledPoints(*splits, mask=mask)

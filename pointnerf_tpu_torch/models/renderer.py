@@ -4,10 +4,11 @@ Counterpart of `pointnerf_tpu/models/renderer.py`: `RayBatch`,
 `RenderOutput`, `compute_ray_dist`, `_finalize`, `decode_slots`,
 `compact_select`, `expand_compact_many`, `conf_coeff_fill`,
 `decode_compacted`, `shade_compacted`, `_shade_at` (compacted branch) and
-`render_rays` — the coarse inference render with the static-capacity
-compacted decode. The three kernels of this path: K1 (KNN select) inside
-`knn_query`, K3 (fused decode) inside `aggregate`, K2 (fused march) inside
-`_finalize`.
+`render_rays` — the coarse render with the static-capacity compacted decode,
+for inference and for training (jittered samples, gradients). The kernels of
+this path: K1 (KNN select) inside `knn_query`, K3 (fused decode) and its
+backward K4 inside `aggregate`, K2 (fused march) inside `_finalize` when not
+training.
 """
 from __future__ import annotations
 
@@ -72,10 +73,8 @@ def ray_batch_from_numpy(item: Dict, cfg: PointNeRFConfig,
 def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                    train: bool = False, prob: bool = False) -> None:
     """Raise for what the port does not implement yet. On CUDA the path must
-    also run its three kernels: the port never routes the card through the
-    plain versions."""
-    if train:
-        raise not_ported("training", "slice 2, training")
+    also run its kernels (K1, K3, K4 when training, K2 when not): the port
+    never routes the card through the plain versions."""
     if prob:
         raise not_ported("prob-mode probes", "Queue 1, point maintenance")
     if cfg.query.decode_capacity <= 0:
@@ -92,12 +91,13 @@ def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                              "agg.fused_decode inside its envelope)",
                              "Queue 1, decode: unfused formulations")
         spec = decode_spec(cfg.agg, cfg.query.K, bf16=False)
-        if not kernel_takes(spec):
-            raise not_ported(f"the fused decode kernel at H={spec.H}, "
+        if not kernel_takes(spec, backward=train):
+            what = "decode kernels (K3, K4)" if train else "decode kernel"
+            raise not_ported(f"the fused {what} at H={spec.H}, "
                              f"L1+L3={spec.L1 + spec.L3}, K={spec.K}",
                              "Queue 1, decode: the rest of the decode "
                              "envelope")
-        if not cfg.render.fused_march:
+        if not cfg.render.fused_march and not train:
             raise not_ported("the unfused march on CUDA (set "
                              "render.fused_march)",
                              "Queue 1, render: unfused march")
@@ -129,6 +129,11 @@ def _finalize(cfg: PointNeRFConfig, features, ray_valid, weight, conf_coeff,
     bg = torch.tensor(cfg.render.bg_color, dtype=torch.float32, device=dev)
     if cfg.agg.shading_color_channel_num != 3:
         bg = torch.zeros(cfg.agg.shading_color_channel_num, device=dev)
+    # Training takes the plain march, as the JAX package does
+    # (renderer.py `_finalize`): K2 has no backward kernel there, its
+    # custom VJP recomputes through the plain march, so under a gradient the
+    # kernel would be pure overhead. The plain march runs under autograd on
+    # the card.
     if cfg.render.fused_march and not train:
         if (cfg.render.which_render_func != "radiance"
                 or cfg.render.which_blend_func != "alpha"):
@@ -249,7 +254,7 @@ def shade_compacted(params: Dict, cfg: PointNeRFConfig, pc: PointCloud,
     cpidx, _d2 = knn_query(cloc_w[:, None], cvalid[:, None], pc.xyz, grid,
                            cfg.query)                            # [C, 1, K]
     xyz_pers = w2pers(pc.xyz, batch.camrotc2w, batch.campos)
-    sp = gather_points(pc, xyz_pers, cpidx)
+    sp = gather_points(pc, xyz_pers, cpidx, bwd=cfg.query.gather_bwd)
     cmask = cvalid & (cpidx[:, 0] >= 0).any(-1)
     cloc = torch.where(cmask[:, None],
                        w2pers(cloc_w, batch.camrotc2w, batch.campos), zero)
@@ -286,14 +291,19 @@ def _shade_at(params, pc: PointCloud, st: PointCloudStatic, grid, batch,
 def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
                 grid: PointGrid, batch: RayBatch, cfg: PointNeRFConfig,
                 train: bool = False, prob: bool = False,
-                compute_dtype=torch.float32) -> RenderOutput:
+                compute_dtype=torch.float32,
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> RenderOutput:
     """Render a batch of rays against the neural point cloud (coarse pass,
-    compacted decode, inference)."""
+    compacted decode). With `train`, the ray samples are jittered by
+    `cfg.render.train_jitter` from `u` [R, D] if given, else from
+    `generator` (JAX: the `k_coarse` draw)."""
     check_envelope(cfg, batch.raydir.device, train=train, prob=prob)
     sample_loc_w, sample_mask = generate_shading_points(
         grid, batch.campos, batch.raydir, float(cfg.render.near_plane),
-        float(cfg.render.far_plane), cfg.query, jitter=0.0,
-        gen_name=effective_ray_generator(cfg))
+        float(cfg.render.far_plane), cfg.query,
+        jitter=cfg.render.train_jitter if train else 0.0,
+        generator=generator, u=u, gen_name=effective_ray_generator(cfg))
     return _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
                      sample_mask, prob=prob, compute_dtype=compute_dtype,
                      train=train)

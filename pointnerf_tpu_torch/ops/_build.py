@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("knn_select", "fused_march", "fused_decode")
+KERNELS = ("knn_select", "fused_march", "fused_decode", "fused_decode_bwd")
 
 # -Xptxas=-v puts each kernel's registers, shared memory and spills into
 # the build log that build() returns
@@ -40,6 +40,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "knn_select": ["-fmad=false"],
     "fused_march": ["-fmad=false"],
     "fused_decode": [],
+    "fused_decode_bwd": [],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

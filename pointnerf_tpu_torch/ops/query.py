@@ -44,20 +44,55 @@ def _linear_depths(D: int, near: float, far: float):
     return seg, (f32(0.5) * (end[:-1] + end[1:])).astype(f32)
 
 
+def _xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """Inclusive float32 cumsum along the last axis of x [R, N], summed in
+    the order the compiled JAX package sums it on the CPU: XLA rewrites a
+    long cumsum into blocks of `base` (summed in order inside a block), a
+    cumsum of the block totals (the same way, recursively) and one add of
+    the exclusive carry. The same adds on every device, so the card and the
+    CPU agree bit for bit."""
+    R, N = x.shape
+    n = N if N <= base else -(-N // base) * base
+    out = torch.zeros((R, n), dtype=x.dtype, device=x.device)
+    out[:, :N] = x
+    blocks = out.view(R, n // base, base) if N > base else out.view(R, 1, n)
+    for j in range(1, blocks.shape[-1]):
+        blocks[..., j] += blocks[..., j - 1]
+    if N > base:
+        carry = _xla_cumsum(blocks[..., -1], base)
+        blocks[:, 1:] += carry[:, :-1, None]
+    return out[:, :N]
+
+
 def near_far_linear_ray_generation(campos, raydir, point_count: int, near,
                                    far, jitter: float = 0.0,
-                                   generator: Optional[torch.Generator] = None):
+                                   generator: Optional[torch.Generator] = None,
+                                   u: Optional[torch.Tensor] = None):
     """Uniform-in-depth midpoint samples. campos [3]; raydir [R, 3].
-    Returns (raypos [R, D, 3], seglen [R, D], tvals [R, D])."""
-    if jitter > 0.0:
-        raise not_ported("jittered ray sampling (training)",
-                         "slice 2, training")
+    Returns (raypos [R, D, 3], seglen [R, D], tvals [R, D]).
+
+    With jitter > 0 and a uniform draw — `u` [R, D] in [0, 1) if given,
+    else drawn from `generator` (on raydir's device) — every segment length
+    is scaled by 1 + jitter * (u - 0.5) before the cumsum, as in JAX. Without
+    a draw the samples are not jittered (JAX: no key)."""
     R, D = raydir.shape[0], point_count
-    seg, mid = (torch.from_numpy(a).to(raydir.device)
+    dev = raydir.device
+    seg, mid = (torch.from_numpy(a).to(dev)
                 for a in _linear_depths(D, float(near), float(far)))
-    raypos = _fma(raydir[:, None, :], mid[None, :, None], campos)
-    seglen = seg[None, :] * torch.linalg.norm(raydir, dim=-1, keepdim=True)
-    return raypos, seglen, mid[None, :].expand(R, D)
+    if jitter > 0.0 and (u is not None or generator is not None):
+        if u is None:
+            u = torch.rand((R, D), generator=generator, device=dev)
+        # XLA contracts 1 + jitter * (u - 0.5) into one fused multiply-add
+        j = torch.tensor(jitter, dtype=torch.float32, device=dev)
+        seg = seg[None, :] * _fma(j, u.float() - 0.5, torch.ones((), device=dev))
+        nearf = torch.tensor(float(near), dtype=torch.float32, device=dev)
+        end = torch.cat([nearf.expand(R, 1), nearf + _xla_cumsum(seg)], -1)
+        mid = 0.5 * (end[:, :-1] + end[:, 1:])
+    else:
+        seg, mid = seg[None, :].expand(R, D), mid[None, :].expand(R, D)
+    raypos = _fma(raydir[:, None, :], mid[..., None], campos)
+    seglen = seg * torch.linalg.norm(raydir, dim=-1, keepdim=True)
+    return raypos, seglen, mid
 
 
 RAY_GENERATORS = {"near_far_linear": near_far_linear_ray_generation}
@@ -128,9 +163,12 @@ def generate_shading_points(grid: PointGrid, campos, raydir, near: float,
                             jitter: float = 0.0,
                             generator: Optional[torch.Generator] = None,
                             gen_name: Optional[str] = None,
-                            gen_kwargs: Tuple = ()):
+                            gen_kwargs: Tuple = (),
+                            u: Optional[torch.Tensor] = None):
     """Ray generation + occupancy-selected shading locations (the pre-KNN
-    half of the query). Returns (sample_loc_w [R,SR,3], sample_mask [R,SR])."""
+    half of the query). `generator` / `u` feed the jitter (see
+    `near_far_linear_ray_generation`). Returns (sample_loc_w [R,SR,3],
+    sample_mask [R,SR])."""
     name = gen_name or ("near_far_disparity_linear" if cfg.inverse > 0
                         else "near_far_linear")
     if name not in RAY_GENERATORS or gen_kwargs:
@@ -138,6 +176,6 @@ def generate_shading_points(grid: PointGrid, campos, raydir, near: float,
                          "Queue 1, query: other ray generators")
     raypos, _seg, tvals = RAY_GENERATORS[name](
         campos, raydir, cfg.z_depth_dim, near, far, jitter=jitter,
-        generator=generator)
+        generator=generator, u=u)
     return select_shading_points(raypos, grid, grid_meta(cfg), cfg.SR,
                                  tvals, campos, raydir)

@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of one eval request of the PyTorch port goes, on the card.
+"""Where the time of one eval request and of one training step of the
+PyTorch port goes, on the card.
 
     python3 scripts/port_profile.py
 
 Builds the scene of chip_smoke.py (65,536-point sphere, bench_config with
-knn_select="pallas", fused_decode=True, fused_march=True), serves two
-warm-up requests, then serves chip_smoke's main path (N_REQUESTS requests
-of N_RAYS rays) under torch.profiler
-(CPU + CUDA activities). Prints the host-clock time per request, each device
-kernel's summed time and share of the window, the three port kernels'
-share, and the device's busy and idle shares (union of kernel intervals
-over the synchronized host window). Needs one CUDA card.
+knn_select="pallas", fused_decode=True, fused_march=True).
+
+Serving: two warm-up requests, then chip_smoke's main path (N_REQUESTS
+requests of N_RAYS rays) under torch.profiler (CPU + CUDA activities).
+Prints the host-clock time per request, each device kernel's summed time and
+share, the three port kernels' share, and the device's busy and idle shares
+(union of kernel intervals over the synchronized host window).
+
+Training: bench.py's warm-up (N_TRAIN_WARMUP steps of one N_RAYS batch),
+then N_PROFILED_STEPS train_step calls under the profiler. Prints the same
+breakdown per step, with K1, K3 and K4 named. The plain march (training does
+not run K2, as in JAX) is a few dozen small PyTorch kernels in its forward
+and in autograd's backward, so its device time is read apart: the march is
+replayed on the inputs a step gave it, forward and backward, under the
+profiler, and "everything else" is the step's kernel time less K1, K3, K4
+and that replay. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -21,32 +31,23 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+N_PROFILED_STEPS = 4
+PORT_KERNELS = {"K1": "knn_select_kernel", "K3": "fused_decode_kernel",
+                "K4": "fused_decode_bwd", "K2": "fused_march_kernel"}
 
-def main() -> None:
+
+def profiled(fn):
+    """Run fn under torch.profiler. Returns (host seconds, {kernel name:
+    [calls, device ms]}, device busy ms)."""
     import torch
-    if not torch.cuda.is_available():
-        sys.exit("port_profile: needs a CUDA card")
-    import chip_smoke as cs
-    from pointnerf_tpu_torch.train.step import eval_step
     from torch.profiler import ProfilerActivity, profile
-
-    print(f"card: {cs.card_line()}")
-    cfg = cs.slice_config()
-    pc, st, params, grid = cs.make_scene(cfg, torch.device("cuda"))
-    reqs = cs.batches(cfg, cs.N_RAYS, cs.N_REQUESTS + 2, "cuda")
-    p = {"mlp": params, "points": pc}
-    for b in reqs[:2]:
-        eval_step(p, st, grid, b, cfg)
     torch.cuda.synchronize()
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in reqs[2:]:
-            eval_step(p, st, grid, b, cfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
     intervals, per_kernel = [], defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -65,25 +66,108 @@ def main() -> None:
         else:
             cur_e = max(cur_e, e)
     busy = (busy + cur_e - cur_s) / 1e3                              # ms
+    return wall, per_kernel, busy
+
+
+def kernel_ms(per_kernel, key: str) -> float:
+    return sum(v[1] for k, v in per_kernel.items() if key in k)
+
+
+def report(what: str, n: int, n_rays: int, wall: float, per_kernel,
+           busy: float) -> float:
+    """Print the breakdown per unit (request or step); returns the total
+    device kernel ms."""
     wall_ms = wall * 1e3
-    n = cs.N_REQUESTS
-    print(f"{n} requests x {cs.N_RAYS} rays: host {wall_ms / n:.3f} ms/request "
-          f"({n * cs.N_RAYS / wall:.1f} rays/s), device busy {busy / n:.3f} "
-          f"ms/request = {100 * busy / wall_ms:.1f}% of the window, idle "
-          f"{100 * (1 - busy / wall_ms):.1f}%")
+    print(f"{what}: {n} x {n_rays} rays: host {wall_ms / n:.3f} ms each "
+          f"({n * n_rays / wall:.1f} rays/s), "
+          f"device busy {busy / n:.3f} ms each = {100 * busy / wall_ms:.1f}% "
+          f"of the window, idle {100 * (1 - busy / wall_ms):.1f}%")
     total = sum(v[1] for v in per_kernel.values())
-    print(f"{'kernel':70s} {'calls':>6s} {'ms/req':>9s} {'share':>7s}")
+    print(f"{'kernel':70s} {'calls':>6s} {'ms each':>9s} {'share':>7s}")
     for name, (cnt, ms) in sorted(per_kernel.items(),
                                   key=lambda kv: -kv[1][1])[:20]:
-        print(f"{name[:70]:70s} {cnt // n:6d} {ms / n:9.4f} "
+        print(f"{name[:70]:70s} {cnt / n:6.1f} {ms / n:9.4f} "
               f"{100 * ms / total:6.1f}%")
-    ours = {k: v for k, v in per_kernel.items()
-            if any(s in k for s in ("knn_select_kernel", "fused_decode_kernel",
-                                    "fused_march_kernel"))}
-    ms_ours = sum(v[1] for v in ours.values())
-    print(f"port kernels (K1+K2+K3): {ms_ours / n:.4f} ms/request = "
-          f"{100 * ms_ours / total:.1f}% of device kernel time; everything "
-          f"else: {(total - ms_ours) / n:.4f} ms/request")
+    return total
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("port_profile: needs a CUDA card")
+    import chip_smoke as cs
+    from pointnerf_tpu_torch.models import renderer
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, train_step)
+
+    print(f"card: {cs.card_line()}")
+    cfg = cs.slice_config()
+    pc, st, params, grid = cs.make_scene(cfg, torch.device("cuda"))
+
+    # serving
+    reqs = cs.batches(cfg, cs.N_RAYS, cs.N_REQUESTS + 2, "cuda")
+    p = {"mlp": params, "points": pc}
+    for b in reqs[:2]:
+        eval_step(p, st, grid, b, cfg)
+
+    def serve():
+        for b in reqs[2:]:
+            eval_step(p, st, grid, b, cfg)
+    n = cs.N_REQUESTS
+    wall, per_kernel, busy = profiled(serve)
+    total = report("serving", n, cs.N_RAYS, wall, per_kernel, busy)
+    ours = sum(kernel_ms(per_kernel, PORT_KERNELS[k])
+               for k in ("K1", "K2", "K3"))
+    print(f"port kernels (K1+K2+K3): {ours / n:.4f} ms/request = "
+          f"{100 * ours / total:.1f}% of device kernel time; everything "
+          f"else: {(total - ours) / n:.4f} ms/request")
+
+    # training
+    state = create_train_state(torch.Generator(device="cuda").manual_seed(2),
+                               params, pc, cfg)
+    batch = cs.batches(cfg, cs.N_RAYS, 1, "cuda")[0]
+    for _ in range(cs.N_TRAIN_WARMUP):
+        state, _items = train_step(state, st, grid, batch, cfg)
+    march_args = []
+    real_march = renderer.ray_march
+
+    def rec(*a, **k):
+        march_args.append((a, k))
+        return real_march(*a, **k)
+    renderer.ray_march = rec
+    try:
+        state, _items = train_step(state, st, grid, batch, cfg)
+    finally:
+        renderer.ray_march = real_march
+    steps = [state]
+
+    def train():
+        for _ in range(N_PROFILED_STEPS):
+            steps[0], _it = train_step(steps[0], st, grid, batch, cfg)
+    n = N_PROFILED_STEPS
+    wall, per_kernel, busy = profiled(train)
+    total = report("training", n, cs.N_RAYS, wall, per_kernel, busy)
+
+    (a, k), = march_args
+    dist, valid, feats = a[0], a[1], a[2]
+
+    def march():
+        for _ in range(n):
+            f = feats.detach().requires_grad_()
+            outs = real_march(dist, valid, f, *a[3:], **k)
+            used = [o for o in outs if o is not None and o.requires_grad]
+            torch.autograd.grad([o.sum() for o in used], f)
+    _w, march_kernels, _b = profiled(march)
+    march_ms = sum(v[1] for v in march_kernels.values())
+    parts = {name: kernel_ms(per_kernel, PORT_KERNELS[name])
+             for name in ("K1", "K3", "K4")}
+    rest = total - sum(parts.values()) - march_ms
+    print("per training step, device ms: " + ", ".join(
+        f"{name} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+        for name, ms in parts.items())
+        + f", plain march fwd+bwd (replayed) {march_ms / n:.4f} "
+        f"({100 * march_ms / total:.1f}%), everything else {rest / n:.4f} "
+        f"({100 * rest / total:.1f}%); kernel total {total / n:.4f}")
 
 
 if __name__ == "__main__":

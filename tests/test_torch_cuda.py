@@ -82,3 +82,52 @@ def test_fused_decode_kernel_matches_plain(dev, bf16):
     tol = (1e-5 if bf16 else 2e-4) * scale
     assert float((fk - fp).abs().max()) <= tol
     assert float((ak - ap).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_decode_bwd_kernel_matches_plain(dev, bf16):
+    """K4 against its plain version on every gradient (rows, then each
+    dW/db), and the autograd Function launching K3 forward and K4 backward."""
+    from pointnerf_tpu_torch.config import bench_config
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec,
+                                                      fused_decode,
+                                                      fused_decode_bwd,
+                                                      fused_decode_bwd_plain)
+    from pointnerf_tpu_torch.train.optim import tree_leaves, tree_map
+    cfg = bench_config()
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(4),
+                                    device=dev)
+    params = {k: params[k] for k in ("block1", "block3", "alpha")}
+    spec = DecodeSpec(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+                      neg_slope=0.01, bf16=bf16)
+    M = 8 * 301                                      # a ragged last tile
+    rng = np.random.RandomState(5)
+    feat, dists, extras, gf = (torch.from_numpy(rng.normal(
+        0, s, shape).astype(np.float32)).to(dev)
+        for s, shape in ((0.5, (M, 32)), (0.05, (M, 6)), (0.5, (M, 7)),
+                         (1.0, (M // 8, 256))))
+    w = torch.from_numpy((rng.rand(M, 1) * (rng.rand(M, 1) > 0.3)).astype(
+        np.float32)).to(dev)
+    ga = torch.from_numpy(rng.normal(0, 1, (M // 8, 1)).astype(
+        np.float32)).to(dev)
+    gk = tree_leaves(fused_decode_bwd(feat, dists, extras, w, params, spec,
+                                      gf, ga))
+    gp = tree_leaves(fused_decode_bwd_plain(feat, dists, extras, w, params,
+                                            spec, gf, ga))
+    torch.cuda.synchronize()
+    # chip_smoke.py's bars, each relative to its gradient's max|plain|
+    tol = 1e-2 if bf16 else 2e-4
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+    xs = [t.clone().requires_grad_() for t in (feat, dists, extras, w)]
+    p = tree_map(lambda t: t.clone().requires_grad_(), params)
+    n3, n4 = fused_decode.launches, fused_decode_bwd.launches
+    f, a = fused_decode(*xs, p, spec)
+    got = torch.autograd.grad((f * gf).sum() + (a * ga).sum(),
+                              xs + tree_leaves(p))
+    assert (fused_decode.launches, fused_decode_bwd.launches) == (n3 + 1,
+                                                                  n4 + 1)
+    for a, b in zip(got, gk):
+        assert torch.equal(a, b)

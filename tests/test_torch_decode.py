@@ -1,6 +1,7 @@
-"""Port decode (K3's plain version in pointnerf_tpu_torch/ops/fused_decode.py
-and models/aggregator.aggregate) against the JAX fused decode (Pallas
-interpret mode on the CPU) and the JAX aggregate, with the same weights
+"""Port decode (the plain versions of K3 and K4 in
+pointnerf_tpu_torch/ops/fused_decode.py and models/aggregator.aggregate)
+against the JAX fused decode and its custom VJP (Pallas interpret mode on
+the CPU) and the JAX aggregate, with the same weights
 (convert.params_from_jax) and the same inputs.
 
 Bars: 2e-4 in f32 (the decode parity bar of PERF.md "Numerical parity").
@@ -28,6 +29,7 @@ from pointnerf_tpu_torch.convert import params_from_jax
 from pointnerf_tpu_torch.models import aggregator as ta
 from pointnerf_tpu_torch.models.points import SampledPoints as TSP
 from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec, fused_decode,
+                                                  fused_decode_bwd_plain,
                                                   fused_decode_plain)
 
 F32_TOL = 2e-4
@@ -100,6 +102,77 @@ def test_fused_decode_plain_matches_jax_kernel(bf16, tol, K):
     ft2, at2 = fused_decode_plain(*[torch.from_numpy(a) for a in ins], tp,
                                   tspec)
     assert torch.equal(ft, ft2) and torch.equal(at, at2)
+
+
+def _bwd_case(K, bf16, seed):
+    """The same decode inputs, weights and upstream gradients through the
+    JAX custom VJP (`_bwd_rule`, interpret mode) and into the port."""
+    cfg, params, *_ = _case(seed=seed, K=K)
+    jspec, tspec = _spec_pair(cfg, K, bf16)
+    M = 40 * K
+    ins = _raw_inputs(tspec, M, seed=seed + 1)
+    sub = {k: params[k] for k in ("block1", "block3", "alpha")}
+    rng = np.random.RandomState(9)
+    gf = rng.normal(0, 1, (M // K, tspec.H)).astype(np.float32)
+    ga = rng.normal(0, 1, (M // K, 1)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c, d, p: j_fused_decode(a, b, c, d, p,
+                                                          jspec),
+                     *[jnp.asarray(a) for a in ins], sub)
+    gj = vjp((jnp.asarray(gf), jnp.asarray(ga)))
+    tp = params_from_jax(jax.tree.map(np.asarray, sub), device="cpu")
+    return ([torch.from_numpy(a) for a in ins], tp, tspec,
+            torch.from_numpy(gf), torch.from_numpy(ga), gj)
+
+
+def _rel_errs(t_grads, j_grads):
+    """Per gradient leaf (row gradients, then every dW/db in the same tree
+    order): max |port - JAX| / max |JAX|."""
+    tl = jax.tree.leaves(t_grads, is_leaf=torch.is_tensor)
+    jl = [np.asarray(x) for x in jax.tree.leaves(j_grads)]
+    assert [tuple(t.shape) for t in tl] == [x.shape for x in jl]
+    return [float(np.abs(t.detach().numpy() - x).max() / np.abs(x).max())
+            for t, x in zip(tl, jl)]
+
+
+@pytest.mark.parametrize("K", [4, 8])
+def test_fused_decode_bwd_plain_matches_jax_f32(K):
+    """f32: the plain backward against JAX's `_bwd_rule` and against torch
+    autograd of the plain forward, every leaf within 2e-4 of its scale; the
+    autograd Function on CPU tensors runs exactly the plain backward."""
+    ins, tp, spec, gf, ga, gj = _bwd_case(K, bf16=False, seed=1)
+    gt = fused_decode_bwd_plain(*ins, tp, spec, gf, ga)
+    assert max(_rel_errs(gt, gj)) <= F32_TOL
+    flat = [t for name in ("block1", "block3", "alpha") for layer in gt[4][name]
+            for t in (layer["w"], layer["b"])]
+
+    def grads_of(fn):
+        xs = [a.clone().requires_grad_() for a in ins]
+        p = jax.tree.map(lambda t: t.clone().requires_grad_(), tp)
+        leaves = [layer[n] for name in ("block1", "block3", "alpha")
+                  for layer in p[name] for n in ("w", "b")]
+        f, a = fn(*xs, p, spec)
+        return torch.autograd.grad((f * gf).sum() + (a * ga).sum(),
+                                   xs + leaves)
+    for a, b in zip(grads_of(fused_decode_plain), list(gt[:4]) + flat):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= F32_TOL * max(scale, 1e-12)
+    for a, b in zip(grads_of(fused_decode), list(gt[:4]) + flat):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [4, 8])
+def test_fused_decode_bwd_plain_matches_jax_bf16(K):
+    """bf16: both backwards round inputs, activations, weights and every g_z
+    at the same places, but a neighboring bf16 value after a last-bit f32
+    difference carries through the layers (readings on these inputs: at most
+    4.6e-3 of a leaf's scale over K in {4, 8} and seeds 1-3). Bar 2e-2, as
+    for the bf16 forward; the control, the f32 plain backward in place of
+    the bf16 one, lands above it (readings 0.17 to 0.41)."""
+    ins, tp, spec, gf, ga, gj = _bwd_case(K, bf16=True, seed=2)
+    err = max(_rel_errs(fused_decode_bwd_plain(*ins, tp, spec, gf, ga), gj))
+    control = max(_rel_errs(fused_decode_bwd_plain(
+        *ins, tp, spec._replace(bf16=False), gf, ga), gj))
+    assert err <= BF16_TOL < control
 
 
 def _run_both(cfg, params, sp, sl, slw, rd, fused):

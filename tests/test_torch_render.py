@@ -149,18 +149,38 @@ def test_out_of_slice_configs_raise():
                                              nerf_importance=4)), "hybrid")):
         with pytest.raises(NotImplementedError, match=match):
             tr.check_envelope(cfg.replace(**bad), dev)
-    with pytest.raises(NotImplementedError, match="training"):
-        tr.check_envelope(cfg, dev, train=True)
-    # on the card the unfused formulations are refused, never run plain
+    # training is accepted: on the CPU in both formulations, on the card
+    # with the fused decode (the march is the plain one in training, as in
+    # JAX, so fused_march may be off there)
     plain = tc.PointNeRFConfig.from_json(_cfg(fused=False).to_json())
+    tr.check_envelope(cfg, dev, train=True)
+    tr.check_envelope(plain, dev, train=True)
+    tr.check_envelope(cfg, torch.device("cuda"), train=True)
+    tr.check_envelope(cfg.replace(render=dataclasses.replace(
+        cfg.render, fused_march=False)), torch.device("cuda"), train=True)
+    # on the card the unfused formulations are refused, never run plain
     with pytest.raises(NotImplementedError, match="unfused decode"):
         tr.check_envelope(plain, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="unfused decode"):
+        tr.check_envelope(plain, torch.device("cuda"), train=True)
     # past K3's own limits the card refuses up front, naming the slice
     tr.check_envelope(cfg, torch.device("cuda"))
     wide = cfg.replace(agg=dataclasses.replace(cfg.agg,
                                                shading_feature_num=512))
     with pytest.raises(NotImplementedError, match="decode envelope"):
         tr.check_envelope(wide, torch.device("cuda"))
+    # K4 keeps every layer's input of a tile in shared memory: eight
+    # 256-wide layers fit K3 but not K4, so the card serves them and
+    # refuses to train them
+    deep = tc.bench_config()
+    deep = deep.replace(
+        agg=dataclasses.replace(deep.agg, fused_decode=True,
+                                shading_feature_mlp_layer1=4,
+                                shading_feature_mlp_layer3=4),
+        render=dataclasses.replace(deep.render, fused_march=True))
+    tr.check_envelope(deep, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match=r"K3, K4.*decode envelope"):
+        tr.check_envelope(deep, torch.device("cuda"), train=True)
 
 
 def test_camera_and_gather_match_jax():
