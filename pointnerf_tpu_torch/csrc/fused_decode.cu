@@ -10,15 +10,13 @@
 //   h   = leaky(h @ W + b) through block1, then h = [h | extras] and block3
 //   za  = h . wa + ba;  alpha_pp = softplus(za - 1)
 //   fagg[g]  = sum_k h[g*K+k] * w[g*K+k];  alpha[g] = sum_k alpha_pp * w
-// In bf16 mode (bf16 != 0) feat, dists, extras, w, x and every hidden h are
-// rounded to bf16 (round to nearest even), the block weights arrive already
-// rounded, products accumulate in f32, and the alpha head stays f32 — the
-// rounding points of the JAX kernel.
+// This is the f32 route (`spec.bf16` false): no value is rounded. The bf16
+// route, with the JAX kernel's rounding points, is csrc/fused_decode_tc.cu.
 //
 // Bound on the H100: operations. At bench_config (x1 = 284, H = 256, two
 // block1 and two block3 layers) a row costs ~0.54 MFLOP against ~0.3 KB of
-// input, so M = 290,816 rows is ~158 GFLOP: 0.16 ms at the 989 TFLOP/s bf16
-// tensor-core peak, 2.4 ms at the 67 TFLOP/s f32 CUDA-core peak.
+// input, so M = 290,816 rows is ~158 GFLOP: 2.4 ms at the 67 TFLOP/s f32
+// CUDA-core peak.
 //
 // Design (a first, simple kernel): one CTA of 256 threads per tile of 64
 // rows (a multiple of K, so the K-reduction stays in the CTA). The tile's
@@ -28,7 +26,6 @@
 // column block, which stays L1/L2-resident (the weights are < 1.2 MB). The
 // products run on CUDA cores in f32, which is what bounds this version: a
 // tensor-core (mma/wgmma) version is later work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -43,10 +40,6 @@ struct Net {
   const float* b[kMaxLayers];
 };
 
-__device__ __forceinline__ float round_bf16(float v, bool on) {
-  return on ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
 // out[r][col] = act(in[r][:in_dim] @ W[:, col] + b[col]) for the tile.
 template <int NJ>
 __device__ __forceinline__ void dense_layer(const float* __restrict__ in_s,
@@ -54,7 +47,7 @@ __device__ __forceinline__ void dense_layer(const float* __restrict__ in_s,
                                             const float* __restrict__ W,
                                             const float* __restrict__ bias,
                                             int H, float* __restrict__ out_s,
-                                            float slope, bool bf16) {
+                                            float slope) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 8;
   float acc[8][NJ];
@@ -81,7 +74,7 @@ __device__ __forceinline__ void dense_layer(const float* __restrict__ in_s,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const float z = acc[r][j] + bj;
-      out_s[(r0 + r) * stride + col] = round_bf16(z > 0.f ? z : z * slope, bf16);
+      out_s[(r0 + r) * stride + col] = z > 0.f ? z : z * slope;
     }
   }
 }
@@ -94,13 +87,12 @@ fused_decode_kernel(const float* __restrict__ feat,
                     const float* __restrict__ w, Net net, int L1, int L3,
                     const float* __restrict__ wa, const float* __restrict__ ba,
                     int M, int Fi, int Dd, int E, int Ff, int Fd, int H,
-                    int K, float slope, int bf16_flag, int stride,
+                    int K, float slope, int stride,
                     float* __restrict__ fagg, float* __restrict__ alpha) {
   extern __shared__ float smem[];
   // ping-pong activation buffers: buf(0) = smem, buf(1) = smem + tile
   auto buf = [&](int i) { return smem + i * kRows * stride; };
   __shared__ float aw_s[kRows];
-  const bool bf16 = bf16_flag != 0;
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
   const int x1 = Fi + 2 * Ff * Fi + (Fd > 0 ? 2 * Fd * Dd : Dd);
@@ -112,24 +104,22 @@ fused_decode_kernel(const float* __restrict__ feat,
     float v = 0.f;
     if (m < M) {
       if (c < Fi) {
-        v = round_bf16(feat[(size_t)m * Fi + c], bf16);
+        v = feat[(size_t)m * Fi + c];
       } else if (c < Fi + 2 * Ff * Fi) {
         const int q = c - Fi;  // (d * Ff + f) * 2 + s
         const int d = q / (2 * Ff), f = (q >> 1) % Ff;
-        const float base = round_bf16(feat[(size_t)m * Fi + d], bf16) *
-                           (float)(1 << f);
+        const float base = feat[(size_t)m * Fi + d] * (float)(1 << f);
         v = (q & 1) ? cosf(base) : sinf(base);
       } else if (Fd > 0) {
         const int q = c - Fi - 2 * Ff * Fi;
         const int d = q / (2 * Fd), f = (q >> 1) % Fd;
-        const float base = round_bf16(dists[(size_t)m * Dd + d], bf16) *
-                           (float)(1 << f);
+        const float base = dists[(size_t)m * Dd + d] * (float)(1 << f);
         v = (q & 1) ? cosf(base) : sinf(base);
       } else {
-        v = round_bf16(dists[(size_t)m * Dd + (c - Fi - 2 * Ff * Fi)], bf16);
+        v = dists[(size_t)m * Dd + (c - Fi - 2 * Ff * Fi)];
       }
     }
-    buf(0)[r * stride + c] = round_bf16(v, bf16);
+    buf(0)[r * stride + c] = v;
   }
   __syncthreads();
 
@@ -141,13 +131,13 @@ fused_decode_kernel(const float* __restrict__ feat,
         const int r = i / E, c = i - r * E;
         const int m = row0 + r;
         buf(cur)[r * stride + H + c] =
-            m < M ? round_bf16(extras[(size_t)m * E + c], bf16) : 0.f;
+            m < M ? extras[(size_t)m * E + c] : 0.f;
       }
       __syncthreads();
       in_dim = H + E;
     }
     dense_layer<NJ>(buf(cur), in_dim, stride, net.W[l], net.b[l], H,
-                    buf(cur ^ 1), slope, bf16);
+                    buf(cur ^ 1), slope);
     __syncthreads();
     cur ^= 1;
     in_dim = H;
@@ -160,7 +150,7 @@ fused_decode_kernel(const float* __restrict__ feat,
     float* hs = buf(cur);
     for (int r = 0; r < 8; ++r) {
       const int m = row0 + r0 + r;
-      const float wr = m < M ? round_bf16(w[m], bf16) : 0.f;
+      const float wr = m < M ? w[m] : 0.f;
       float part = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -205,7 +195,7 @@ template <int NJ>
 int launch(const float* feat, const float* dists, const float* extras,
            const float* w, const Net& net, int L1, int L3, const float* wa,
            const float* ba, int M, int Fi, int Dd, int E, int Ff, int Fd,
-           int H, int K, float slope, int bf16, float* fagg, float* alpha,
+           int H, int K, float slope, float* fagg, float* alpha,
            cudaStream_t s) {
   const int x1 = Fi + 2 * Ff * Fi + (Fd > 0 ? 2 * Fd * Dd : Dd);
   const int stride = (x1 > H + E ? x1 : H + E) + 1;
@@ -217,7 +207,7 @@ int launch(const float* feat, const float* dists, const float* extras,
   const dim3 grid((M + kRows - 1) / kRows);
   fused_decode_kernel<NJ><<<grid, kThreads, smem, s>>>(
       feat, dists, extras, w, net, L1, L3, wa, ba, M, Fi, Dd, E, Ff, Fd, H, K,
-      slope, bf16, stride, fagg, alpha);
+      slope, stride, fagg, alpha);
   return (int)cudaGetLastError();
 }
 
@@ -229,7 +219,7 @@ extern "C" int fused_decode_launch(const float* feat, const float* dists,
                                    const void* const* bs, int L1, int L3,
                                    const float* wa, const float* ba, int M,
                                    int Fi, int Dd, int E, int Ff, int Fd,
-                                   int H, int K, float slope, int bf16,
+                                   int H, int K, float slope,
                                    float* fagg, float* alpha, void* stream) {
   if (M == 0) return 0;
   if (L1 + L3 > kMaxLayers || H % 32 != 0 || H > 256 || kRows % K != 0)
@@ -244,7 +234,7 @@ extern "C" int fused_decode_launch(const float* feat, const float* dists,
 #define PNT_CASE(n)                                                          \
   case n:                                                                    \
     return launch<n>(feat, dists, extras, w, net, L1, L3, wa, ba, M, Fi, Dd, \
-                     E, Ff, Fd, H, K, slope, bf16, fagg, alpha, s);
+                     E, Ff, Fd, H, K, slope, fagg, alpha, s);
     PNT_CASE(1) PNT_CASE(2) PNT_CASE(3) PNT_CASE(4)
     PNT_CASE(5) PNT_CASE(6) PNT_CASE(7) PNT_CASE(8)
 #undef PNT_CASE

@@ -17,16 +17,14 @@
 //   slice, and the PE backward to g_feat and g_dists in the interleaved
 //   (sin, cos) per (channel, freq) layout of ops/pe.py, so the first block1
 //   dW comes out in the JAX parameter layout.
-// In bf16 mode (bf16 != 0) the rounding points are the JAX kernel's: feat,
-// dists, extras, w, x and every hidden activation are bf16 values, the block
-// weights arrive rounded, and every g_z is rounded to bf16 before its two
-// products (dW and g_h); db, the alpha head, the PE backward and all
-// accumulation stay f32.
+// This is the f32 route (`spec.bf16` false): no value is rounded. The bf16
+// route, with the JAX kernel's rounding points, is
+// csrc/fused_decode_bwd_tc.cu.
 //
 // Bound on the H100: operations. A row costs the forward again (~0.54 MFLOP
 // at bench_config) plus as much for dW and for the input gradients, ~1.63
-// MFLOP; M = 290,816 rows is ~473 GFLOP: ~0.5 ms at the 989 TFLOP/s bf16
-// tensor-core peak, ~7 ms at the 67 TFLOP/s f32 CUDA-core peak.
+// MFLOP; M = 290,816 rows is ~473 GFLOP: ~7 ms at the 67 TFLOP/s f32
+// CUDA-core peak.
 //
 // Design (a simple kernel on CUDA cores, f32 FMA): persistent CTAs of 256
 // threads, as many as fit on the card at once, each walking tiles of 32 rows
@@ -44,7 +42,6 @@
 // 4 input rows x 8 columns and sums over the tile's 32 rows. Layer widths are
 // padded to a multiple of 4 in shared memory and in the weights the wrapper
 // passes (zero rows of W, zero columns of W^T). Tensor cores are later work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -55,8 +52,7 @@ constexpr int kThreads = 256;      // 8 warps
 constexpr int kMaxLayers = 8;
 
 struct Net {
-  const float* W[kMaxLayers];   // [inp, H], zero rows past in; bf16 values in
-                                // bf16 mode
+  const float* W[kMaxLayers];   // [inp, H], zero rows past in
   const float* WT[kMaxLayers];  // [H, inp], the same weights transposed
   const float* b[kMaxLayers];
 };
@@ -73,10 +69,6 @@ struct Dims {
   int pwa, pba, P;          // dwa, dba, floats of dW/db/dwa/dba
   int Ps;                   // P rounded up to 4: the stride of CTA slices
 };
-
-__device__ __forceinline__ float round_bf16(float v, bool on) {
-  return on ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -138,7 +130,7 @@ __device__ __forceinline__ void forward_layer(const float* __restrict__ in_s,
                                               int H, float* __restrict__ out_s,
                                               int ostride,
                                               unsigned* __restrict__ mask_s,
-                                              float slope, bool bf16) {
+                                              float slope) {
   const int r0 = (threadIdx.x >> 6) * 8;
   const int c0 = (threadIdx.x & 63) * 4;
   if (c0 >= H) return;
@@ -155,7 +147,7 @@ __device__ __forceinline__ void forward_layer(const float* __restrict__ in_s,
     for (int j = 0; j < 4; ++j) {
       const float z = acc[r][j] + bj[j];
       bits |= (z > 0.f ? 1u : 0u) << j;
-      o[j] = round_bf16(z > 0.f ? z : z * slope, bf16);
+      o[j] = z > 0.f ? z : z * slope;
     }
     st4(out_s + (r0 + r) * ostride + c0, make_float4(o[0], o[1], o[2], o[3]));
     atomicOr(mask_s + (r0 + r) * HW + (c0 >> 5), bits << (c0 & 31));
@@ -234,13 +226,12 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
                         const float* __restrict__ ba,
                         const float* __restrict__ gf,
                         const float* __restrict__ ga, Dims d, float slope,
-                        int bf16_flag, float* __restrict__ g_feat,
+                        float* __restrict__ g_feat,
                         float* __restrict__ g_dists,
                         float* __restrict__ g_extras,
                         float* __restrict__ g_w, float* __restrict__ partials) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const bool bf16 = bf16_flag != 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int L = d.L1 + d.L3;
@@ -277,30 +268,28 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
       float v = 0.f;
       if (m < M) {
         if (c < Fi) {
-          v = round_bf16(feat[(size_t)m * Fi + c], bf16);
+          v = feat[(size_t)m * Fi + c];
         } else if (c < Fi + 2 * Ff * Fi) {
           const int q = c - Fi;  // (ch * Ff + f) * 2 + s
           const int ch = q / (2 * Ff), f = (q >> 1) % Ff;
-          const float base = round_bf16(feat[(size_t)m * Fi + ch], bf16) *
-                             (float)(1 << f);
+          const float base = feat[(size_t)m * Fi + ch] * (float)(1 << f);
           v = (q & 1) ? cosf(base) : sinf(base);
         } else if (Fd > 0) {
           const int q = c - Fi - 2 * Ff * Fi;
           const int ch = q / (2 * Fd), f = (q >> 1) % Fd;
-          const float base = round_bf16(dists[(size_t)m * Dd + ch], bf16) *
-                             (float)(1 << f);
+          const float base = dists[(size_t)m * Dd + ch] * (float)(1 << f);
           v = (q & 1) ? cosf(base) : sinf(base);
         } else {
-          v = round_bf16(dists[(size_t)m * Dd + (c - Fi - 2 * Ff * Fi)], bf16);
+          v = dists[(size_t)m * Dd + (c - Fi - 2 * Ff * Fi)];
         }
       }
-      X[r * s0 + c] = round_bf16(v, bf16);
+      X[r * s0 + c] = v;
     }
     for (int i = tid; i < kRows * E; i += kThreads) {
       const int r = i / E, c = i - r * E;
       const int m = row0 + r;
       X3[r * s3 + H + c] =
-          m < M ? round_bf16(extras[(size_t)m * E + c], bf16) : 0.f;
+          m < M ? extras[(size_t)m * E + c] : 0.f;
     }
     for (int i = tid; i < L * kRows * HW; i += kThreads) masks[i] = 0u;
     __syncthreads();
@@ -312,7 +301,7 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
       float* out_s = l + 1 < L ? smem + kRows * d.act_off[l + 1] : G;
       const int ostride = l + 1 < L ? d.inp[l + 1] : H;
       forward_layer(in_s, d.inp[l], net.W[l], net.b[l], H, out_s, ostride,
-                    masks + l * kRows * HW, slope, bf16);
+                    masks + l * kRows * HW, slope);
       __syncthreads();
     }
 
@@ -333,7 +322,7 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
         pg += __shfl_xor_sync(0xffffffffu, pg, off);
       }
       if (lane == 0) {
-        const float wr = valid ? round_bf16(w[m], bf16) : 0.f;
+        const float wr = valid ? w[m] : 0.f;
         const float gav = valid ? ga[m / K] : 0.f;
         const float x = pa + __ldg(ba) - 1.f;
         const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -375,7 +364,7 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
           const float gz =
               gh[r * ghs + c] * (((bits >> (c & 31)) & 1u) ? 1.f : slope);
           s += gz;
-          G[r * H + c] = round_bf16(gz, bf16);
+          G[r * H + c] = gz;
         }
         accum(part + d.pb[l] + c, s, first);
       }
@@ -399,7 +388,7 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
       const int m = row0 + r;
       if (m >= M) continue;
       const float* gx = GX + r * gxs;
-      const float fv = round_bf16(feat[(size_t)m * Fi + ch], bf16);
+      const float fv = feat[(size_t)m * Fi + ch];
       float g = gx[ch];
       for (int f = 0; f < Ff; ++f) {
         const float sc = (float)(1 << f);
@@ -416,7 +405,7 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
       const float* gx = GX + r * gxs + Fi + 2 * Ff * Fi;
       float g;
       if (Fd > 0) {
-        const float dv = round_bf16(dists[(size_t)m * Dd + ch], bf16);
+        const float dv = dists[(size_t)m * Dd + ch];
         g = 0.f;
         for (int f = 0; f < Fd; ++f) {
           const float sc = (float)(1 << f);
@@ -520,7 +509,7 @@ extern "C" int fused_decode_bwd_launch(
     const float* w, const void* const* Ws, const void* const* WTs,
     const void* const* bs, int L1, int L3, const float* wa, const float* ba,
     const float* g_fagg, const float* g_alpha, int M, int Fi, int Dd, int E,
-    int Ff, int Fd, int H, int K, float slope, int bf16, float* g_feat,
+    int Ff, int Fd, int H, int K, float slope, float* g_feat,
     float* g_dists, float* g_extras, float* g_w, float* partials, int nblocks,
     float* dparams, void* stream) {
   const Dims d = make_dims(M, Fi, Dd, E, Ff, Fd, H, K, L1, L3);
@@ -537,7 +526,7 @@ extern "C" int fused_decode_bwd_launch(
   int e = set_smem(d);
   if (e) return e;
   fused_decode_bwd_kernel<<<nblocks, kThreads, smem_bytes(d), s>>>(
-      feat, dists, extras, w, net, wa, ba, g_fagg, g_alpha, d, slope, bf16,
+      feat, dists, extras, w, net, wa, ba, g_fagg, g_alpha, d, slope,
       g_feat, g_dists, g_extras, g_w, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -90,7 +90,10 @@ def check_envelope(cfg: PointNeRFConfig, device: torch.device,
             raise not_ported("the unfused decode on CUDA (set "
                              "agg.fused_decode inside its envelope)",
                              "Queue 1, decode: unfused formulations")
-        spec = decode_spec(cfg.agg, cfg.query.K, bf16=False)
+        # the route the config decodes on: tensor cores in bf16, CUDA
+        # cores in f32
+        spec = decode_spec(cfg.agg, cfg.query.K,
+                           bf16=cfg.train.compute_dtype == "bf16")
         if not kernel_takes(spec, backward=train):
             what = "decode kernels (K3, K4)" if train else "decode kernel"
             raise not_ported(f"the fused {what} at H={spec.H}, "

@@ -7,9 +7,10 @@ Hopper only:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC [per-kernel flags] -o build/kernels/<name>-<hash>.so
 
-The library name carries a hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads at once. `build()` starts one nvcc per
-source, all together, and waits for them. The build directory lies in the
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once. `build()` starts one nvcc per source, all
+together, and waits for them. The build directory lies in the
 checkout and is listed in `.gitignore`.
 """
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("knn_select", "fused_march", "fused_decode", "fused_decode_bwd")
+KERNELS = ("knn_select", "fused_march", "fused_decode", "fused_decode_bwd",
+           "fused_decode_tc", "fused_decode_bwd_tc")
 
 # -Xptxas=-v puts each kernel's registers, shared memory and spills into
 # the build log that build() returns
@@ -41,6 +43,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "fused_march": ["-fmad=false"],
     "fused_decode": [],
     "fused_decode_bwd": [],
+    "fused_decode_tc": [],
+    "fused_decode_bwd_tc": [],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -66,7 +70,9 @@ def _flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers of csrc/ count as part of every source
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

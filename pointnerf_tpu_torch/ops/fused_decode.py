@@ -2,9 +2,9 @@
 per-point alpha -> weighted K-reduction, per neighbor row — and its backward.
 
 Replaces `pointnerf_tpu/ops/pallas_decode.py::fused_decode`: the forward
-(`_fwd_impl` / `_fwd_kernel` / `_forward_tile` / `_build_x`) is K3,
-`csrc/fused_decode.cu`; the custom-VJP backward (`_bwd_rule` /
-`_bwd_kernel`) is K4, `csrc/fused_decode_bwd.cu`. `fused_decode` is a
+(`_fwd_impl` / `_fwd_kernel` / `_forward_tile` / `_build_x`) is K3, the
+custom-VJP backward (`_bwd_rule` / `_bwd_kernel`) is K4, each a CUDA kernel
+on one of two routes (below). `fused_decode` is a
 `torch.autograd.Function` when a gradient is wanted: its forward launches K3
 and its backward K4 for CUDA tensors; for CPU tensors they run
 `fused_decode_plain` and `fused_decode_bwd_plain`.
@@ -23,11 +23,19 @@ weight. The backward also rounds every g_z to bf16 before its two products.
 The weights enter as f32 tensors and their gradients come back in f32: the
 bf16 cast is straight-through for dW, as in JAX where `_prep_weights` runs
 inside the custom VJP. Both versions here round at the same places.
+
+Two routes on the card, picked by `spec.bf16`. bf16 (the main paths) runs
+the tensor-core kernels `csrc/fused_decode_tc.cu` (K3) and
+`csrc/fused_decode_bwd_tc.cu` (K4), which take the block weights packed by
+`pack_tc_weights`; f32 runs `csrc/fused_decode.cu` and
+`csrc/fused_decode_bwd.cu` on CUDA cores (tensor cores would add a TF32
+rounding point there). A spec past a route's limits (`kernel_takes`) raises;
+it never runs on the other route.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +46,15 @@ TILE_ROWS = 64          # rows per CTA in csrc/fused_decode.cu
 TILE_ROWS_BWD = 32      # rows per tile in csrc/fused_decode_bwd.cu
 MAX_LAYERS = 8          # L1 + L3 the kernels' parameter blocks hold
 SMEM_BYTES = 232448     # per-block shared memory the H100 grants
+# the tensor-core kernels (csrc/decode_tc.cuh and its two users)
+TC_ROWS = 64            # rows per CTA of K3 (fused_decode_tc.cu)
+TC_ROWS_BWD = 64        # rows per tile of K4's phase A (fused_decode_bwd_tc.cu)
+TC_KC = 32              # weight rows per streamed chunk; layer inputs pad to it
+TC_STAGES = 3           # depth of the weight ring
+TC_MAX_IN = 320         # widest padded layer input
+TC_PAD = 8              # bf16 row padding in shared memory
+TC_BN = 64              # K4 phase B: dW columns per CTA
+TC_SPLITS = 16          # K4 phase B: row splits of dW, summed in order
 
 
 class DecodeSpec(NamedTuple):
@@ -93,15 +110,23 @@ def _softplus(x):
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _weights_as(params: Dict, spec: DecodeSpec, dtype):
+    Ws, bs, wa, ba = prep_weights(params, spec)
+    return ([t.to(dtype) for t in Ws], [t.to(dtype) for t in bs],
+            wa.to(dtype), ba.to(dtype))
+
+
 def fused_decode_plain(feat, dists, extras, w, params: Dict,
-                       spec: DecodeSpec):
+                       spec: DecodeSpec, dtype=torch.float32):
     """Plain PyTorch version. feat [M, Fi], dists [M, Dd], extras [M, E],
     w [M, 1] (weight * conf, zero on masked rows). Returns (fagg [M/K, H],
-    alpha [M/K, 1]), f32."""
-    r = lambda t: _round(t.float(), spec.bf16)   # noqa: E731
+    alpha [M/K, 1]), f32. `dtype` is the type its products and sums run in:
+    float32, or float64 for a reference whose sums do not depend on their
+    order (the rounding points stay where they are)."""
+    r = lambda t: _round(t.float(), spec.bf16).to(dtype)   # noqa: E731
     feat, dists, extras, w = r(feat), r(dists), r(extras), r(w)
-    Ws, bs, wa, ba = prep_weights(params, spec)
-    h = r(build_x(feat, dists, spec))
+    Ws, bs, wa, ba = _weights_as(params, spec, dtype)
+    h = r(build_x(feat.float(), dists.float(), spec))
     for i in range(spec.L1 + spec.L3):
         if i == spec.L1:
             h = torch.cat([h, extras], -1)
@@ -112,21 +137,23 @@ def fused_decode_plain(feat, dists, extras, w, params: Dict,
     G = M // spec.K
     fagg = (h * w).view(G, spec.K, spec.H).sum(1)
     alpha = (alpha_pp * w).view(G, spec.K).sum(1, keepdim=True)
-    return fagg, alpha
+    return fagg.float(), alpha.float()
 
 
 def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
-                           spec: DecodeSpec, g_fagg, g_alpha):
+                           spec: DecodeSpec, g_fagg, g_alpha,
+                           dtype=torch.float32):
     """Plain PyTorch version of the backward, written out line for line
     after the JAX `_bwd_kernel` (autograd of `fused_decode_plain` would round
     the gradient at every bf16 cast, which JAX does not do). g_fagg [M/K, H],
     g_alpha [M/K, 1]. Returns (g_feat, g_dists, g_extras, g_w, g_params), f32,
-    g_params in the layout of `params` (block1 / block3 / alpha)."""
-    r = lambda t: _round(t.float(), spec.bf16)   # noqa: E731
+    g_params in the layout of `params` (block1 / block3 / alpha). `dtype`
+    as for `fused_decode_plain`."""
+    r = lambda t: _round(t.float(), spec.bf16).to(dtype)   # noqa: E731
     feat, dists, extras, w = r(feat), r(dists), r(extras), r(w)
-    Ws, bs, wa, ba = prep_weights(params, spec)
+    Ws, bs, wa, ba = _weights_as(params, spec, dtype)
     L, H, K = spec.L1 + spec.L3, spec.H, spec.K
-    h = r(build_x(feat, dists, spec))
+    h = r(build_x(feat.float(), dists.float(), spec))
     acts, zs = [], []
     for i in range(L):
         if i == spec.L1:
@@ -134,8 +161,8 @@ def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
         acts.append(h)
         zs.append(h @ Ws[i] + bs[i])
         h = r(_leaky(zs[-1], spec.neg_slope))
-    g_f = g_fagg.float().repeat_interleave(K, 0)                  # [M, H]
-    g_a = g_alpha.float().reshape(-1, 1).repeat_interleave(K, 0)  # [M, 1]
+    g_f = g_fagg.to(dtype).repeat_interleave(K, 0)                  # [M, H]
+    g_a = g_alpha.to(dtype).reshape(-1, 1).repeat_interleave(K, 0)  # [M, 1]
     za = (h * wa).sum(-1, keepdim=True) + ba
     g_w = (h * g_f).sum(-1, keepdim=True) + _softplus(za - 1.0) * g_a
     g_za = g_a * w * torch.sigmoid(za - 1.0)
@@ -170,10 +197,12 @@ def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
                                               - pd[..., f, 1] * torch.sin(b))
     else:
         g_dists = g_h[:, off:off + Dd]
-    g_params = _unflatten([t for i in range(L) for t in (dWs[i], dbs[i])]
-                          + [dwa.reshape(H, 1), dba.reshape(1)], spec)
-    return (g_feat.contiguous(), g_dists.contiguous(), g_extras.contiguous(),
-            g_w, g_params)
+    g_params = _unflatten([t.float() for i in range(L)
+                           for t in (dWs[i], dbs[i])]
+                          + [dwa.reshape(H, 1).float(),
+                             dba.reshape(1).float()], spec)
+    return (g_feat.float().contiguous(), g_dists.float().contiguous(),
+            g_extras.float().contiguous(), g_w.float(), g_params)
 
 
 def _flatten(params: Dict) -> List[torch.Tensor]:
@@ -203,7 +232,7 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     return _argtypes(_build.load("fused_decode").fused_decode_launch,
                      [_VP] * 6 + [_CI, _CI, _VP, _VP] + [_CI] * 8
-                     + [_CF, _CI, _VP, _VP, _VP])
+                     + [_CF, _VP, _VP, _VP])
 
 
 def smem_bytes(spec: DecodeSpec) -> int:
@@ -232,14 +261,73 @@ def bwd_smem_bytes(spec: DecodeSpec) -> int:
                 + 2 * TILE_ROWS_BWD)
 
 
+def tc_pads(spec: DecodeSpec) -> List[int]:
+    """Each layer's input width padded to a multiple of TC_KC (`kp` of
+    csrc/decode_tc.cuh)."""
+    return [-(-n // TC_KC) * TC_KC for n in layer_inputs(spec)]
+
+
+def tc_smem_bytes(spec: DecodeSpec) -> int:
+    """Shared memory of one K3 tensor-core CTA (`smem_bytes` in
+    fused_decode_tc.cu): the tile's bf16 activations, the weight ring and two
+    per-row floats."""
+    kmax = max(tc_pads(spec))
+    return (2 * (TC_ROWS * (kmax + TC_PAD)
+                 + TC_STAGES * TC_KC * (spec.H + TC_PAD))
+            + 4 * 2 * TC_ROWS)
+
+
+def tc_bwd_smem_bytes(spec: DecodeSpec) -> Tuple[int, int]:
+    """Shared memory of one CTA of K4's phase A and of its phase B
+    (`shape_a` and `smem_b` in fused_decode_bwd_tc.cu). Phase A: bf16
+    activations sharing their bytes with the f32 input gradients, the bf16
+    g_zr, the z-sign bits, the weight ring (a forward chunk or a W^T block,
+    whichever is larger) and two per-row floats. Phase B: two stages of a
+    tile's layer input and a 64-column slice of its g_zr."""
+    H, R = spec.H, TC_ROWS_BWD
+    kmax = max(tc_pads(spec))
+    u = max(2 * R * (kmax + TC_PAD), 4 * R * (kmax + 4))
+    ring_at = u + 2 * R * (H + TC_PAD) + 4 * (spec.L1 + spec.L3) * R * (H // 32)
+    ring_at = -(-ring_at // 16) * 16
+    stage = max(TC_KC * (H + TC_PAD), kmax * (TC_KC + TC_PAD))
+    a = ring_at + 2 * TC_STAGES * stage + 4 * 2 * R
+    b = 2 * 2 * R * ((kmax + TC_PAD) + (TC_BN + TC_PAD))
+    return a, b
+
+
+def pack_tc_weights(Ws: List[torch.Tensor], spec: DecodeSpec) -> torch.Tensor:
+    """The block weights as the tensor-core kernels stream them, one bf16
+    buffer: the forward stream (each W_l [in_l, H] zero-padded to
+    [kp_l, H], layer after layer), then the backward stream (per layer, the
+    column blocks W_l[:, 32j:32j+32] as contiguous [kp_l, 32] blocks)."""
+    padded = [torch.nn.functional.pad(W.to(torch.bfloat16),
+                                      (0, 0, 0, kp - W.shape[0]))
+              for W, kp in zip(Ws, tc_pads(spec))]
+    fwd = [p.reshape(-1) for p in padded]
+    bwd = [p.view(p.shape[0], spec.H // TC_KC, TC_KC).permute(1, 0, 2)
+           .reshape(-1) for p in padded]
+    return torch.cat(fwd + bwd)
+
+
 def kernel_takes(spec: DecodeSpec, backward: bool = False) -> bool:
-    """True when csrc/fused_decode.cu can run this spec (and, with
-    `backward`, csrc/fused_decode_bwd.cu too): whole K-groups per forward
-    tile, H a multiple of 32 up to 256, 1 to MAX_LAYERS block layers, and
-    the tiles inside the shared memory of one block."""
-    fwd = not (TILE_ROWS % spec.K or spec.H % 32 or spec.H > 256
-               or spec.L1 + spec.L3 > MAX_LAYERS or spec.L1 < 1
-               or spec.L3 < 1 or smem_bytes(spec) > SMEM_BYTES)
+    """True when the route of this spec can run it on the card, the forward
+    (and, with `backward`, the backward too). Both routes: H a multiple of
+    32 up to 256, 1 to MAX_LAYERS block layers, whole K-groups per tile.
+    f32 (csrc/fused_decode.cu, fused_decode_bwd.cu): 64 % K == 0 and the
+    tiles within the shared memory of one block. bf16 (the tensor-core
+    kernels): 64 % K == 0 (the tiles of both), H >= 32, every
+    padded layer input at most TC_MAX_IN, and each kernel's shared memory
+    within one block's."""
+    common = not (spec.H % 32 or spec.H > 256 or spec.L1 < 1 or spec.L3 < 1
+                  or spec.L1 + spec.L3 > MAX_LAYERS or TILE_ROWS % spec.K)
+    if not common:
+        return False
+    if spec.bf16:
+        if spec.H < 32 or max(tc_pads(spec)) > TC_MAX_IN \
+                or tc_smem_bytes(spec) > SMEM_BYTES:
+            return False
+        return not backward or max(tc_bwd_smem_bytes(spec)) <= SMEM_BYTES
+    fwd = smem_bytes(spec) <= SMEM_BYTES
     return fwd and (not backward or bwd_smem_bytes(spec) <= SMEM_BYTES)
 
 
@@ -261,12 +349,21 @@ def _check(feat, dists, extras, w, spec: DecodeSpec):
 
 
 def _refuse(spec: DecodeSpec, backward: bool):
-    if not kernel_takes(spec, backward):
+    if kernel_takes(spec, backward):
+        return
+    s = "s do" if backward else " does"
+    if spec.bf16:
         raise ValueError(
-            f"fused_decode: the CUDA kernel{'s do' if backward else ' does'} "
-            f"not take {spec} (needs 64 % K == 0, H % 32 == 0, H <= 256, "
-            f"L1, L3 >= 1, L1 + L3 <= {MAX_LAYERS}, tiles within "
+            f"fused_decode: the tensor-core kernel{s} not take {spec} "
+            f"(bf16 route; needs 64 % K == 0, H % 32 == 0, 32 <= H <= 256, "
+            f"L1, L3 >= 1, L1 + L3 <= {MAX_LAYERS}, every layer input "
+            f"padded to {TC_KC} at most {TC_MAX_IN} wide, tiles within "
             f"{SMEM_BYTES} bytes of shared memory)")
+    raise ValueError(
+        f"fused_decode: the CUDA kernel{s} not take {spec} (f32 route; "
+        f"needs 64 % K == 0, H % 32 == 0, H <= 256, L1, L3 >= 1, "
+        f"L1 + L3 <= {MAX_LAYERS}, tiles within {SMEM_BYTES} bytes of "
+        f"shared memory)")
 
 
 def _device_weights(params: Dict, spec: DecodeSpec, dev):
@@ -295,16 +392,75 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
                        device=dev)
     alpha = torch.empty((M // spec.K, 1), dtype=torch.float32, device=dev)
     p = _build.ptr
-    wp, _keep_w = _ptrs(Ws)
-    bp, _keep_b = _ptrs(bs)
-    err = _lib()(p(feat), p(dists), p(extras), p(w), wp, bp, spec.L1,
-                 spec.L3, p(wa), p(ba), M, spec.Fi, spec.Dd, spec.E, spec.Ff,
-                 spec.Fd, spec.H, spec.K, float(spec.neg_slope),
-                 int(spec.bf16), p(fagg), p(alpha),
-                 _build.stream_handle(dev))
-    _build.check(err, "fused_decode")
-    fused_decode.launches += 1
+    if spec.bf16:
+        Wt, bias = pack_tc_weights(Ws, spec), torch.cat(bs)
+        err = _tc_lib("fused_decode_tc_launch")(
+            p(feat), p(dists), p(extras), p(w), p(Wt), p(bias), p(wa), p(ba),
+            M, *_dims(spec), float(spec.neg_slope), p(fagg), p(alpha),
+            _build.stream_handle(dev))
+        _build.check(err, "fused_decode (tensor cores)")
+    else:
+        wp, _keep_w = _ptrs(Ws)
+        bp, _keep_b = _ptrs(bs)
+        err = _lib()(p(feat), p(dists), p(extras), p(w), wp, bp, spec.L1,
+                     spec.L3, p(wa), p(ba), M, spec.Fi, spec.Dd, spec.E,
+                     spec.Ff, spec.Fd, spec.H, spec.K, float(spec.neg_slope),
+                     p(fagg), p(alpha),
+                     _build.stream_handle(dev))
+        _build.check(err, "fused_decode")
+    _count(fused_decode, spec)
     return fagg, alpha
+
+
+def _dims(spec: DecodeSpec):
+    return (spec.Fi, spec.Dd, spec.E, spec.Ff, spec.Fd, spec.H, spec.K,
+            spec.L1, spec.L3)
+
+
+def _count(wrapper, spec: DecodeSpec):
+    """One launch of `wrapper`'s kernel, on the route of `spec`."""
+    wrapper.launches += 1
+    wrapper.launches_by_route[route(spec)] += 1
+
+
+def route(spec: DecodeSpec) -> str:
+    """The kernel family a CUDA call with this spec runs."""
+    return "tensor_core" if spec.bf16 else "cuda_core"
+
+
+def reset_launches():
+    """Set every decode launch count (both wrappers, both routes) to 0."""
+    for f in (fused_decode, fused_decode_bwd):
+        f.launches = 0
+        f.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
+
+
+_TC_ARGS = {
+    "fused_decode_tc_launch": [_VP] * 8 + [ctypes.c_int] * 10
+    + [ctypes.c_float] + [_VP] * 3,
+    "fused_decode_tc_smem": [ctypes.c_int] * 9,
+    "fused_decode_bwd_tc_launch": [_VP] * 10 + [ctypes.c_int] * 10
+    + [ctypes.c_float] + [_VP] * 9 + [ctypes.c_int] + [_VP] * 2,
+    "fused_decode_bwd_tc_smem": [ctypes.c_int] * 9
+    + [ctypes.POINTER(ctypes.c_int)] * 2,
+}
+
+
+def _tc_lib(name: str):
+    lib = "fused_decode_tc" if name.startswith("fused_decode_tc") \
+        else "fused_decode_bwd_tc"
+    return _argtypes(getattr(_build.load(lib), name), _TC_ARGS[name])
+
+
+def tc_smem_bytes_built(spec: DecodeSpec) -> Tuple[int, int, int]:
+    """(K3, K4 phase A, K4 phase B) shared memory as the built kernels
+    compute it (0 where they refuse the spec): the card's check of
+    `tc_smem_bytes` and `tc_bwd_smem_bytes`."""
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    k3 = _tc_lib("fused_decode_tc_smem")(*_dims(spec))
+    _tc_lib("fused_decode_bwd_tc_smem")(*_dims(spec), ctypes.byref(a),
+                                         ctypes.byref(b))
+    return k3, a.value, b.value
 
 
 class _FusedDecode(torch.autograd.Function):
@@ -348,6 +504,7 @@ def fused_decode(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
 
 
 fused_decode.launches = 0
+fused_decode.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
 
 
 def _bwd_lib(name):
@@ -355,7 +512,7 @@ def _bwd_lib(name):
     if name == "fused_decode_bwd_blocks":
         return _argtypes(f, [_CI] * 10 + [ctypes.POINTER(_CI)])
     return _argtypes(f, [_VP] * 7 + [_CI, _CI] + [_VP] * 4 + [_CI] * 8
-                     + [_CF, _CI] + [_VP] * 5 + [_CI, _VP, _VP])
+                     + [_CF] + [_VP] * 5 + [_CI, _VP, _VP])
 
 
 def param_count(spec: DecodeSpec) -> int:
@@ -382,6 +539,11 @@ def fused_decode_bwd(feat, dists, extras, w, params: Dict, spec: DecodeSpec,
     M = feat.shape[0]
     dev = feat.device
     Ws, bs, wa, ba = _device_weights(params, spec, dev)
+    if spec.bf16:
+        dparams, rows = _bwd_tc(feat, dists, extras, w, Ws, bs, wa, ba,
+                                spec, g_fagg, g_alpha)
+        _count(fused_decode_bwd, spec)
+        return (*rows, _split_params(dparams, params, spec))
     # input rows zero-padded to a multiple of 4, as the kernel reads them
     Ws = [torch.nn.functional.pad(t, (0, 0, 0, _pad4(t.shape[0]) - t.shape[0]))
           for t in Ws]
@@ -409,18 +571,57 @@ def fused_decode_bwd(feat, dists, extras, w, params: Dict, spec: DecodeSpec,
     err = _bwd_lib("fused_decode_bwd_launch")(
         p(feat), p(dists), p(extras), p(w), wp, wtp, bp, spec.L1, spec.L3,
         p(wa), p(ba), p(g_fagg), p(g_alpha), *dims[:8], float(spec.neg_slope),
-        int(spec.bf16), p(g_feat), p(g_dists), p(g_extras), p(g_w),
+        p(g_feat), p(g_dists), p(g_extras), p(g_w),
         p(partials), nb.value, p(dparams), _build.stream_handle(dev))
     _build.check(err, "fused_decode_bwd")
-    fused_decode_bwd.launches += 1
+    _count(fused_decode_bwd, spec)
+    return g_feat, g_dists, g_extras, g_w, _split_params(dparams, params,
+                                                         spec)
+
+
+def _split_params(dparams, params: Dict, spec: DecodeSpec) -> Dict:
+    """The flat gradient vector as views in the layout of `params`."""
     flat, off = [], 0
     for t in _flatten(params):
         flat.append(dparams[off:off + t.numel()].view(t.shape))
         off += t.numel()
-    return g_feat, g_dists, g_extras, g_w, _unflatten(flat, spec)
+    return _unflatten(flat, spec)
+
+
+def _bwd_tc(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
+            g_fagg, g_alpha):
+    """K4 on the tensor cores (csrc/fused_decode_bwd_tc.cu): its scratch
+    buffers, then one call that launches its three phases. Returns
+    (dparams, (g_feat, g_dists, g_extras, g_w))."""
+    M, H, L = feat.shape[0], spec.H, spec.L1 + spec.L3
+    dev = feat.device
+    ntiles = -(-M // TC_ROWS_BWD)
+    rows = ntiles * TC_ROWS_BWD
+    P = param_count(spec)
+    act = torch.empty(rows * sum(tc_pads(spec)), dtype=torch.bfloat16,
+                      device=dev)
+    gz = torch.empty(L * rows * H, dtype=torch.bfloat16, device=dev)
+    flags = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    slices = torch.empty(ntiles * (L * H + H + 1), dtype=torch.float32,
+                         device=dev)
+    partial = torch.empty(TC_SPLITS * _pad4(P), dtype=torch.float32,
+                          device=dev)
+    dparams = torch.empty(P, dtype=torch.float32, device=dev)
+    out = (torch.empty_like(feat), torch.empty_like(dists),
+           torch.empty_like(extras), torch.empty_like(w))
+    Wt, bias = pack_tc_weights(Ws, spec), torch.cat(bs)
+    p = _build.ptr
+    err = _tc_lib("fused_decode_bwd_tc_launch")(
+        p(feat), p(dists), p(extras), p(w), p(Wt), p(bias), p(wa), p(ba),
+        p(g_fagg), p(g_alpha), M, *_dims(spec), float(spec.neg_slope),
+        *[p(t) for t in out], p(act), p(gz), p(flags), p(slices), p(partial),
+        TC_SPLITS, p(dparams), _build.stream_handle(dev))
+    _build.check(err, "fused_decode_bwd (tensor cores)")
+    return dparams, out
 
 
 fused_decode_bwd.launches = 0
+fused_decode_bwd.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
 
 
 def flops(M: int, spec: DecodeSpec) -> int:

@@ -32,8 +32,12 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
-PORT_KERNELS = {"K1": "knn_select_kernel", "K3": "fused_decode_kernel",
-                "K4": "fused_decode_bwd", "K2": "fused_march_kernel"}
+# kernel names (substrings) of each port kernel, both decode routes: K3 is
+# fused_decode_tc_fwd (bf16) or fused_decode_kernel (f32), K4 the three
+# fused_decode_bwd_tc_* launches (bf16) or fused_decode_bwd_kernel + reduce
+PORT_KERNELS = {"K1": ("knn_select_kernel",),
+                "K3": ("fused_decode_tc_fwd", "fused_decode_kernel"),
+                "K4": ("fused_decode_bwd",), "K2": ("fused_march_kernel",)}
 
 
 def profiled(fn):
@@ -69,8 +73,9 @@ def profiled(fn):
     return wall, per_kernel, busy
 
 
-def kernel_ms(per_kernel, key: str) -> float:
-    return sum(v[1] for k, v in per_kernel.items() if key in k)
+def kernel_ms(per_kernel, keys) -> float:
+    return sum(v[1] for k, v in per_kernel.items()
+               if any(key in k for key in keys))
 
 
 def report(what: str, n: int, n_rays: int, wall: float, per_kernel,

@@ -30,7 +30,8 @@ from pointnerf_tpu_torch.models import aggregator as ta
 from pointnerf_tpu_torch.models.points import SampledPoints as TSP
 from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec, fused_decode,
                                                   fused_decode_bwd_plain,
-                                                  fused_decode_plain)
+                                                  fused_decode_plain,
+                                                  kernel_takes)
 
 F32_TOL = 2e-4
 BF16_TOL = 2e-2
@@ -262,3 +263,111 @@ def test_out_of_envelope_raises():
                                    for k, v in sp.items()}),
                      torch.from_numpy(sl), torch.from_numpy(slw),
                      torch.from_numpy(rd), (0.1, 0.1, 0.1))
+
+
+# the bf16 route's tensor-core kernels (csrc/fused_decode_tc.cu,
+# csrc/fused_decode_bwd_tc.cu): their limits, shared memory and weight
+# packing, mirrored in Python where the CPU can check them
+def _bench_spec(**kw):
+    d = dict(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+             neg_slope=0.01, bf16=True)
+    d.update(kw)
+    return DecodeSpec(**d)
+
+
+@pytest.mark.parametrize("kw,fwd,bwd", [
+    ({}, True, True),                             # bench_config
+    (dict(H=128, L1=1, L3=1), True, True),        # a second width
+    (dict(L1=4, L3=4), True, True),               # eight 256-wide layers
+    (dict(H=32), True, True),
+    (dict(H=512), False, False),                  # past 256 columns
+    (dict(H=48), False, False),                   # not a multiple of 32
+    (dict(K=3), False, False),                    # 64 % K != 0
+    (dict(L1=5, L3=4), False, False),             # nine layers
+    (dict(Fi=64), False, False),                  # x1 = 508 > 320
+    (dict(Fi=8, Ff=2, Fd=0), True, True),         # no dists PE
+])
+def test_tc_kernel_takes_mirrors_the_kernels_limits(kw, fwd, bwd):
+    spec = _bench_spec(**kw)
+    assert kernel_takes(spec) == fwd
+    assert kernel_takes(spec, backward=True) == bwd
+
+
+def test_tc_smem_formulas_at_bench_config():
+    """The shared memory of each tensor-core kernel at bench_config, worked
+    out from the layouts in the sources: layer inputs padded to 32 (288,
+    256, 288, 256), bf16 rows padded by 8."""
+    from pointnerf_tpu_torch.ops.fused_decode import (tc_bwd_smem_bytes,
+                                                      tc_pads, tc_smem_bytes)
+    spec = _bench_spec()
+    assert tc_pads(spec) == [288, 256, 288, 256]
+    # K3: 64 rows x 296 bf16 activations, 3 ring stages of 32 x 264 bf16,
+    # two floats per row
+    assert tc_smem_bytes(spec) == 64 * 296 * 2 + 3 * 32 * 264 * 2 + 64 * 8
+    # K4 phase A: max(64 x 296 bf16, 64 x 292 f32), g_zr 64 x 264 bf16,
+    # z-sign bits 4 layers x 64 rows x 8 words, 3 stages of the larger of
+    # 32 x 264 and 288 x 40 bf16, two floats per row; phase B: two stages
+    # of 64 x 296 and 64 x 72 bf16
+    a = 64 * 292 * 4 + 64 * 264 * 2 + 4 * 64 * 8 * 4 + 3 * 288 * 40 * 2 \
+        + 64 * 8
+    assert tc_bwd_smem_bytes(spec) == (a, 2 * 2 * 64 * (296 + 72))
+    assert max(tc_bwd_smem_bytes(_bench_spec(L1=4, L3=4))) <= 232448
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_refusal_names_the_route(bf16):
+    from pointnerf_tpu_torch.ops.fused_decode import _refuse
+    bad = _bench_spec(H=512, bf16=bf16)
+    what = "tensor-core kernels" if bf16 else "CUDA kernels"
+    with pytest.raises(ValueError, match=f"the {what} do not take"):
+        _refuse(bad, backward=True)
+    _refuse(_bench_spec(bf16=bf16), backward=True)      # takes it
+
+
+@pytest.mark.parametrize("kw", [{}, dict(H=128, L1=1, L3=1)])
+def test_pack_tc_weights_round_trip(kw):
+    """pack_tc_weights lays each W out as both streams expect: every weight
+    reads back from either stream, and the padding rows are zero."""
+    from pointnerf_tpu_torch.ops.fused_decode import (TC_KC, layer_inputs,
+                                                      pack_tc_weights,
+                                                      tc_pads)
+    spec = _bench_spec(**kw)
+    g = torch.Generator().manual_seed(0)
+    Ws = [torch.randn((n, spec.H), generator=g).to(torch.bfloat16).float()
+          for n in layer_inputs(spec)]
+    buf = pack_tc_weights(Ws, spec)
+    pads = tc_pads(spec)
+    assert buf.dtype == torch.bfloat16
+    assert buf.numel() == 2 * sum(pads) * spec.H
+    n, off = sum(pads) * spec.H, 0
+    for W, kp in zip(Ws, pads):
+        k, size = W.shape[0], kp * spec.H
+        fwd = buf[off:off + size].view(kp, spec.H).float()
+        bwd = buf[n + off:n + off + size].view(spec.H // TC_KC, kp, TC_KC)
+        bwd = bwd.permute(1, 0, 2).reshape(kp, spec.H).float()
+        for t in (fwd, bwd):
+            assert torch.equal(t[:k], W) and not bool(t[k:].any())
+        off += size
+    # one element by hand: layer 1 starts at kp_0 * H in each stream; the
+    # backward stream holds column block j of W_1 as [kp_1, 32]
+    off, kp, H = pads[0] * spec.H, pads[1], spec.H
+    assert float(buf[off + 5 * H + 70]) == float(Ws[1][5, 70])
+    assert float(buf[n + off + 2 * kp * 32 + 7 * 32 + 3]) \
+        == float(Ws[1][7, 2 * 32 + 3])
+
+
+def test_plain_f64_sums_the_same_function():
+    """dtype=float64 runs the plain versions' products and sums in f64 and
+    returns f32: without bf16 rounding points it is the f32 function up to
+    summation order (readings ~1e-7 of each output's scale)."""
+    ins, tp, spec, gf, ga, _gj = _bwd_case(4, bf16=False, seed=3)
+    f32 = fused_decode_plain(*ins, tp, spec)
+    f64 = fused_decode_plain(*ins, tp, spec, dtype=torch.float64)
+    b32 = jax.tree.leaves(fused_decode_bwd_plain(*ins, tp, spec, gf, ga),
+                          is_leaf=torch.is_tensor)
+    b64 = jax.tree.leaves(fused_decode_bwd_plain(*ins, tp, spec, gf, ga,
+                                                 dtype=torch.float64),
+                          is_leaf=torch.is_tensor)
+    for a, b in zip(list(f64) + b64, list(f32) + b32):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -169,18 +169,22 @@ def test_out_of_slice_configs_raise():
                                                shading_feature_num=512))
     with pytest.raises(NotImplementedError, match="decode envelope"):
         tr.check_envelope(wide, torch.device("cuda"))
-    # K4 keeps every layer's input of a tile in shared memory: eight
-    # 256-wide layers fit K3 but not K4, so the card serves them and
-    # refuses to train them
+    # the f32 K4 keeps every layer's input of a tile in shared memory:
+    # eight 256-wide layers fit K3 but not K4, so in f32 the card serves
+    # them and refuses to train them; the bf16 (tensor-core) K4 keeps the
+    # inputs in device memory and trains them
     deep = tc.bench_config()
     deep = deep.replace(
         agg=dataclasses.replace(deep.agg, fused_decode=True,
                                 shading_feature_mlp_layer1=4,
                                 shading_feature_mlp_layer3=4),
         render=dataclasses.replace(deep.render, fused_march=True))
-    tr.check_envelope(deep, torch.device("cuda"))
+    deep32 = deep.replace(train=dataclasses.replace(deep.train,
+                                                    compute_dtype="f32"))
+    tr.check_envelope(deep32, torch.device("cuda"))
     with pytest.raises(NotImplementedError, match=r"K3, K4.*decode envelope"):
-        tr.check_envelope(deep, torch.device("cuda"), train=True)
+        tr.check_envelope(deep32, torch.device("cuda"), train=True)
+    tr.check_envelope(deep, torch.device("cuda"), train=True)
 
 
 def test_camera_and_gather_match_jax():
