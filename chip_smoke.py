@@ -16,15 +16,20 @@ Phases:
      fused_decode=True and fused_march=True. The requests are rendered once
      to record each kernel's real inputs; then each kernel is held against
      its plain PyTorch version on the card on those inputs (K1 at C = 36,352
-     slots x QP = 243 candidates and K2 at R = 3600 x SR = 80 on the first
-     request, K3 at M = 290,816 rows in bf16 and in f32 on every request),
-     with its time, the plain version's time and the bound; beside K3 and
+     slots x QP = 243 candidates, bit-equal, with its run statistics, and K2
+     at R = 3600 x SR = 80 within K2_TOL, on the first request; K3 at
+     M = 290,816 rows in bf16 and in f32 on every request), with its time,
+     the plain version's time and the bound — K1 and K2, a few µs each, on
+     the device's clock (graph_ms: a CUDA graph of 50 launches, so the
+     wrapper's host time is not in the reading) with the wrapper's host µs
+     per call beside it, the longer kernels by back-to-back calls between
+     two events (cuda_ms); beside K3 and
      K4, as a printed yardstick only, the same layer products as a chain of
      bf16 torch.matmul calls (gemm_chain_ms), which the port never calls;
   4. the serving path: the launch counts are set to 0, eval_step serves 4
      requests of 3,600 rays (4 views), every kernel's count must grow with
-     every request and every decode launch must take the tensor-core route,
-     colors must be finite;
+     every request, every decode launch must take the tensor-core route and
+     every K1 launch its run path (K = 8), colors must be finite;
   5. one 512-ray request on the card and the same on the CPU through the
      plain versions: integers equal, colors of the rays that hit within the
      bf16 bar;
@@ -36,11 +41,11 @@ Phases:
      calls must give the same bits;
   7. the training path: the launch counts are set to 0, train_step takes 3
      warm-up and 20 timed steps of 3,600 rays on one batch, as bench.py
-     does; each step must launch K1, K3 and K4 once each, K3 and K4 on the
-     tensor-core route (training takes the plain march, as the JAX package
-     does, so K2 is not launched); the
-     loss must be finite at every step and the mean of the last 5 below the
-     mean of the first 5; prints the train rays/s;
+     does; each step must launch K1, K3 and K4 once each, K1 on its run
+     path, K3 and K4 on the tensor-core route (training takes the plain
+     march, as the JAX package does, so K2 is not launched); the loss must
+     be finite at every step and the mean of the last 5 below the mean of
+     the first 5; prints the train rays/s;
   8. the gradients of one 512-ray training step on the card and on the CPU
      (the same jitter draw) from the state the timed steps left: integers
      equal, the loss, the MLP gradients and the point-payload gradients
@@ -130,6 +135,8 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """ms per call of back-to-back calls between two CUDA events: the
+    device time of calls that outlast their host-side dispatch."""
     import torch
     for _ in range(warmup):
         fn()
@@ -142,6 +149,49 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def graph_ms(fn, launches: int = 50, replays: int = 5) -> float:
+    """Device ms per call of a short kernel: `launches` calls of `fn` are
+    captured in one CUDA graph and its replays timed with CUDA events, so
+    the wrapper's host time (checks, allocation, the ctypes call) is not in
+    the reading. The wrappers launch on torch.cuda.current_stream(), which
+    is the capture stream inside torch.cuda.graph."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(replays):
+        g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / (replays * launches)
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host µs per call of `fn` (enqueue only; the device catches up
+    after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def hold_bf16(what: str, err: float, control: float, bar: float) -> None:
@@ -263,12 +313,55 @@ def capture_kernel_inputs(params, pc, st, grid, batch, cfg):
     return seen
 
 
+def k1_run_stats(nbr_xyz, dslot, ok, centers, r2: float, block: int):
+    """What decides whether sharing a table row across a run of slots pays:
+    the slots that select (ok and a row), the distinct rows they read, the
+    runs of equal row among consecutive selecting slots (invalid slots in
+    between do not end a run) and the runs a kernel that stages one row per
+    run in each block of `block` slots reads; and what a row holds: its
+    live candidates (x < 1e7) per row and per selecting slot, and those
+    within r2 per slot."""
+    import torch
+    from pointnerf_tpu_torch.ops.knn_select import DEAD
+    C, QP = dslot.shape[0], nbr_xyz.shape[1] // 3
+    sel = ok & (dslot >= 0)
+    idx = sel.nonzero()[:, 0]
+    rows = dslot[idx].long()
+    n = int(idx.numel())
+    if n == 0:
+        return {"slots": C, "selecting": 0}
+    new_run = torch.ones_like(rows, dtype=torch.bool)
+    new_run[1:] = rows[1:] != rows[:-1]
+    # a run is cut where a block of slots ends
+    blk = idx // block
+    staged = new_run.clone()
+    staged[1:] |= blk[1:] != blk[:-1]
+    distinct = torch.unique(rows)
+    live = (nbr_xyz[:, :QP] < DEAD).sum(1)              # per table row
+    xyz = nbr_xyz[rows].view(n, 3, QP)
+    d2 = ((xyz - centers[idx][:, :, None]) ** 2).sum(1)
+    in_r = nbr_xyz[rows][:, :QP] < DEAD
+    if r2 > 0:
+        in_r &= d2 <= r2
+    return {"slots": C, "selecting": n, "distinct_rows": int(distinct.numel()),
+            "runs": int(new_run.sum()),
+            "mean_run": n / int(new_run.sum()),
+            "staged_runs": int(staged.sum()),
+            "live_per_row": float(live[distinct].float().mean()),
+            "live_per_slot": float(live[rows].float().mean()),
+            "in_r2_per_slot": float(in_r.sum(1).float().mean())}
+
+
 def check_k1(args, kw):
     import torch
-    from pointnerf_tpu_torch.ops.knn_select import knn_select, knn_select_plain
+    from pointnerf_tpu_torch.ops.knn_select import (SLOTS_PER_BLOCK,
+                                                    knn_select,
+                                                    knn_select_plain)
     nbr_xyz, nbr_pid, dslot, centers, ok = args
     K, r2 = kw["K"], kw["r2"]
     C, QP = centers.shape[0], nbr_pid.shape[1]
+    st = k1_run_stats(nbr_xyz, dslot, ok, centers, r2, SLOTS_PER_BLOCK)
+    log(f"K1 run statistics: {json.dumps(st)}")
     pid_k, d2_k = knn_select(*args, **kw)
     pid_p, d2_p = knn_select_plain(*args, K, r2)
     torch.cuda.synchronize()
@@ -281,19 +374,22 @@ def check_k1(args, kw):
         f"(must be 0), max |d2 err| {err:.3e} (must be 0)")
     if n_bad or err != 0.0:
         fail("K1 disagrees with its plain version")
-    ms = cuda_ms(lambda: knn_select(*args, **kw), iters=20)
+    ms = graph_ms(lambda: knn_select(*args, **kw))
+    host = host_us(lambda: knn_select(*args, **kw))
     plain = cuda_ms(lambda: knn_select_plain(*args, K, r2), iters=10)
     # bytes this run's data needs: each distinct table row read once
     # (coordinates + ids), the slots' centers/dslot/ok, the [C, K] outputs
-    rows = int(torch.unique(dslot[ok & (dslot >= 0)]).numel())
+    rows = st.get("distinct_rows", 0)
     nbytes = rows * QP * 16 + C * (12 + 4 + 1) + C * K * 8
-    flops = int(ok.sum()) * QP * 8
+    flops = st["selecting"] * QP * 8
     b, by = bound_ms(nbytes, flops, PEAK_F32)
-    log(f"K1 time {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-        f"({by}: {rows} distinct rows), library: none (no single PyTorch "
-        f"call computes distance + masked K-selection)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": None}
+    log(f"K1 device time {ms:.4f} ms (CUDA graph of 50 launches), wrapper "
+        f"host time {host:.1f} us per call, plain {plain:.4f} ms, bound "
+        f"{b:.4f} ms ({by}: {rows} distinct rows), library: none (no single "
+        f"PyTorch call computes distance + masked K-selection)")
+    return {"max_abs_err": err, "ms": ms, "host_us": host, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "run_stats": st}
 
 
 def check_k2(args, kw):
@@ -310,17 +406,20 @@ def check_k2(args, kw):
         f"(tolerance {K2_TOL})")
     if not err <= K2_TOL:
         fail("K2 disagrees with its plain version")
-    ms = cuda_ms(lambda: fused_march(*args), iters=50)
+    ms = graph_ms(lambda: fused_march(*args))
+    host = host_us(lambda: fused_march(*args))
     plain = cuda_ms(lambda: fused_march_plain(*args), iters=5)
     C = feats.shape[-1] - 1
     nbytes = R * SR * (4 + 1 + 4 * (C + 1)) + 4 * C \
         + R * C * 4 + R * SR * 4 + R * 4
     flops = R * SR * (6 + 3 * C)
     b, by = bound_ms(nbytes, flops, PEAK_F32)
-    log(f"K2 time {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-        f"({by}), library: none (no single PyTorch call composites)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": None}
+    log(f"K2 device time {ms:.4f} ms (CUDA graph of 50 launches), wrapper "
+        f"host time {host:.1f} us per call, plain {plain:.4f} ms, bound "
+        f"{b:.4f} ms ({by}), library: none (no single PyTorch call "
+        f"composites)")
+    return {"max_abs_err": err, "ms": ms, "host_us": host, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
 def check_k3(captured):
@@ -473,10 +572,10 @@ def main_path(params, pc, st, grid, reqs, cfg):
         log(f"request {i}: rays hit {int(out.ray_mask.sum())}/{N_RAYS}, "
             f"decode_dropped {int(out.decode_dropped)}")
     n = len(reqs) * N_RAYS
-    routes = decode_routes(kernels, "serving")
+    routes = kernel_routes(kernels, "serving")
     log(f"serving path: {len(reqs)} requests x {N_RAYS} rays in {dt:.4f} s = "
         f"{n / dt:.1f} rays/s (host clock, synchronized), launches {counts}, "
-        f"decode routes {routes}")
+        f"routes {routes}")
     return counts, routes
 
 
@@ -485,17 +584,25 @@ def reset_counts(kernels):
     for k in kernels.values():
         k.launches = 0
     reset_launches()
+    routes = kernels["knn_select"].launches_by_route
+    routes.update(dict.fromkeys(routes, 0))
 
 
-def decode_routes(kernels, path: str):
-    """The decode launches of a main-path run by route; fails unless every
-    one went to the tensor-core kernels (the main paths decode in bf16)."""
-    routes = {n: dict(kernels[n].launches_by_route)
-              for n in ("fused_decode", "fused_decode_bwd")}
+# the route every launch of a main path takes: the decode kernels on the
+# tensor cores (the main paths decode in bf16), K1 on its run path (K = 8)
+MAIN_ROUTES = {"knn_select": "runs", "fused_decode": "tensor_core",
+               "fused_decode_bwd": "tensor_core"}
+
+
+def kernel_routes(kernels, path: str):
+    """The launches of a main-path run by route; fails unless every one
+    went to the route of MAIN_ROUTES."""
+    routes = {n: dict(kernels[n].launches_by_route) for n in MAIN_ROUTES}
     for n, r in routes.items():
-        if r["cuda_core"] or r["tensor_core"] != kernels[n].launches:
-            fail(f"{path} path: {n} launches went to another route than the "
-                 f"tensor-core kernels: {r}")
+        if r[MAIN_ROUTES[n]] != kernels[n].launches \
+                or sum(r.values()) != kernels[n].launches:
+            fail(f"{path} path: {n} launches went to another route than "
+                 f"{MAIN_ROUTES[n]}: {r}")
     return routes
 
 
@@ -749,7 +856,7 @@ def train_path(state, st, grid, batch, cfg):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {n: k.launches for n, k in kernels.items()}
-    routes = decode_routes(kernels, "training")
+    routes = kernel_routes(kernels, "training")
     if counts["fused_march"]:
         fail("training launched the fused march (JAX trains through the "
              "plain march)")
@@ -767,7 +874,7 @@ def train_path(state, st, grid, batch, cfg):
     log(f"train path: {N_TRAIN_STEPS} steps x {N_RAYS} rays after "
         f"{N_TRAIN_WARMUP} warm-up steps in {dt:.4f} s = {rate:.1f} train "
         f"rays/s (fwd + bwd + Adam, host clock, synchronized), launches "
-        f"{counts}, decode routes {routes}")
+        f"{counts}, routes {routes}")
     return counts, routes, state
 
 
@@ -949,7 +1056,7 @@ def main() -> None:
         "fused_decode_bwd": {"bf16": ("fused_decode_bwd_tc.cu", k4["bf16"]),
                              "f32": ("fused_decode_bwd.cu", k4["f32"])}}
     routes = {n: {"serve": serve_routes[n], "train": train_routes[n]}
-              for n in by_precision}
+              for n in MAIN_ROUTES}
     rows = []
     for name, (src, rep) in meta.items():
         r = results[name]
@@ -962,9 +1069,13 @@ def main() -> None:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name in routes:
+            row["launches_by_route"] = routes[name]
+        for k in ("host_us", "run_stats"):
+            if k in r:
+                row[k] = r[k]
         if name in by_precision:
             row["gemm_chain_ms"] = r["gemm_chain_ms"]
-            row["launches_by_route"] = routes[name]
             row["by_precision"] = {
                 p: {"kernel_route": "tensor_core" if p == "bf16"
                     else "cuda_core", "source": csrc + f, **v}

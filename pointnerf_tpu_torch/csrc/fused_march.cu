@@ -11,12 +11,21 @@
 //
 // Bound on the H100: bytes. At R = 3600, SR = 80, C = 3 the kernel reads
 // dist, valid and feats (~6.9 MB) and writes opacity and colors (~1.2 MB):
-// ~2.4 us at 3.35 TB/s, well under one launch's overhead.
+// ~2.4 us at 3.35 TB/s, about one launch's overhead.
 //
-// Design: one thread per ray walking its samples with T and the color sums
-// in registers. The inputs are [R, SR]-major, so no transpose is needed
-// (the TPU kernel transposed to put rays on lanes). Built with -fmad=false
-// so the sums round as the plain PyTorch twin's separate ops do.
+// Design: a block of 128 threads takes a tile of rays (8 at the main path's
+// widths, 450 blocks for R = 3,600; 4 where SR * (C + 2) floats a ray would
+// not fit in shared memory). Its features are one contiguous stretch of
+// device memory, read with coalesced 16-byte loads (the wrapper checks that
+// feats is 16-byte aligned; a tile starts at a multiple of 4 rays, so every
+// tile is) into shared memory, several loads in flight per thread, with the
+// tile's dist and valid. Then one thread per sample computes the opacities
+// in parallel (opacity written coalesced), and one thread per ray walks its
+// samples in order from shared memory (per-ray strides made odd, so the
+// rays hit distinct banks), carrying T and the color sums in registers,
+// unrolled over the C channels (one instance per C). The walk rounds
+// exactly as the plain PyTorch twin's sequence of ops (built with
+// -fmad=false), so the outputs are the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -24,50 +33,171 @@
 namespace {
 
 constexpr int kMaxC = 8;
+constexpr int kThreads = 128;
+constexpr int kU = 8;             // loads in flight per thread
+constexpr int kMaxSmem = 232448;  // 227 KB, an H100 block's most
 
-__global__ void fused_march_kernel(const float* __restrict__ dist,
-                                   const uint8_t* __restrict__ valid,
-                                   const float* __restrict__ feats,
-                                   const float* __restrict__ bg, int R,
-                                   int SR, int C,
-                                   float* __restrict__ color,
-                                   float* __restrict__ opacity,
-                                   float* __restrict__ bgtr) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  float acc[kMaxC];
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+    fused_march_kernel(const float* __restrict__ dist,
+                       const uint8_t* __restrict__ valid,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ bg, int R, int SR, int rays,
+                       float* __restrict__ color,
+                       float* __restrict__ opacity,
+                       float* __restrict__ bgtr) {
+  extern __shared__ float smem[];
+  const int F = SR * (NC + 1);  // floats of one ray's features
+  const int fs = F | 1, os = SR | 1;
+  float* sf = smem;              // [rays][fs]
+  float* so = smem + rays * fs;  // [rays][os]
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * rays;
+  const int nr = min(rays, R - r0);
+  const int ns = nr * SR;
+  const size_t g0 = (size_t)r0 * SR;
+
+  // the first kU samples' dist and valid of this thread, in flight with
+  // the features
+  float d[kU];
+  uint8_t ok[kU];
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) acc[c] = 0.f;
-  float trans = 1.f;
-  for (int s = 0; s < SR; ++s) {
-    const size_t i = (size_t)r * SR + s;
-    const float* f = feats + i * (C + 1);
-    const float sigma = f[0] * (valid[i] ? 1.f : 0.f);
-    const float op = 1.f - expf(-sigma * dist[i]);
-    opacity[i] = op;
-    const float wgt = op * trans;
-#pragma unroll
-    for (int c = 0; c < kMaxC; ++c)
-      if (c < C) acc[c] = acc[c] + f[1 + c] * wgt;
-    trans = trans * (1.f - op + 1e-10f);
+  for (int u = 0; u < kU; ++u) {
+    const int e = t + u * kThreads;
+    if (e < ns) {
+      d[u] = dist[g0 + e];
+      ok[u] = valid[g0 + e];
+    }
   }
+
+  // 1. the tile's features: nr * F contiguous floats, 16-byte loads, kU
+  // of them in flight per thread before the first is stored
+  const float* gf = feats + (size_t)r0 * F;
+  const int n = nr * F, n4 = n >> 2;
+  const float4* gf4 = reinterpret_cast<const float4*>(gf);
+  for (int i0 = t; i0 < n4; i0 += kThreads * kU) {
+    float4 v[kU];
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c)
-    if (c < C) color[(size_t)r * C + c] = acc[c] + bg[c] * trans;
-  bgtr[r] = trans;
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n4) v[u] = gf4[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n4) {
+        const float part[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        int ray = (4 * i) / F, k = 4 * i - ray * F;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sf[ray * fs + k] = part[q];
+          if (++k == F) {
+            k = 0;
+            ++ray;
+          }
+        }
+      }
+    }
+  }
+  for (int e = 4 * n4 + t; e < n; e += kThreads) {
+    const int ray = e / F;
+    sf[ray * fs + e - ray * F] = gf[e];
+  }
+  __syncthreads();
+
+  // 2. the opacities, one thread per sample
+  for (int e0 = t; e0 < ns; e0 += kThreads * kU) {
+    if (e0 != t) {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * kThreads;
+        if (e < ns) {
+          d[u] = dist[g0 + e];
+          ok[u] = valid[g0 + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < ns) {
+        const int ray = e / SR, s = e - ray * SR;
+        const float sigma =
+            sf[ray * fs + s * (NC + 1)] * (ok[u] ? 1.f : 0.f);
+        const float op = 1.f - expf(-sigma * d[u]);
+        opacity[g0 + e] = op;
+        so[ray * os + s] = op;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the walk, one thread per ray, in sample order
+  if (t < nr) {
+    const float* f = sf + t * fs + 1;
+    const float* o = so + t * os;
+    float acc[NC > 0 ? NC : 1];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+    float trans = 1.f;
+#pragma unroll 4
+    for (int s = 0; s < SR; ++s) {
+      const float op = o[s];
+      const float wgt = op * trans;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        acc[c] = acc[c] + f[s * (NC + 1) + c] * wgt;
+      trans = trans * (1.f - op + 1e-10f);
+    }
+    const int r = r0 + t;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      color[(size_t)r * NC + c] = acc[c] + bg[c] * trans;
+    bgtr[r] = trans;
+  }
+}
+
+template <int NC>
+int launch(const float* dist, const uint8_t* valid, const float* feats,
+           const float* bg, int R, int SR, int rays, float* color,
+           float* opacity, float* bgtr, size_t smem, cudaStream_t s) {
+  // above 48 KB of dynamic shared memory a kernel must opt in, once
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_march_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  fused_march_kernel<NC><<<(R + rays - 1) / rays, kThreads, smem, s>>>(
+      dist, valid, feats, bg, R, SR, rays, color, opacity, bgtr);
+  return 0;
 }
 
 }  // namespace
 
+// rays: rays per block, a multiple of 4 picked by the wrapper
+// (ops/fused_march.py `rays_per_block`) so that the tile fits in shared
+// memory; feats must be 16-byte aligned. One instance per channel count C.
 extern "C" int fused_march_launch(const float* dist, const uint8_t* valid,
                                   const float* feats, const float* bg, int R,
-                                  int SR, int C, float* color, float* opacity,
-                                  float* bgtr, void* stream) {
+                                  int SR, int C, int rays, float* color,
+                                  float* opacity, float* bgtr, void* stream) {
   if (R == 0) return 0;
-  if (C > kMaxC) return (int)cudaErrorInvalidValue;
-  const int block = 128;
-  fused_march_kernel<<<(R + block - 1) / block, block, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      dist, valid, feats, bg, R, SR, C, color, opacity, bgtr);
-  return (int)cudaGetLastError();
+  const size_t smem =
+      (size_t)rays * ((SR * (C + 1) | 1) + (SR | 1)) * sizeof(float);
+  if (C < 0 || C > kMaxC || SR < 0 || rays < 4 || rays % 4 ||
+      smem > (size_t)kMaxSmem || ((uintptr_t)feats & 15))
+    return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const float*, const uint8_t*, const float*,
+                         const float*, int, int, int, float*, float*, float*,
+                         size_t, cudaStream_t);
+  static const Launch by_c[kMaxC + 1] = {
+      &launch<0>, &launch<1>, &launch<2>, &launch<3>, &launch<4>,
+      &launch<5>, &launch<6>, &launch<7>, &launch<8>};
+  const int err = by_c[C](dist, valid, feats, bg, R, SR, rays, color,
+                          opacity, bgtr, smem,
+                          static_cast<cudaStream_t>(stream));
+  return err ? err : (int)cudaGetLastError();
 }

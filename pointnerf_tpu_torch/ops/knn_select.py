@@ -4,7 +4,12 @@ table rows.
 Replaces `pointnerf_tpu/ops/pallas_knn.py::pallas_knn_select`. On CUDA
 tensors `knn_select` launches `csrc/knn_select.cu`; on CPU tensors it runs
 `knn_select_plain`, the plain PyTorch version of the same function, which is
-also what `chip_smoke.py` holds the kernel against on the card.
+also what `chip_smoke.py` holds the kernel against on the card. The kernel
+has two paths, picked by K (`route_for`): for K <= 16 the run path (a block
+stages the table row of each run of consecutive slots in shared memory once,
+four lanes per slot keep register top-K lists that merge with shuffles), for
+larger K the warp path (a warp per slot, K shuffle reductions). Both give the
+plain version's bits.
 
 Contract (both versions): nbr_xyz [D, 3*QP] f32 coordinate-major rows,
 nbr_pid [D, QP] i32, dslot [C] i32 (row per slot, -1 none), centers [C, 3]
@@ -21,6 +26,15 @@ import torch
 from . import _build
 
 DEAD = 1.0e7
+# slots per block of the kernel's run path (csrc/knn_select.cu kSlots)
+SLOTS_PER_BLOCK = 64
+ROUTES = ("runs", "warp")
+
+
+def route_for(K: int) -> int:
+    """The kernel path for K: the register top-K's capacity of the run path
+    (8 or 16, at least K), or 0 for the warp path (any K <= QP)."""
+    return 8 if K <= 8 else 16 if K <= 16 else 0
 
 
 def knn_select_plain(nbr_xyz, nbr_pid, dslot, centers, ok, K: int,
@@ -51,7 +65,7 @@ def _lib():
     if f.argtypes is None:
         vp = ctypes.c_void_p
         f.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_float, vp, vp, vp]
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int, vp, vp, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -85,12 +99,15 @@ def knn_select(nbr_xyz, nbr_pid, dslot, centers, ok, K: int, r2: float):
     pid = torch.empty((C, K), dtype=torch.int32, device=centers.device)
     d2 = torch.empty((C, K), dtype=torch.float32, device=centers.device)
     p = _build.ptr
+    route = route_for(K)
     err = _lib()(p(nbr_xyz), p(nbr_pid), p(dslot), p(centers),
-                 p(ok.view(torch.uint8)), C, QP, K, float(r2), p(pid), p(d2),
-                 _build.stream_handle(centers.device))
+                 p(ok.view(torch.uint8)), C, QP, K, float(r2), route, p(pid),
+                 p(d2), _build.stream_handle(centers.device))
     _build.check(err, "knn_select")
     knn_select.launches += 1
+    knn_select.launches_by_route["runs" if route else "warp"] += 1
     return pid, d2
 
 
 knn_select.launches = 0
+knn_select.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -32,10 +32,11 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
-# kernel names (substrings) of each port kernel, both decode routes: K3 is
+# kernel names (substrings) of each port kernel, every route: K1 is
+# knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or fused_decode_kernel (f32), K4 the three
 # fused_decode_bwd_tc_* launches (bf16) or fused_decode_bwd_kernel + reduce
-PORT_KERNELS = {"K1": ("knn_select_kernel",),
+PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel"),
                 "K3": ("fused_decode_tc_fwd", "fused_decode_kernel"),
                 "K4": ("fused_decode_bwd",), "K2": ("fused_march_kernel",)}
 
@@ -121,8 +122,11 @@ def main() -> None:
     n = cs.N_REQUESTS
     wall, per_kernel, busy = profiled(serve)
     total = report("serving", n, cs.N_RAYS, wall, per_kernel, busy)
-    ours = sum(kernel_ms(per_kernel, PORT_KERNELS[k])
-               for k in ("K1", "K2", "K3"))
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+             for k in ("K1", "K2", "K3")}
+    ours = sum(parts.values())
+    print("per request, device ms: " + ", ".join(
+        f"{k} {ms / n:.4f}" for k, ms in parts.items()))
     print(f"port kernels (K1+K2+K3): {ours / n:.4f} ms/request = "
           f"{100 * ours / total:.1f}% of device kernel time; everything "
           f"else: {(total - ours) / n:.4f} ms/request")

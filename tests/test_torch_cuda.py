@@ -60,18 +60,144 @@ def test_knn_select_kernel_matches_plain(dev):
         assert torch.equal(pk, pp) and torch.equal(dk, dp)
 
 
-def test_fused_march_kernel_matches_plain(dev):
+def _run_inputs(QP, seed=0, D=60, C=1500):
+    """K1 inputs in the main path's order: slots in sorted runs of equal
+    row (lengths 1-100; the first run crosses the block boundary at slot
+    128), some ok = 0 and dslot = -1 slots inside runs, exact d2 ties, dead
+    entries and one all-dead row (row 5) read by a run."""
+    rng = np.random.RandomState(seed)
+    base = (rng.rand(D, 3, QP) * 0.2).astype(np.float32)
+    base[:, :, 100:110] = base[:, :, 0:10]           # exact ties
+    base[:, 0][rng.rand(D, QP) < 0.3] = 1.0e8         # dead entries
+    base[5, 0] = 1.0e8                                 # an all-dead row
+    lengths, rows = [60, 120], [7, 5]
+    while sum(lengths) < C:
+        lengths.append(rng.randint(1, 101))
+        rows.append(rng.randint(0, D))
+    dslot = np.repeat(rows, lengths)[:C].astype(np.int32)
+    dslot[rng.rand(C) < 0.03] = -1                     # -1 inside runs
+    ok = rng.rand(C) > 0.05                            # ok = 0 inside runs
+    ok[-40:] = False                                   # an invalid tail
+    centers = (rng.rand(C, 3) * 0.2).astype(np.float32)
+    pid = rng.randint(0, 10 ** 6, size=(D, QP)).astype(np.int32)
+    return [torch.from_numpy(a) for a in
+            (base.reshape(D, 3 * QP), pid, dslot, centers, ok)]
+
+
+def _hold_k1(dev, args, K, r2):
+    from pointnerf_tpu_torch.ops.knn_select import (knn_select,
+                                                    knn_select_plain,
+                                                    route_for)
+    args = [a.to(dev) for a in args]
+    route = "runs" if route_for(K) else "warp"
+    n = dict(knn_select.launches_by_route)
+    pk, dk = knn_select(*args, K=K, r2=r2)
+    pp, dp = knn_select_plain(*args, K, r2)
+    torch.cuda.synchronize()
+    assert knn_select.launches_by_route[route] == n[route] + 1
+    assert torch.equal(pk, pp) and torch.equal(dk, dp)
+    return pk
+
+
+@pytest.mark.parametrize("QP", [243, 300, 512])
+@pytest.mark.parametrize("K", [1, 8, 16, "QP"])
+def test_knn_select_runs_match_plain(dev, QP, K):
+    """Both kernel paths (run path for K <= 16, warp path above) bit-equal
+    to the plain version on sorted runs of shared rows, with and without
+    the r2 cut."""
+    K = QP if K == "QP" else K
+    args = _run_inputs(QP, seed=QP + K)
+    for r2 in (0.0, 0.004):
+        pk = _hold_k1(dev, args, K, r2)
+        assert bool((pk >= 0).any())
+        # the run on the all-dead row selects nothing
+        assert bool((pk[60:180][(args[2][60:180] == 5).to(dev)] == -1).all())
+
+
+def test_knn_select_runs_overflow_the_pool(dev):
+    """Blocks whose runs hold more live candidates than the shared pool
+    (every slot its own row of 512 live candidates) stage in rounds."""
+    args = _run_inputs(512, seed=3, D=300, C=700)
+    args[0].view(300, 3, 512)[:, 0] = torch.rand((300, 512)) * 0.2
+    args[2][:] = torch.arange(700, dtype=torch.int32) % 300
+    args[4][:] = True
+    _hold_k1(dev, args, 8, 0.0)
+
+
+@pytest.mark.parametrize("SR", [1, 31, 80, 129])
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_fused_march_kernel_matches_plain(dev, SR, C):
+    """R = 333 rays (not a multiple of the 8-ray tile), some rays all
+    invalid, some whose transmittance underflows (sigma * dist >= 100)."""
     from pointnerf_tpu_torch.ops.fused_march import (fused_march,
                                                      fused_march_plain)
-    g = torch.Generator().manual_seed(1)
-    R, SR, C = 333, 80, 3
-    dist = (torch.rand((R, SR), generator=g) * 0.1).to(dev)
-    valid = (torch.rand((R, SR), generator=g) > 0.3).to(dev)
-    feats = torch.rand((R, SR, C + 1), generator=g).to(dev)
-    bg = torch.tensor([1.0, 0.5, 0.25], device=dev)
-    for a, b in zip(fused_march(dist, valid, feats, bg),
-                    fused_march_plain(dist, valid, feats, bg)):
+    g = torch.Generator().manual_seed(SR * 10 + C)
+    R = 333
+    dist = torch.rand((R, SR), generator=g) * 0.1
+    valid = torch.rand((R, SR), generator=g) > 0.3
+    feats = torch.rand((R, SR, C + 1), generator=g)
+    valid[:20] = False                                # all-invalid rays
+    feats[20:40, :, 0] = 2000.0                       # sigma * dist >= 100
+    dist[20:40] = 0.05 + dist[20:40]
+    valid[20:40] = True
+    bg = torch.rand((C,), generator=g)
+    ins = [t.to(dev) for t in (dist, valid, feats, bg)]
+    outs = fused_march(*ins)
+    for a, b in zip(outs, fused_march_plain(*ins)):
         assert float((a - b).abs().max()) <= 1e-5
+    bgtr = outs[2]
+    assert bool((bgtr[:20] == 1.0).all())
+    assert bool((bgtr[20:40] <= 1e-10).all())
+
+
+def test_fused_march_tile_of_four_rays(dev):
+    """SR * (C + 2) too wide for an 8-ray tile: the launch takes 4 rays."""
+    from pointnerf_tpu_torch.ops.fused_march import (fused_march,
+                                                     fused_march_plain,
+                                                     rays_per_block)
+    R, SR, C = 37, 1000, 8
+    assert rays_per_block(SR, C) == 4
+    g = torch.Generator().manual_seed(7)
+    ins = [(torch.rand((R, SR), generator=g) * 0.01).to(dev),
+           (torch.rand((R, SR), generator=g) > 0.3).to(dev),
+           torch.rand((R, SR, C + 1), generator=g).to(dev),
+           torch.rand((C,), generator=g).to(dev)]
+    for a, b in zip(fused_march(*ins), fused_march_plain(*ins)):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_fused_march_refuses_misaligned_feats(dev):
+    from pointnerf_tpu_torch.ops.fused_march import fused_march
+    R, SR, C = 8, 5, 3
+    flat = torch.rand(R * SR * (C + 1) + 1, device=dev)
+    feats = flat[1:].view(R, SR, C + 1)               # 4-byte aligned only
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_march(torch.rand((R, SR), device=dev),
+                    torch.ones((R, SR), dtype=torch.bool, device=dev), feats,
+                    torch.rand((C,), device=dev))
+
+
+def test_k1_k2_launches_make_no_host_sync(dev):
+    from pointnerf_tpu_torch.ops.fused_march import fused_march
+    from pointnerf_tpu_torch.ops.knn_select import knn_select
+    k1 = [a.to(dev) for a in _run_inputs(243)]
+    g = torch.Generator().manual_seed(8)
+    k2 = [(torch.rand((64, 80), generator=g) * 0.1).to(dev),
+          (torch.rand((64, 80), generator=g) > 0.3).to(dev),
+          torch.rand((64, 80, 4), generator=g).to(dev),
+          torch.rand((3,), generator=g).to(dev)]
+    for K in (8, 16, 243):                        # build and load first
+        knn_select(*k1, K=K, r2=0.004)
+    fused_march(*k2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for K in (8, 16, 243):
+            knn_select(*k1, K=K, r2=0.004)
+        fused_march(*k2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -54,6 +54,43 @@ def test_fused_march_matches_pallas_kernel(interpret_pallas, R, SR, C, seed):
                                    atol=1e-6)
 
 
+def test_fused_march_underflow_matches_pallas_kernel(interpret_pallas):
+    """Rays whose transmittance underflows to 0 (sigma * dist >= 100 on
+    every valid sample) and rays with no valid sample, against the Pallas
+    kernel."""
+    from pointnerf_tpu.ops import pallas_march as pm
+    dist, valid, feats, bg = _inputs(R=24, SR=80, C=3, seed=5)
+    feats[:8, :, 0] = 2000.0
+    dist[:8] += 0.05
+    valid[:8] = 1.0
+    valid[8:12] = 0.0
+    outs_j = pm._pallas_march_fwd_impl(
+        *[jnp.asarray(a) for a in (dist, valid, feats, bg)])
+    outs_t = fused_march(*_torch(dist, valid, feats, bg))
+    for a, b in zip(outs_t, outs_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
+                                   atol=1e-6)
+    bgtr = outs_t[2].numpy()
+    assert (bgtr[:8] == 0).all() and (bgtr[8:12] == 1).all()
+
+
+@pytest.mark.parametrize("SR,C,rays", [(80, 3, 8), (129, 8, 8),
+                                       (700, 8, 8), (1000, 8, 4),
+                                       (2000, 8, 0)])
+def test_fused_march_rays_per_block(SR, C, rays):
+    """The kernel's tile of rays: 8 where the shared memory holds it, then
+    4; 0 (the wrapper raises) where no tile fits."""
+    from pointnerf_tpu_torch.ops.fused_march import (SMEM_BYTES,
+                                                     TILE_RAYS,
+                                                     rays_per_block,
+                                                     smem_bytes)
+    assert rays_per_block(SR, C) == rays
+    if rays:
+        assert smem_bytes(rays, SR, C) <= SMEM_BYTES
+    if rays != TILE_RAYS[0]:
+        assert smem_bytes(2 * max(rays, 2), SR, C) > SMEM_BYTES
+
+
 def test_fused_march_matches_ray_march():
     dist, valid, feats, bg = _inputs(seed=3)
     color_t, op_t, bgtr_t = fused_march_plain(*_torch(dist, valid, feats, bg))

@@ -117,6 +117,52 @@ def test_knn_select_plain_ties_match_pallas():
     assert torch.equal(pp, pt) and torch.equal(dp, dt)
 
 
+def test_knn_select_plain_runs_match_pallas():
+    """Slots in the main path's order — sorted runs of one shared table row
+    (lengths up to 100), with invalid and -1 slots inside runs — and an r2
+    cut: the plain version against the Pallas kernel (interpret mode)."""
+    rng = np.random.RandomState(12)
+    C, QP, K, D = 256, 60, 8, 9
+    base = rng.uniform(-0.2, 0.2, size=(D, QP, 3)).astype(np.float32)
+    base[:, 30:40] = base[:, 0:10]             # ties between candidates
+    base[:, :, 0][rng.rand(D, QP) < 0.3] = 1.0e8
+    lengths = [100, 3, 1, 57, 40, 55]
+    dslot = np.repeat(rng.randint(0, D, size=len(lengths)),
+                      lengths).astype(np.int32)
+    dslot[rng.rand(C) < 0.05] = -1
+    ok = rng.rand(C) > 0.05
+    pid = rng.randint(0, 5000, size=(D, QP)).astype(np.int32)
+    # centers near their row's candidates, so the cut keeps some of them
+    centers = (base[np.maximum(dslot, 0), rng.randint(0, QP, size=C)]
+               + rng.normal(0, 0.03, size=(C, 3))).astype(np.float32)
+    centers[:, 0] = np.where(centers[:, 0] > 1e7, 0.0, centers[:, 0])
+    r2 = 0.01
+    cand = base[np.maximum(dslot, 0)]
+    pj, dj = pallas_knn_select(jnp.asarray(cand),
+                               jnp.asarray(pid[np.maximum(dslot, 0)]),
+                               jnp.asarray(centers),
+                               jnp.asarray(ok & (dslot >= 0)), K=K, r2=r2)
+    flat = np.concatenate([base[..., 0], base[..., 1], base[..., 2]], axis=1)
+    pt, dt = knn_select_plain(torch.from_numpy(flat), torch.from_numpy(pid),
+                              torch.from_numpy(dslot),
+                              torch.from_numpy(centers), torch.from_numpy(ok),
+                              K, r2)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6,
+                               atol=1e-7)
+    pt = pt.numpy()
+    assert (pt >= 0).any() and (pt[(pt >= 0).any(1)] == -1).any()
+
+
+@pytest.mark.parametrize("K,route", [(1, 8), (8, 8), (9, 16), (16, 16),
+                                     (17, 0), (243, 0)])
+def test_knn_select_route_for(K, route):
+    """The kernel path by K: the run path's register top-K holds 8 or 16,
+    larger K takes the warp path."""
+    from pointnerf_tpu_torch.ops.knn_select import route_for
+    assert route_for(K) == route
+
+
 def test_knn_select_checks_inputs():
     flat = torch.zeros((4, 30))
     pid = torch.zeros((4, 10), dtype=torch.int32)
