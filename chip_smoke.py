@@ -50,7 +50,37 @@ Phases:
      (the same jitter draw) from the state the timed steps left: integers
      equal, the loss, the MLP gradients and the point-payload gradients
      within their bf16 bars;
-  9. the kernels JSON line, the card line, and the final status line.
+  9. the maintenance path: the launch counts are set to 0 and
+     train_scene runs 40 steps of 3,600 rays on the same sphere with the
+     points within 25 degrees of view 0's silhouette cut (grazing rays
+     miss: a hole) and every 8th point's conf below prune_thresh, with
+     prunes at 10/20/30/40, probe-hole growth over view 0 at 15/30 (dense
+     prob-mode chunks of 2,304 rays), splits at 20/40, an eval of view 4
+     at 35 and checkpoints at 25 and 40; then train_scene resumes from the
+     last checkpoint to step 44. Checks: each prune keeps exactly the
+     points with conf > prune_thresh; the first probe finds missed rays and
+     grows; every grown point lies within the KNN radius of the cloud
+     before it (the first grow's also of the sphere); a split adds points;
+     the grid is rebuilt after every change of the point set with the
+     carried max_d; every train step launches K1, K3 and K4 once, every
+     probe or eval chunk K1, K3 and K2 once, on their main routes; losses
+     and PSNR are finite; the resumed state equals the saved one bit for
+     bit. Prints the seconds per prune, probe frame, grow, split, grid
+     rebuild, eval frame, checkpoint save and load, and the loop's train
+     rays/s. Then K1 (bit-equal), K2 (within K2_TOL) and K3 (bf16 and
+     f32, as in phase 3) are held against their plain versions on one
+     recorded dense probe chunk (C = 184,320 slots, M = 1,474,560 rows,
+     R = 2,304) and one recorded eval chunk (C = 92,160, M = 737,280,
+     R = 9,216), and a 16 x 16 window of the first probe frame around a
+     hole's edge is rendered with the probe outputs on the card and on the
+     CPU from the state that probe saw: masks and neighbor ids equal, the
+     argmax sample equal on every ray outside a fixed near-tie margin (at
+     most MAX_TIE_SHARE of the hit rays inside it), the opacities (per
+     sample and the peak) on their mean error and the other probe outputs
+     on their largest, each beside a control;
+ 10. the kernels JSON line (launches per path, the maintenance path's
+     included, and each render kernel's numbers on the probe chunk and
+     the eval chunk), the card line, and the final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -67,8 +97,10 @@ or without the pointnerf_tpu_torch package beside it, it exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -95,6 +127,29 @@ K4_BF16_TOL = 5e-3     # decode backward in bf16, mean relative error
 # route's bar for a sum in another order. A fault confined to a few rows (a
 # live tile taken for dead, or left out of dW) shows there, not in the mean.
 MAX_FACTOR = 2.0
+# card vs CPU probe outputs of the maintenance path's probe window. The
+# outputs read at the argmax sample from the neighbor weights and payloads,
+# which no decode touches: max |card - CPU| / max |CPU| on the rays
+# compared (control: each ray's neighbor's value; read <= 2.3e-07 against
+# ~1 on an H100 80GB HBM3 at 700 W, PERF.md §6).
+PROBE_TOL = {"ray_max_sample_loc_w": 1e-5, "ray_max_far_dist": 1e-5,
+             "shading_avg_color": 1e-5, "shading_avg_dir": 1e-5,
+             "shading_avg_conf": 1e-5, "shading_avg_embedding": 1e-5}
+# The opacities come out of the bf16 decode: each sample's of the hit rays
+# and each compared ray's peak, held on mean |card - CPU| / mean |CPU|
+# (control: the CPU with an f32 decode). Like K3's outputs, their largest
+# bf16 error wanders toward the control's order as a rounding tie falls on
+# either side (per sample 6.7e-05 to 4.2e-04 of max|CPU|, the peak 2.3e-05
+# to 2.4e-04), so they are held on the mean, as K3 is. Readings on an H100
+# 80GB HBM3 at 700 W (PERF.md §6): per sample 2.5e-06 to 3.2e-06, control
+# 5.8e-04; the peak 5.3e-06, control 8.0e-04.
+OPACITY_BF16_TOL = 1e-4
+# a ray whose two largest CPU opacities lie within this share of max|CPU|
+# is a near tie, and its argmax is not compared: twice the largest
+# per-sample opacity error read, rounded up (2 x 5e-4); at most
+# MAX_TIE_SHARE of the window's hit rays may be near ties
+TIE_MARGIN = 1e-3
+MAX_TIE_SHARE = 0.25
 # card vs CPU training step (bf16 decode), relative: the loss (read 1.1e-6
 # vs control 8.3e-4), and each group of gradients, sum |card - CPU| /
 # sum |CPU| over its leaves, on the state the timed steps leave (PERF.md
@@ -194,15 +249,16 @@ def host_us(fn, calls: int = 50) -> float:
     return t / calls * 1e6
 
 
-def hold_bf16(what: str, err: float, control: float, bar: float) -> None:
-    """Fail unless the bf16 comparison is under its bar and the control
-    (f32 in place of bf16) is above it."""
-    log(f"{what}: {err:.3e}, control (f32 in place of bf16) "
-        f"{control:.3e}, bar {bar:.3e}")
+def hold_bf16(what: str, err: float, control: float, bar: float,
+              control_is: str = "f32 in place of bf16") -> None:
+    """Fail unless the comparison is under its bar and the control (by
+    default the f32 version in place of the bf16 one) is above it."""
+    log(f"{what}: {err:.3e}, control ({control_is}) {control:.3e}, bar "
+        f"{bar:.3e}")
     if not err <= bar:
-        fail(f"{what} beyond the bf16 bar")
+        fail(f"{what} beyond its bar")
     if not control > bar:
-        fail(f"{what}: the bf16 bar does not tell the control apart")
+        fail(f"{what}: the bar does not tell the control apart")
 
 
 def hold_max(what: str, names, kern, plain, ref, f32_tol: float) -> None:
@@ -283,34 +339,47 @@ def batches(cfg, n_rays, n_views, device, seed0=1):
     return out
 
 
-def capture_kernel_inputs(params, pc, st, grid, batch, cfg):
-    """Render one request with recording wrappers around the three kernel
-    entry points; returns {name: (args, kwargs)} as the path called them."""
+# the kernels every render launches once (eval_step, not training)
+RENDER_KERNELS = ("knn_select", "fused_decode", "fused_march")
+
+
+@contextlib.contextmanager
+def recording_kernels():
+    """Recording wrappers around the three kernel entry points as the
+    render path calls them; yields {name: (args, kwargs)} of each one's
+    last call."""
     from pointnerf_tpu_torch.models import aggregator, renderer
     from pointnerf_tpu_torch.ops import query
-    from pointnerf_tpu_torch.train.step import eval_step
     seen = {}
-    spots = [("knn_select", query, "knn_select"),
-             ("fused_decode", aggregator, "fused_decode"),
-             ("fused_march", renderer, "fused_march")]
-    originals = []
-    for name, mod, attr in spots:
-        real = getattr(mod, attr)
-        originals.append((mod, attr, real))
-
-        def rec(*a, _name=name, _real=real, **k):
+    spots = [(query, "knn_select"), (aggregator, "fused_decode"),
+             (renderer, "fused_march")]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr in spots]
+    for mod, attr, real in originals:
+        def rec(*a, _name=attr, _real=real, **k):
             seen[_name] = (a, k)
             return _real(*a, **k)
         setattr(mod, attr, rec)
     try:
-        eval_step({"mlp": params, "points": pc}, st, grid, batch, cfg)
+        yield seen
     finally:
         for mod, attr, real in originals:
             setattr(mod, attr, real)
-    missing = [n for n, _, _ in spots if n not in seen]
+
+
+def all_recorded(seen, what: str):
+    missing = [n for n in RENDER_KERNELS if n not in seen]
     if missing:
-        fail(f"the main path did not reach {missing}")
+        fail(f"{what} did not reach {missing}")
     return seen
+
+
+def capture_kernel_inputs(params, pc, st, grid, batch, cfg):
+    """Render one request with recording wrappers around the three kernel
+    entry points; returns {name: (args, kwargs)} as the path called them."""
+    from pointnerf_tpu_torch.train.step import eval_step
+    with recording_kernels() as seen:
+        eval_step({"mlp": params, "points": pc}, st, grid, batch, cfg)
+    return all_recorded(seen, "the main path")
 
 
 def k1_run_stats(nbr_xyz, dslot, ok, centers, r2: float, block: int):
@@ -422,9 +491,10 @@ def check_k2(args, kw):
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
-def check_k3(captured):
+def check_k3(captured, what: str = "request"):
     """K3 against its plain version on the decode inputs of every captured
-    request, in bf16 and in f32; times and bound on the first request's."""
+    `what` (a request, a probe chunk or an eval chunk), in bf16 and in f32;
+    times and bound on the first one's."""
     import torch
     from pointnerf_tpu_torch.ops.fused_decode import (TC_ROWS, flops,
                                                       fused_decode,
@@ -454,12 +524,12 @@ def check_k3(captured):
             errs[label] = max(errs[label], err)
             if label == "bf16":
                 m = worst_mean(out, plain[label])
-                log(f"K3 fused_decode bf16, request {i}, M={feat.shape[0]} "
+                log(f"K3 fused_decode bf16, {what} {i}, M={feat.shape[0]} "
                     f"H={sp.H}: mean |err| / mean |plain| {m:.3e} (worst "
                     f"output), max abs err {err:.3e}")
                 # the order-independent reference: the plain version with
                 # its sums in f64, the same rounding points
-                hold_max(f"K3 bf16, request {i}", ("fagg", "alpha"), out,
+                hold_max(f"K3 bf16, {what} {i}", ("fagg", "alpha"), out,
                          plain[label],
                          fused_decode_plain(feat, dists, extras, w, params,
                                             sp, dtype=torch.float64),
@@ -468,12 +538,12 @@ def check_k3(captured):
                 control = min(control, worst_mean(plain["f32"],
                                                   plain["bf16"]))
             else:
-                log(f"K3 fused_decode f32, request {i}, M={feat.shape[0]} "
+                log(f"K3 fused_decode f32, {what} {i}, M={feat.shape[0]} "
                     f"H={sp.H}: max abs err {err:.3e}, scale max|plain| "
                     f"{scale:.3e} (tolerance {tol} x scale)")
                 if not err <= tol * scale:
                     fail(f"K3 ({label}) disagrees with its plain version")
-    hold_bf16(f"K3 bf16 vs plain over {len(captured)} requests, mean |err| / "
+    hold_bf16(f"K3 bf16 vs plain over {len(captured)} {what}s, mean |err| / "
               f"mean |plain|, worst output", rel, control, K3_BF16_TOL)
 
     feat, dists, extras, w, params, spec = captured[0][0]
@@ -982,6 +1052,510 @@ def train_cpu_parity(state, st, grid, cfg):
                   f"the group's leaves", l1, c_l1, GRAD_BF16_TOL[grp])
 
 
+# ---- the maintenance path: train_scene with prune, grow, split, eval and
+# a checkpoint, then a resume -------------------------------------------
+MAINT_STEPS = 40
+MAINT_RESUME_TO = 44
+MAINT_WH = (256, 256)
+MAINT_VIEWS = 8
+# the points within this angle of the probe view's silhouette are cut: a
+# grazing ray then passes r (1 - cos 25 deg) = 0.047 from the nearest point
+# left, beyond the KNN radius (4 voxels of 0.008), so it misses
+SILHOUETTE_BAND_DEG = 25.0
+
+
+def maintenance_config(cfg):
+    """slice_config with a schedule that fires every maintenance event
+    within MAINT_STEPS steps of 3,600 rays: prunes at 10/20/30/40, probes at
+    15/30, splits at 20/40, an eval at 35, a checkpoint at 25 (and the final
+    one at 40)."""
+    # the weights are random, so the probe's peak opacities are not on a
+    # trained scene's scale (the run prints them) and the reference's 0.7
+    # would decide nothing: with prob_thresh 0 every hit ray next to a hole
+    # grows (the threshold test itself is held against JAX on the CPU,
+    # tests/test_torch_driver.py)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=MAINT_STEPS, prune_iter=10,
+        prune_max_iter=MAINT_STEPS, prune_thresh=0.1, prob_freq=15,
+        prob_num_step=1, prob_thresh=0.0, split_iter=20, split_top=1024,
+        test_freq=35, save_iter_freq=25, print_freq=5,
+        random_sample_size=60))
+
+
+def maintenance_scene():
+    """The 65,536-point sphere_scene (seed 0) with a band around the probe
+    view's silhouette cut away, every 8th remaining point's conf below
+    prune_thresh (0.05; the rest 0.5), and the ring of MAINT_VIEWS views:
+    training batches of 3,600 rays from every view, the probe frame is view
+    0, the test frame view 4."""
+    import numpy as np
+    from pointnerf_tpu_torch.data.synthetic import (ring_cameras, sphere_scene,
+                                                    view_ray_batch)
+    xyz, color, normals = sphere_scene(n_pts=N_POINTS, seed=0)
+    views = ring_cameras(n_views=MAINT_VIEWS, wh=MAINT_WH)
+    d = float(np.linalg.norm(views[0][0]))
+    ang = np.arccos(np.clip(normals @ (views[0][0] / d), -1.0, 1.0))
+    keep = np.abs(ang - np.arccos(0.5 / d)) > np.radians(SILHOUETTE_BAND_DEG)
+    xyz, color, normals = xyz[keep], color[keep], normals[keep]
+    conf = np.full((xyz.shape[0], 1), 0.5, np.float32)
+    conf[::8] = 0.05
+
+    def train_item(step):
+        v = step % MAINT_VIEWS
+        return view_ray_batch(*views[v], MAINT_WH, n_rays=N_RAYS, seed=step,
+                              view_id=v)
+    probe = [view_ray_batch(*views[0], MAINT_WH, view_id=0)]
+    test = [view_ray_batch(*views[4], MAINT_WH, view_id=4)]
+    return (xyz, color, normals), conf, train_item, probe, test
+
+
+class MaintRecorder:
+    """Wraps the driver's and grow module's entry points for one run of
+    train_scene: times each event on the device's clock (synchronized),
+    checks what each event did against the state just before it, counts
+    each train step's and each rendered chunk's kernel launches, and
+    records the K1, K3 and K2 inputs of one dense probe chunk and of one
+    eval chunk."""
+
+    def __init__(self, cfg, kernels):
+        import torch
+        from pointnerf_tpu_torch.train import driver as td, grow as tg
+        self.torch, self.td, self.tg = torch, td, tg
+        self.cfg, self.kernels = cfg, kernels
+        self.times = {k: [] for k in ("prune", "probe_frame", "grow", "split",
+                                      "grid_refresh", "eval_frame",
+                                      "checkpoint_save", "checkpoint_load",
+                                      "train_step")}
+        self.log = []            # (event, detail) in order
+        self.maps = None         # the first probe frame's maps
+        self.probe_item = None
+        self.first_probe = None  # (params, st, grid) the first probe saw
+        # {"probe_chunk" | "eval_chunk": {kernel: (args, kwargs)}}
+        self.captured = {}
+        self.saved = None        # the state the last checkpoint holds
+        self.losses = []
+        self._orig = []
+        self._chunk = self._chunks = 0   # the chunk of the frame rendering
+
+    def _patch(self, mod, name, fn):
+        self._orig.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def restore(self):
+        for mod, name, real in reversed(self._orig):
+            setattr(mod, name, real)
+        self._orig.clear()
+
+    def _timed(self, key, fn, *a, **k):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        self.times[key].append(time.perf_counter() - t0)
+        return out
+
+    def install(self):
+        td, tg = self.td, self.tg
+        for name in ("apply_prune", "probe_hole", "apply_grow",
+                     "split_high_grad", "refresh_grid", "train_step",
+                     "save_checkpoint", "load_checkpoint",
+                     "render_full_frame"):
+            self._patch(td, name, getattr(self, name)(getattr(td, name)))
+        self._patch(tg, "render_full_frame",
+                    self.probe_frame(tg.render_full_frame))
+        self._patch(tg, "eval_step", self.chunk(tg.eval_step))
+
+    # -- events ---------------------------------------------------------
+    def apply_prune(self, real):
+        def run(state, st, cfg):
+            n = int(st.num_active)
+            conf = state.params["points"].conf[:n, 0]
+            expect = int((conf > cfg.train.prune_thresh).sum())
+            state, st, kept = self._timed("prune", real, state, st, cfg)
+            if kept != expect or int(st.num_active) != expect:
+                fail(f"prune kept {kept} of {n} points; {expect} had conf > "
+                     f"{cfg.train.prune_thresh}")
+            self.log.append(("prune", (n, kept)))
+            return state, st, kept
+        return run
+
+    def probe_hole(self, real):
+        def run(params, st, grid, *a, **k):
+            if self.first_probe is None:
+                self.first_probe = (params, st, grid)
+            cand = real(params, st, grid, *a, **k)
+            self.log.append(("probe", cand.xyz.shape[0]))
+            return cand
+        return run
+
+    def probe_frame(self, real):
+        def run(params, st, grid, cfg, item, wh, chunk=2304, prob=True):
+            self._chunk = 0
+            self._chunks = -(-len(item["raydir"]) // chunk)
+            maps = self._timed("probe_frame", real, params, st, grid, cfg,
+                               item, wh, chunk, prob)
+            import numpy as np
+            W, H = wh
+            gt = np.zeros((H, W, 3), np.float32)
+            pix = np.asarray(item["pixel_idx"], np.int64)
+            gt[pix[:, 1], pix[:, 0]] = item["gt_image"]
+            bg = np.asarray(cfg.render.bg_color, np.float32)
+            miss = (~maps["ray_mask"][..., 0]
+                    & (np.linalg.norm(gt - bg, axis=-1) > 0.002))
+            self.log.append(("probe_frame", int(miss.sum())))
+            peak = maps["ray_max_shading_opacity"][maps["ray_mask"][..., 0]]
+            log(f"probe frame: {int(miss.sum())} rays miss where the ground "
+                f"truth is the sphere; peak opacity of the hit rays: max "
+                f"{float(peak.max()):.4f}, median "
+                f"{float(np.median(peak)):.4f}")
+            if self.maps is None:
+                self.maps, self.probe_item = maps, item
+                if not miss.any():
+                    fail("the first probe frame has no hole: no ray misses "
+                         "the cloud where the ground truth is the sphere")
+            return maps
+        return run
+
+    def render_full_frame(self, real):
+        def run(params, st, grid, cfg, item, wh, chunk=2304, prob=True):
+            self._chunk = 0
+            self._chunks = -(-len(item["raydir"]) // chunk)
+            return self._timed("eval_frame", real, params, st, grid, cfg,
+                               item, wh, chunk, prob)
+        return run
+
+    def chunk(self, real):
+        """Every rendered chunk (probe or eval) launches K1, K3 and K2 once
+        each; the middle chunk of the first probe frame and of the first
+        eval frame records the three kernels' inputs."""
+        def run(params, st, grid, batch, cfg, prob=False):
+            kind = "probe_chunk" if prob else "eval_chunk"
+            before = {n: self.kernels[n].launches for n in RENDER_KERNELS}
+            record = (kind not in self.captured
+                      and self._chunk == self._chunks // 2)
+            with (recording_kernels() if record
+                  else contextlib.nullcontext()) as seen:
+                out = real(params, st, grid, batch, cfg, prob=prob)
+            if record:
+                self.captured[kind] = all_recorded(seen, f"a {kind}")
+            self._chunk += 1
+            for n in RENDER_KERNELS:
+                if self.kernels[n].launches != before[n] + 1:
+                    fail(f"a {'probe' if prob else 'eval'} chunk launched {n} "
+                         f"{self.kernels[n].launches - before[n]} times, not "
+                         f"once")
+            return out
+        return run
+
+    def apply_grow(self, real):
+        """A grown point sits at a hit ray's max-opacity sample, which has a
+        neighbor within the KNN radius: each lies within that radius of the
+        cloud before the grow, and the first grow's (before any split, from
+        points on the sphere) within it of the sphere's radius."""
+        def run(state, st, cand, cfg):
+            torch = self.torch
+            n = int(st.num_active)
+            old = state.params["points"].xyz[:n]
+            state, st, added = self._timed("grow", real, state, st, cand, cfg)
+            self.log.append(("grow", (n, added)))
+            if added:
+                new = state.params["points"].xyz[n:n + added]
+                near = float(torch.cdist(
+                    new, old, compute_mode="donot_use_mm_for_euclid_dist")
+                    .amin(1).max())
+                shell = float((torch.linalg.norm(new, dim=-1) - 0.5).abs()
+                              .max())
+                r = cfg.query.radius_limit
+                first = not any(e == "grow_shell" for e, _d in self.log)
+                self.log.append(("grow_shell", (near, shell)))
+                log(f"grow: {added} points, the farthest {near:.5f} from the "
+                    f"cloud before it and {shell:.5f} from the sphere's "
+                    f"radius (KNN radius {r})")
+                if not near <= r * (1 + 1e-5):
+                    fail(f"a grown point lies {near:.5f} from the cloud, "
+                         f"beyond the KNN radius {r}")
+                if first and not shell <= r * (1 + 1e-5):
+                    fail(f"a point of the first grow lies {shell:.5f} from the "
+                         f"sphere, beyond the KNN radius {r}")
+            return state, st, added
+        return run
+
+    def split_high_grad(self, real):
+        def run(state, st, cfg):
+            n = int(st.num_active)
+            state, st, added = self._timed("split", real, state, st, cfg)
+            self.log.append(("split", (n, added)))
+            return state, st, added
+        return run
+
+    def refresh_grid(self, real):
+        def run(pc, st, cfg, max_d=None):
+            grid, used = self._timed("grid_refresh", real, pc, st, cfg,
+                                     max_d=max_d)
+            self.log.append(("grid", (max_d, used, int(st.num_active))))
+            return grid, used
+        return run
+
+    def train_step(self, real):
+        def run(state, st, grid, batch, cfg):
+            before = {n: self.kernels[n].launches for n in TRAIN_KERNELS}
+            state, items = self._timed("train_step", real, state, st, grid,
+                                       batch, cfg)
+            for n in TRAIN_KERNELS:
+                if self.kernels[n].launches != before[n] + 1:
+                    fail(f"a maintenance-path train step launched {n} "
+                         f"{self.kernels[n].launches - before[n]} times")
+            self.losses.append(items["loss_total"])
+            return state, items
+        return run
+
+    def save_checkpoint(self, real):
+        def run(root, state, meta=None):
+            path = self._timed("checkpoint_save", real, root, state, meta)
+            self.saved = (path, state, self.torch.clone(state.key.get_state()))
+            self.log.append(("save", path))
+            return path
+        return run
+
+    def load_checkpoint(self, real):
+        def run(path, template):
+            state, meta = self._timed("checkpoint_load", real, path, template)
+            self.log.append(("load", path))
+            if self.saved is None or self.saved[0] != path:
+                fail(f"resumed from {path}, not the last checkpoint written")
+            same_state(state, self.saved[1], self.saved[2])
+            return state, meta
+        return run
+
+
+def same_state(a, b, key_state):
+    """Fail unless two TrainStates are equal bit for bit: parameters,
+    moments and counts, hit counters, step, and the generator state."""
+    import torch
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    la = tree_leaves([a.params, a.opt_state, a.step, a.hits])
+    lb = tree_leaves([b.params, b.opt_state, b.step, b.hits])
+    if len(la) != len(lb):
+        fail("the loaded state has another structure than the saved one")
+    bad = [i for i, (x, y) in enumerate(zip(la, lb))
+           if x.shape != y.shape or x.dtype != y.dtype
+           or not torch.equal(x.reshape(-1).view(torch.uint8),
+                              y.reshape(-1).view(torch.uint8))]
+    if bad or not torch.equal(a.key.get_state(), key_state):
+        fail(f"the loaded state differs from the saved one (leaves {bad}, "
+             f"generator {torch.equal(a.key.get_state(), key_state)})")
+    log(f"checkpoint: the loaded state equals the saved one bit for bit "
+        f"({len(la)} tensors, step {int(a.step)}, the generator state)")
+
+
+def check_maintenance_log(rec: MaintRecorder):
+    """Every point-set change is followed by a grid rebuild with the table
+    size the previous build settled on and the new point count; each event
+    kind fired."""
+    last_max_d, pending = None, None
+    kinds = {}
+    for ev, detail in rec.log:
+        kinds[ev] = kinds.get(ev, 0) + 1
+        if ev == "grid":
+            max_d, used, n = detail
+            if last_max_d is not None and max_d != last_max_d:
+                fail(f"a grid rebuild took max_d={max_d}, not the carried "
+                     f"{last_max_d}")
+            if pending is not None and n != pending:
+                fail(f"the grid was rebuilt at {n} points, not {pending}")
+            last_max_d, pending = used, None
+        elif ev == "load":
+            last_max_d = None       # a new run builds from the config
+        elif ev in ("prune", "grow", "split"):
+            if pending is not None:
+                fail(f"a {ev} came before the grid was rebuilt")
+            n, after = detail
+            if ev == "prune" or after:
+                pending = after if ev == "prune" else n + after
+    if pending is not None:
+        fail("the last point-set change was not followed by a grid rebuild")
+    grows = [d for e, d in rec.log if e == "grow"]
+    splits = [d for e, d in rec.log if e == "split"]
+    if not grows or not grows[0][1] > 0:
+        fail(f"the first probe grew no point: {grows}")
+    if not any(a > 0 for _n, a in splits):
+        fail(f"no split added a point: {splits}")
+    for ev in ("prune", "probe", "grow", "split", "save", "load"):
+        if not kinds.get(ev):
+            fail(f"the maintenance path never ran a {ev}")
+    if not rec.times["eval_frame"]:
+        fail("the maintenance path never evaluated a frame")
+    return kinds
+
+
+def window_parity(cfg, rec: MaintRecorder):
+    """A 16 x 16 window of the first probe frame around a hole's edge,
+    rendered with the probe outputs from the state that probe saw, on the
+    card and on the CPU (plain versions):
+    neighbor ids and masks equal, the argmax sample equal on every hit ray
+    whose CPU top-two opacity gap exceeds TIE_MARGIN of max|CPU| (a closer
+    pair may swap; such rays are counted, and fail the run when more than
+    MAX_TIE_SHARE of the hit rays), the decoded opacities (per sample and
+    the peak) on their mean error, and the other probe outputs on their
+    largest, each beside its control."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.models.renderer import RayBatch
+    from pointnerf_tpu_torch.ops.grid import build_grid
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from pointnerf_tpu_torch.train.step import eval_step
+    item = rec.probe_item
+    W, H = MAINT_WH
+    hit = rec.maps["ray_mask"][..., 0]
+    gt = np.zeros((H, W, 3), np.float32)
+    pix = np.asarray(item["pixel_idx"], np.int64)
+    gt[pix[:, 1], pix[:, 0]] = item["gt_image"]
+    bg = np.asarray(cfg.render.bg_color, np.float32)
+    hole = ~hit & (np.linalg.norm(gt - bg, axis=-1) > 0.002)
+    from pointnerf_tpu_torch.train.grow import _dilate3
+    ys, xs = np.nonzero(hole & _dilate3(hit))
+    if ys.size == 0:
+        fail("the first probe frame has no hole next to a hit ray")
+    params, st, grid = rec.first_probe
+    y0 = int(np.clip(ys[0] - 8, 0, H - 16))
+    x0 = int(np.clip(xs[0] - 8, 0, W - 16))
+    sel = ((pix[:, 1] >= y0) & (pix[:, 1] < y0 + 16)
+           & (pix[:, 0] >= x0) & (pix[:, 0] < x0 + 16))
+    cpu = torch.device("cpu")
+
+    def batch(dev):
+        t = lambda a, dt=torch.float32: torch.tensor(  # noqa: E731
+            np.asarray(a), dtype=dt, device=dev)
+        return RayBatch(campos=t(item["campos"]),
+                        camrotc2w=t(item["camrotc2w"]),
+                        raydir=t(item["raydir"][sel]),
+                        pixel_idx=t(pix[sel], torch.int32),
+                        near=t(cfg.render.near_plane),
+                        far=t(cfg.render.far_plane))
+    params_c = tree_map(lambda x: x.to(cpu), params)
+    st_c = type(st)(*[x.to(cpu) for x in st])
+    q = dataclasses.replace(cfg.query, max_d=grid.nbr_pid.shape[0])
+    grid_c = build_grid(params_c["points"].xyz, st_c.num_active, q)
+    o_card = eval_step(params, st, grid, batch(st.num_active.device), cfg,
+                       prob=True)
+    o_cpu = eval_step(params_c, st_c, grid_c, batch(cpu), cfg, prob=True)
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  compute_dtype="f32"))
+    o_ctl = eval_step(params_c, st_c, grid_c, batch(cpu), cfg32, prob=True)
+    for f in ("ray_mask", "ray_valid", "neighbor_pidx"):
+        if not torch.equal(getattr(o_card, f).cpu(), getattr(o_cpu, f)):
+            fail(f"probe window: {f} differs between the card and the CPU")
+    rmask = o_cpu.ray_mask
+    if not (bool(rmask.any()) and not bool(rmask.all())):
+        fail("the probe window holds no hole edge (all rays hit or miss)")
+    op_k, op_c = o_card.coarse_point_opacity.cpu(), o_cpu.coarse_point_opacity
+    op_scale = float(op_c.abs().max())
+    # two samples whose CPU opacities lie within the margin may swap
+    margin = TIE_MARGIN * op_scale
+    top2 = op_c.topk(2, dim=-1).values
+    clear = rmask & (top2[:, 0] - top2[:, 1] > margin)
+    n_hit, n_tie = int(rmask.sum()), int((rmask & ~clear).sum())
+    am_k, am_c = op_k.argmax(-1), op_c.argmax(-1)
+    log(f"probe window {x0}..{x0 + 15} x {y0}..{y0 + 15}: ray_mask, ray_valid "
+        f"and neighbor ids equal; {n_hit} of 256 rays hit; the argmax sample "
+        f"compared on {int(clear.sum())} rays, {n_tie} near ties (top-two "
+        f"gap within {margin:.3e}, {int((am_k != am_c)[rmask].sum())} of them "
+        f"swapped)")
+    if n_tie > n_hit * MAX_TIE_SHARE:
+        fail(f"probe window: {n_tie} of {n_hit} hit rays are near ties, more "
+             f"than {MAX_TIE_SHARE} of them")
+    if not torch.equal(am_k[clear], am_c[clear]):
+        fail("probe window: the argmax sample differs between the card and "
+             "the CPU on a ray without a near tie")
+    for f, which, rays in (("coarse_point_opacity", "hit", rmask),
+                           ("ray_max_shading_opacity", "compared", clear)):
+        a, b = getattr(o_card, f).cpu()[rays], getattr(o_cpu, f)[rays]
+        log(f"probe window {f}: largest |err| / max|CPU| "
+            f"{float((a - b).abs().max()) / float(b.abs().max()):.3e} "
+            f"(printed only)")
+        hold_bf16(f"card vs CPU probe window, {f} of the {which} rays, mean "
+                  f"|err| / mean |CPU|", mean_rel(a, b),
+                  mean_rel(getattr(o_ctl, f)[rays], b), OPACITY_BF16_TOL)
+    for f, bar in PROBE_TOL.items():
+        b = getattr(o_cpu, f)
+        a = getattr(o_card, f).cpu()[clear]
+        c = b.roll(1, 0)[clear]
+        b = b[clear]
+        s = float(b.abs().max())
+        if not s > 0:
+            fail(f"probe window: {f} is all zero on the compared rays")
+        err, ctl = (float((x - b).abs().max()) / s for x in (a, c))
+        hold_bf16(f"card vs CPU probe window, {f}, max |err| / max |CPU|",
+                  err, ctl, bar, "the next ray's value")
+
+
+def maintenance_path(cfg, kernels, device="cuda"):
+    """train_scene at bench width with every maintenance event, then a
+    resume from its last checkpoint for a few more steps. Returns the
+    recorder, the launch counts and routes of both runs, the seconds per
+    event and the train rays/s of the steps."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.train import driver as td
+    mcfg = maintenance_config(cfg)
+    pts, conf, train_item, probe, test = maintenance_scene()
+    rec = MaintRecorder(mcfg, kernels)
+    log(f"maintenance scene: {pts[0].shape[0]} of {N_POINTS} points left "
+        f"after the silhouette band ({SILHOUETTE_BAND_DEG} deg) of view 0 is "
+        f"cut, {int((conf < mcfg.train.prune_thresh).sum())} below "
+        f"prune_thresh")
+    reset_counts(kernels)
+    rec.install()
+    try:
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as run_dir:
+            t0 = time.perf_counter()
+            _state, _st, hist = td.train_scene(
+                mcfg, pts, train_item, test, probe, MAINT_WH, run_dir=run_dir,
+                conf=conf, device=device)
+            t1 = time.perf_counter()
+            state2, _st2, hist2 = td.train_scene(
+                mcfg, pts, train_item, test, probe, MAINT_WH, run_dir=run_dir,
+                max_steps=MAINT_RESUME_TO, resume=True, conf=conf,
+                device=device)
+            t2 = time.perf_counter()
+    finally:
+        rec.restore()
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = kernel_routes(kernels, "maintenance")
+    if int(state2.step) != MAINT_RESUME_TO:
+        fail(f"the resumed run ended at step {int(state2.step)}")
+    kinds = check_maintenance_log(rec)
+    losses = torch.stack(rec.losses).cpu()
+    psnrs = [m["psnr"] for m in hist["eval"] + hist2["eval"]]
+    if not bool(torch.isfinite(losses).all()) or not psnrs \
+            or not all(np.isfinite(psnrs)):
+        fail(f"maintenance path: losses or PSNR not finite: "
+             f"{losses.tolist()}, {psnrs}")
+    n_steps = len(rec.times["train_step"])
+    if n_steps != MAINT_RESUME_TO:
+        fail(f"the maintenance path took {n_steps} train steps")
+    rate = n_steps * N_RAYS / sum(rec.times["train_step"])
+    log(f"maintenance events: {[e for e in rec.log if e[0] != 'grid']}")
+    log(f"maintenance grid rebuilds (max_d passed, used, points): "
+        f"{[d for e, d in rec.log if e == 'grid']}")
+    log(f"maintenance path: {MAINT_STEPS} steps then a resume to "
+        f"{MAINT_RESUME_TO}: {t1 - t0:.2f} s + {t2 - t1:.2f} s (host clock); "
+        f"losses finite, eval PSNR {psnrs}, event counts {kinds}")
+    log(f"maintenance path: {n_steps} train steps of {N_RAYS} rays at "
+        f"{rate:.1f} train rays/s (the steps alone, each synchronized)")
+    secs = {k: (sum(v) / len(v) if v else None, len(v))
+            for k, v in rec.times.items()}
+    log("maintenance seconds per event (mean, count): " + ", ".join(
+        f"{k} {m:.4f} x{c}" for k, (m, c) in secs.items() if m is not None))
+    log(f"maintenance launches {counts}, routes {routes}")
+    return rec, counts, routes, secs, rate
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -1039,6 +1613,25 @@ def main() -> None:
     train_counts, train_routes, state = train_path(state, st, grid, tbatch,
                                                    cfg)
     train_cpu_parity(state, st, grid, cfg)
+    del state, seen
+
+    maint, maint_counts, maint_routes, _secs, _rate = maintenance_path(
+        cfg, kernel_wrappers())
+    # each render kernel against its plain version at the shapes the
+    # maintenance path gives it: a dense probe chunk and a compacted eval
+    # chunk
+    chunks = {}
+    for kind in ("probe_chunk", "eval_chunk"):
+        cap = maint.captured.get(kind)
+        if cap is None:
+            fail(f"no {kind}'s kernel inputs were recorded")
+        chunks[kind] = {
+            "knn_select": check_k1(*cap["knn_select"]),
+            "fused_march": check_k2(*cap["fused_march"]),
+            "fused_decode": check_k3([cap["fused_decode"]],
+                                     what=kind.replace("_", " "))["bf16"]}
+    maint.captured.clear()
+    window_parity(maintenance_config(cfg), maint)
 
     csrc = "pointnerf_tpu_torch/csrc/"
     meta = {"knn_select": ("knn_select.cu", "pointnerf_tpu/ops/pallas_knn.py:89"),
@@ -1055,14 +1648,16 @@ def main() -> None:
                          "f32": ("fused_decode.cu", k3["f32"])},
         "fused_decode_bwd": {"bf16": ("fused_decode_bwd_tc.cu", k4["bf16"]),
                              "f32": ("fused_decode_bwd.cu", k4["f32"])}}
-    routes = {n: {"serve": serve_routes[n], "train": train_routes[n]}
-              for n in MAIN_ROUTES}
+    routes = {n: {"serve": serve_routes[n], "train": train_routes[n],
+                  "maintenance": maint_routes[n]} for n in MAIN_ROUTES}
     rows = []
     for name, (src, rep) in meta.items():
         r = results[name]
-        # launches over both main paths' runs: the serving requests and the
-        # training steps
-        by_path = {"serve": serve_counts[name], "train": train_counts[name]}
+        # launches over the main paths' runs: the serving requests, the
+        # training steps, and the maintenance path (train_scene with its
+        # probes, eval and resume)
+        by_path = {"serve": serve_counts[name], "train": train_counts[name],
+                   "maintenance": maint_counts[name]}
         row = {"name": name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -1074,6 +1669,12 @@ def main() -> None:
         for k in ("host_us", "run_stats"):
             if k in r:
                 row[k] = r[k]
+        for kind, res in chunks.items():
+            if name in res:
+                # the same comparison and timing on the maintenance path's
+                # dense probe chunk and its eval chunk
+                row[kind] = {k: v for k, v in res[name].items()
+                             if k != "gemm_chain_ms"}
         if name in by_precision:
             row["gemm_chain_ms"] = r["gemm_chain_ms"]
             row["by_precision"] = {

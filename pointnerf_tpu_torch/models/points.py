@@ -2,10 +2,11 @@
 
 Counterpart of `pointnerf_tpu/models/points.py` (`PointCloud`,
 `PointCloudStatic`, `round_capacity`, `make_point_cloud`, `SampledPoints`,
-`gather_points` with both `gather_bwd` backward modes). The cloud is
-padded to a fixed capacity: `num_active` points are live, the tail is dead
-padding with conf=0 and xyz parked far outside any scene box so the voxel
-grid never indexes it.
+`gather_points` with both `gather_bwd` backward modes, `prune`, `grow`).
+The cloud is padded to a fixed capacity: `num_active` points are live, the
+tail is dead padding with conf=0 and xyz parked far outside any scene box so
+the voxel grid never indexes it. Prune and grow re-pack inside the same
+capacity (`train/grow.py` re-buckets when growth needs more).
 """
 from __future__ import annotations
 
@@ -147,3 +148,59 @@ def gather_points(pc: PointCloud, xyz_pers: torch.Tensor,
             *idx.shape, table.shape[-1])
     splits = rows.split([3, 3, F, 1, 3, 3], dim=-1)
     return SampledPoints(*splits, mask=mask)
+
+
+def prune(pc: PointCloud, st: PointCloudStatic, thresh: float,
+          return_order: bool = False,
+          protect: Optional[torch.Tensor] = None):
+    """Drop points with conf <= thresh, packing the survivors to the front
+    of the same capacity in their old order. Returns (pc, st, kept[,
+    order]): `order` [capacity] is the stable survivors-first permutation,
+    so callers can permute per-point optimizer moments along with the
+    points. protect: optional [capacity] bool of live points exempt from
+    the confidence test."""
+    n = pc.capacity
+    ar = torch.arange(n, device=pc.xyz.device)
+    live = ar < st.num_active
+    alive = live & (pc.conf[:, 0] > thresh)
+    if protect is not None:
+        alive = alive | (live & protect)
+    order = torch.argsort((~alive).to(torch.int32), stable=True)
+    kept = alive.to(torch.int32).sum().to(torch.int32)
+    dead = (ar >= kept)[:, None]
+
+    def pack(a, fill):
+        return torch.where(dead, torch.full_like(a[:1], fill), a[order])
+
+    pc2 = PointCloud(xyz=pack(pc.xyz, DEAD_XYZ),
+                     features=pack(pc.features, 0.0),
+                     conf=pack(pc.conf, 0.0), color=pack(pc.color, 0.0),
+                     dirs=pack(pc.dirs, 0.0))
+    st2 = st._replace(num_active=kept)
+    return (pc2, st2, kept, order) if return_order else (pc2, st2, kept)
+
+
+def grow(pc: PointCloud, st: PointCloudStatic, new_xyz, new_features,
+         new_conf, new_color, new_dirs):
+    """Append grown points into the padding tail. new_* are [M, ...] rows;
+    rows whose x is DEAD_XYZ are ignored, and rows past the capacity are
+    dropped (the caller re-buckets first when it needs them all). Returns
+    (pc, st, added)."""
+    n = pc.capacity
+    new_ok = new_xyz[:, 0] < DEAD_XYZ / 2
+    new_rank = torch.cumsum(new_ok.to(torch.int32), 0) - 1
+    # row n is a sink for ignored and overflowing rows
+    dst = torch.where(new_ok, st.num_active + new_rank, n).clamp(max=n).long()
+
+    def app(a, na):
+        out = torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+        out[dst] = na.to(a.dtype)
+        return out[:n]
+
+    pc2 = PointCloud(xyz=app(pc.xyz, new_xyz),
+                     features=app(pc.features, new_features),
+                     conf=app(pc.conf, new_conf), color=app(pc.color, new_color),
+                     dirs=app(pc.dirs, new_dirs))
+    added = torch.minimum(new_ok.to(torch.int32).sum(),
+                          n - st.num_active).to(torch.int32)
+    return pc2, st._replace(num_active=st.num_active + added), added

@@ -1,14 +1,15 @@
 """The Point-NeRF forward pipeline: query -> gather -> aggregate -> march.
 
 Counterpart of `pointnerf_tpu/models/renderer.py`: `RayBatch`,
-`RenderOutput`, `compute_ray_dist`, `_finalize`, `decode_slots`,
-`compact_select`, `expand_compact_many`, `conf_coeff_fill`,
-`decode_compacted`, `shade_compacted`, `_shade_at` (compacted branch) and
-`render_rays` — the coarse render with the static-capacity compacted decode,
-for inference and for training (jittered samples, gradients). The kernels of
-this path: K1 (KNN select) inside `knn_query`, K3 (fused decode) and its
-backward K4 inside `aggregate`, K2 (fused march) inside `_finalize` when not
-training.
+`RenderOutput`, `compute_ray_dist`, `_finalize`, `shade` (the dense decode,
+with the prob-mode probe outputs), `decode_slots`, `compact_select`,
+`expand_compact_many`, `conf_coeff_fill`, `decode_compacted`,
+`shade_compacted`, `_shade_at` and `render_rays` — the coarse render, with
+the static-capacity compacted decode or the dense one (decode_capacity=0,
+and every prob-mode probe), for inference and for training (jittered
+samples, gradients). The kernels of this path: K1 (KNN select) inside
+`knn_query`, K3 (fused decode) and its backward K4 inside `aggregate`, K2
+(fused march) inside `_finalize` when not training.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..config import PointNeRFConfig, effective_ray_generator
 from ..ops.fused_decode import kernel_takes
 from ..ops.fused_march import fused_march
 from ..ops.grid import PointGrid
-from ..ops.query import generate_shading_points, knn_query
+from ..ops.query import generate_shading_points, knn_query, query_points
 from .aggregator import aggregate, decode_spec, fused_decode_supported
 from .points import PointCloud, PointCloudStatic, gather_points
 from .ray_march import (BLEND_FUNCS, RENDER_FUNCS, TONEMAP_FUNCS,
@@ -51,8 +52,18 @@ class RenderOutput(NamedTuple):
     conf_coefficient: torch.Tensor       # [R, SR, K]
     ray_valid: torch.Tensor              # [R, SR] bool
     sample_loc_w: torch.Tensor           # [R, SR, 3]
-    decode_dropped: Optional[torch.Tensor] = None   # [] int32
-    neighbor_pidx: Optional[torch.Tensor] = None    # [C, K] int32
+    decode_dropped: Optional[torch.Tensor] = None   # [] int32, compacted
+    # neighbor ids of the decode: [C, K] compacted, [R, SR, K] dense
+    neighbor_pidx: Optional[torch.Tensor] = None
+    # prob-mode probe outputs (point growing), at each ray's sample of
+    # largest opacity
+    ray_max_shading_opacity: Optional[torch.Tensor] = None  # [R, 1]
+    ray_max_sample_loc_w: Optional[torch.Tensor] = None     # [R, 3]
+    ray_max_far_dist: Optional[torch.Tensor] = None         # [R, 1]
+    shading_avg_color: Optional[torch.Tensor] = None        # [R, 3]
+    shading_avg_dir: Optional[torch.Tensor] = None          # [R, 3]
+    shading_avg_conf: Optional[torch.Tensor] = None         # [R, 1]
+    shading_avg_embedding: Optional[torch.Tensor] = None    # [R, F]
 
 
 def ray_batch_from_numpy(item: Dict, cfg: PointNeRFConfig,
@@ -71,15 +82,10 @@ def ray_batch_from_numpy(item: Dict, cfg: PointNeRFConfig,
 
 
 def check_envelope(cfg: PointNeRFConfig, device: torch.device,
-                   train: bool = False, prob: bool = False) -> None:
+                   train: bool = False) -> None:
     """Raise for what the port does not implement yet. On CUDA the path must
     also run its kernels (K1, K3, K4 when training, K2 when not): the port
     never routes the card through the plain versions."""
-    if prob:
-        raise not_ported("prob-mode probes", "Queue 1, point maintenance")
-    if cfg.query.decode_capacity <= 0:
-        raise not_ported("the dense decode (decode_capacity=0)",
-                         "Queue 1, render: dense path")
     if cfg.render.fine_sample_num > 0:
         raise not_ported("the fine pass", "Queue 1, fine pass and hybrid")
     if cfg.render.nerf_importance > 0:
@@ -165,6 +171,44 @@ def _finalize(cfg: PointNeRFConfig, features, ray_valid, weight, conf_coeff,
         queried_shading=queried_shading, ray_mask=ray_mask, weight=weight,
         conf_coefficient=conf_coeff, ray_valid=ray_valid,
         sample_loc_w=sample_loc_w, decode_dropped=decode_dropped)
+
+
+def shade(params: Dict, cfg: PointNeRFConfig, sp, sample_loc, sample_loc_w,
+          sample_ray_dirs, Rw2c, prob: bool = False,
+          compute_dtype=torch.float32, train: bool = False) -> RenderOutput:
+    """The dense decode: aggregate every [R, SR, K] neighbor lane, march,
+    tonemap. With `prob`, also the probe outputs of point growing at each
+    ray's sample of largest opacity (the first one on a tie): its location,
+    opacity, the distance to its nearest neighbor and the weight-averaged
+    neighbor payloads."""
+    compute_dtype = _compute_dtype(cfg, compute_dtype)
+    agg = aggregate(params, cfg.agg, sp, sample_loc, sample_loc_w,
+                    sample_ray_dirs, cfg.query.vsize, Rw2c=Rw2c,
+                    compute_dtype=compute_dtype)
+    ray_mask = sp.mask.reshape(sp.mask.shape[0], -1).any(-1)
+    out = _finalize(cfg, agg.features, agg.ray_valid, agg.weight,
+                    agg.conf_coefficient, sample_loc, sample_loc_w, ray_mask,
+                    train=train)
+    if not prob:
+        return out
+    op = out.coarse_point_opacity                              # [R, SR]
+    max_op = op.amax(-1, keepdim=True)
+    op_ind = op.argmax(-1)                       # the first maximum
+    r = torch.arange(op.shape[0], device=op.device)
+    loc_w = sample_loc_w[r, op_ind]                            # [R, 3]
+    wk = (agg.weight * agg.conf_coefficient)[r, op_ind][..., None]
+    dist = torch.linalg.norm(sp.xyz[r, op_ind] - loc_w[:, None, :], dim=-1)
+    far = torch.where(sp.mask[r, op_ind], dist,
+                      torch.full_like(dist, float("inf"))).amin(
+                          -1, keepdim=True)
+    far = torch.where(torch.isfinite(far), far, torch.zeros_like(far))
+    return out._replace(
+        ray_max_shading_opacity=max_op, ray_max_sample_loc_w=loc_w,
+        ray_max_far_dist=far,
+        shading_avg_color=(sp.color[r, op_ind] * wk).sum(-2),
+        shading_avg_dir=(sp.dirs[r, op_ind] * wk).sum(-2),
+        shading_avg_conf=(sp.conf[r, op_ind] * wk).sum(-2),
+        shading_avg_embedding=(sp.features[r, op_ind] * wk).sum(-2))
 
 
 def decode_slots(cfg: PointNeRFConfig, rs: int) -> int:
@@ -278,17 +322,41 @@ def shade_compacted(params: Dict, cfg: PointNeRFConfig, pc: PointCloud,
     return out._replace(neighbor_pidx=cpidx[:, 0])
 
 
+def _dense_inputs(pc: PointCloud, batch: RayBatch, sample_pidx,
+                  sample_loc_w, sample_mask, gather_bwd: str):
+    """Gathered neighbor payloads, perspective sample locations (zero on
+    slots without a neighbor) and per-slot ray directions of a dense
+    [R, SR] query."""
+    xyz_pers = w2pers(pc.xyz, batch.camrotc2w, batch.campos)
+    sp = gather_points(pc, xyz_pers, sample_pidx, bwd=gather_bwd)
+    sample_loc = w2pers(sample_loc_w, batch.camrotc2w, batch.campos)
+    sample_loc = torch.where(sample_mask[..., None], sample_loc,
+                             torch.zeros((), device=sample_loc.device))
+    return sp, sample_loc, batch.raydir[:, None, :].expand(sample_loc_w.shape)
+
+
 def _shade_at(params, pc: PointCloud, st: PointCloudStatic, grid, batch,
               cfg: PointNeRFConfig, sample_loc_w, sample_mask, prob: bool,
               compute_dtype, train: bool = False) -> RenderOutput:
-    """KNN + gather + shade at explicit world shading locations (the
-    compacted branch; the dense branch is not ported yet)."""
+    """KNN + gather + shade at explicit world shading locations: compacted
+    when decode_capacity > 0 and not probing, dense otherwise."""
     if st.Rw2c.dim() == 3:
         raise not_ported("per-point rotations (editing)",
                          "Queue 1, remaining modules: edit.py")
-    return shade_compacted(params, cfg, pc, grid, sample_loc_w, sample_mask,
-                           batch, st.Rw2c, compute_dtype=compute_dtype,
-                           train=train)
+    if cfg.query.decode_capacity > 0 and not prob:
+        return shade_compacted(params, cfg, pc, grid, sample_loc_w,
+                               sample_mask, batch, st.Rw2c,
+                               compute_dtype=compute_dtype, train=train)
+    sample_pidx, _d2 = knn_query(sample_loc_w, sample_mask, pc.xyz, grid,
+                                 cfg.query)
+    sample_mask = sample_mask & (sample_pidx >= 0).any(-1)
+    sample_loc_w = torch.where(sample_mask[..., None], sample_loc_w,
+                               torch.zeros((), device=sample_loc_w.device))
+    sp, sample_loc, dirs = _dense_inputs(pc, batch, sample_pidx, sample_loc_w,
+                                         sample_mask, cfg.query.gather_bwd)
+    out = shade(params, cfg, sp, sample_loc, sample_loc_w, dirs, st.Rw2c,
+                prob=prob, compute_dtype=compute_dtype, train=train)
+    return out._replace(neighbor_pidx=sample_pidx)
 
 
 def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
@@ -297,16 +365,29 @@ def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
                 compute_dtype=torch.float32,
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None) -> RenderOutput:
-    """Render a batch of rays against the neural point cloud (coarse pass,
-    compacted decode). With `train`, the ray samples are jittered by
+    """Render a batch of rays against the neural point cloud (coarse pass):
+    the compacted decode when decode_capacity > 0 and not probing, else the
+    dense one (`query_points` + `shade`; a probe needs every [R, SR, K]
+    lane for its argmax). With `train`, the ray samples are jittered by
     `cfg.render.train_jitter` from `u` [R, D] if given, else from
     `generator` (JAX: the `k_coarse` draw)."""
-    check_envelope(cfg, batch.raydir.device, train=train, prob=prob)
-    sample_loc_w, sample_mask = generate_shading_points(
-        grid, batch.campos, batch.raydir, float(cfg.render.near_plane),
-        float(cfg.render.far_plane), cfg.query,
-        jitter=cfg.render.train_jitter if train else 0.0,
-        generator=generator, u=u, gen_name=effective_ray_generator(cfg))
-    return _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
-                     sample_mask, prob=prob, compute_dtype=compute_dtype,
-                     train=train)
+    check_envelope(cfg, batch.raydir.device, train=train)
+    near, far = float(cfg.render.near_plane), float(cfg.render.far_plane)
+    jitter = cfg.render.train_jitter if train else 0.0
+    if cfg.query.decode_capacity > 0 and not prob:
+        sample_loc_w, sample_mask = generate_shading_points(
+            grid, batch.campos, batch.raydir, near, far, cfg.query,
+            jitter=jitter, generator=generator, u=u,
+            gen_name=effective_ray_generator(cfg))
+        return _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
+                         sample_mask, prob=prob, compute_dtype=compute_dtype,
+                         train=train)
+    q = query_points(pc.xyz, grid, batch.campos, batch.raydir, near, far,
+                     cfg.query, jitter=jitter, generator=generator, u=u,
+                     gen_name=effective_ray_generator(cfg))
+    sp, sample_loc, dirs = _dense_inputs(pc, batch, q.sample_pidx,
+                                         q.sample_loc_w, q.sample_mask,
+                                         cfg.query.gather_bwd)
+    out = shade(params, cfg, sp, sample_loc, q.sample_loc_w, dirs, st.Rw2c,
+                prob=prob, compute_dtype=compute_dtype, train=train)
+    return out._replace(neighbor_pidx=q.sample_pidx)

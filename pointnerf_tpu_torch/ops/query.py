@@ -1,9 +1,9 @@
 """Ray sampling, shading-point selection and the K-nearest-neighbor query.
 
 Counterpart of `pointnerf_tpu/ops/query.py`: `near_far_linear_ray_generation`,
-`select_shading_points`, `generate_shading_points`, `knn_query` and the
+`select_shading_points`, `generate_shading_points`, `knn_query`, the
 prebuilt-table branch of `_knn_chunk`, whose selection is kernel K1
-(`ops/knn_select.py`). Static shapes as in JAX: all R rays are kept and
+(`ops/knn_select.py`), and the dense neighbor query `query_points`. Static shapes as in JAX: all R rays are kept and
 `sample_mask` / `ray_mask` carry validity.
 
 Integer outputs (which ray samples are shading slots, which points are
@@ -14,7 +14,7 @@ multiplies by the reciprocal of the step count, and a*b+c is one rounding
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,3 +179,30 @@ def generate_shading_points(grid: PointGrid, campos, raydir, near: float,
         generator=generator, u=u)
     return select_shading_points(raypos, grid, grid_meta(cfg), cfg.SR,
                                  tvals, campos, raydir)
+
+
+class QueryResult(NamedTuple):
+    sample_pidx: torch.Tensor    # [R, SR, K] int32, -1 invalid
+    sample_loc_w: torch.Tensor   # [R, SR, 3] world shading locations
+    sample_mask: torch.Tensor    # [R, SR] bool: the slot has a neighbor
+    ray_mask: torch.Tensor       # [R] bool: the ray has >= 1 neighbor
+
+
+def query_points(xyz: torch.Tensor, grid: PointGrid, campos, raydir,
+                 near: float, far: float, cfg: QueryConfig,
+                 jitter: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 gen_name: Optional[str] = None, gen_kwargs: Tuple = (),
+                 u: Optional[torch.Tensor] = None) -> QueryResult:
+    """The dense neighbor query: shading points, their K nearest neural
+    points on every [R, SR] slot, and the post-KNN masks (slots and rays
+    whose query found no neighbor drop out)."""
+    sample_loc_w, sample_mask = generate_shading_points(
+        grid, campos, raydir, near, far, cfg, jitter=jitter,
+        generator=generator, gen_name=gen_name, gen_kwargs=gen_kwargs, u=u)
+    sample_pidx, _d2 = knn_query(sample_loc_w, sample_mask, xyz, grid, cfg)
+    pnt_mask = sample_pidx >= 0
+    ray_mask = pnt_mask.reshape(raydir.shape[0], -1).any(-1)
+    return QueryResult(sample_pidx=sample_pidx, sample_loc_w=sample_loc_w,
+                       sample_mask=sample_mask & pnt_mask.any(-1),
+                       ray_mask=ray_mask)

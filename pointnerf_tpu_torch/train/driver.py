@@ -1,0 +1,341 @@
+"""Per-scene optimization driver.
+
+Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
+`init_mlp_params`, `evaluate`, `train_scene`, `demo` and `main --demo`.
+One process, no restart loop: prune and grow change the cloud in place
+(`train/grow.py`) and the Adam state is carried through. The schedule:
+
+- every `prune_iter` steps in (0, prune_max_iter]: confidence prune;
+- every `prob_freq` steps: probe-hole growth over the probe frames whose
+  training batches missed the most rays;
+- every `split_iter` steps in (0, prune_max_iter]: gradient split;
+- every `test_freq` steps: full-frame eval with PSNR/SSIM;
+- every `save_iter_freq` steps, and at the end: a checkpoint.
+
+The grid is rebuilt after every change of the point set, with the table
+size (max_d) that the previous build settled on. Everything runs on one
+device, `cuda` unless the caller asks for the CPU.
+
+    python -m pointnerf_tpu_torch.train.driver --demo [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import DeviceLike, not_ported, resolve_device
+from ..config import PointNeRFConfig, hits_tracked, tiny_test_config
+from ..data.synthetic import ring_cameras, sphere_scene, view_ray_batch
+from ..models.aggregator import init_aggregator_params
+from ..models.points import make_point_cloud
+from ..models.renderer import ray_batch_from_numpy
+from ..utils.metrics import lpips_proxy, psnr, rmse, ssim
+from ..utils.visualizer import Visualizer
+from .checkpoint import (checkpoint_meta, latest_checkpoint, load_checkpoint,
+                         save_checkpoint)
+from .grow import (apply_grow, apply_prune, probe_hole, render_full_frame,
+                   split_high_grad)
+from .step import create_train_state, refresh_grid, train_step
+
+
+class ItemPrefetcher:
+    """Builds the next items (numpy ray batches) on a background thread
+    while the device works on the current step."""
+
+    def __init__(self, item_fn, start_step: int, depth: int = 4):
+        self._q = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._err: Optional[BaseException] = None
+
+        def worker():
+            step = start_step
+            while not self._stop.is_set():
+                step += 1
+                try:
+                    payload = (step, item_fn(step))
+                except Exception as e:  # raised again in get()
+                    self._err = e
+                    return
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(payload, timeout=1.0)
+                        break
+                    except queue.Full:
+                        continue
+        self._t = threading.Thread(target=worker, daemon=True)
+        self._t.start()
+
+    def get(self):
+        while True:
+            if self._err is not None:
+                raise RuntimeError("item prefetch worker failed") from self._err
+            try:
+                return self._q.get(timeout=5.0)
+            except queue.Empty:
+                continue
+
+    def close(self):
+        self._stop.set()
+        self._t.join(timeout=10.0)
+
+
+def init_mlp_params(generator: torch.Generator, cfg: PointNeRFConfig,
+                    device: DeviceLike = None):
+    """The MLP parameter tree of a run (every entry point that builds or
+    restores one uses this)."""
+    if cfg.render.nerf_importance > 0:
+        raise not_ported("the proposal-NeRF field's parameters",
+                         "Queue 1, fine pass and hybrid")
+    return init_aggregator_params(cfg.agg, generator, device=device)
+
+
+def evaluate(params, st, grid, cfg: PointNeRFConfig, items: List[Dict], wh,
+             vis: Visualizer, step: int, save_images: bool = False,
+             lpips: bool = False, eval_chunk: int = 9216) -> Dict[str, float]:
+    """Full-frame test pass: mean PSNR, SSIM and RMSE over `items` (and the
+    LPIPS proxy with `lpips`). Frames render in chunks of `eval_chunk` rays,
+    or 2304 when a frame is smaller than that."""
+    W, H = wh
+    psnrs, ssims, rmses, lprox = [], [], [], []
+    chunk = eval_chunk if W * H >= eval_chunk else 2304
+    for i, item in enumerate(items):
+        maps = render_full_frame(params, st, grid, cfg, item, wh, chunk=chunk,
+                                 prob=False)
+        img = maps["coarse_raycolor"][..., :3]
+        gt = np.zeros((H, W, 3), np.float32)
+        pix = np.asarray(item["pixel_idx"], np.int64)
+        gt[pix[:, 1], pix[:, 0]] = np.asarray(item["gt_image"], np.float32)
+        psnrs.append(psnr(img, gt))
+        ssims.append(ssim(img, gt))
+        rmses.append(rmse(img, gt))
+        if lpips:
+            lprox.append(lpips_proxy(img, gt))
+        if save_images:
+            vis.save_image(img, f"step{step:08d}-{i:02d}.png")
+    out = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+           "rmse": float(np.mean(rmses))}
+    if lprox:
+        out["lpips_proxy"] = float(np.mean(lprox))
+    return out
+
+
+def _save(run_dir, state, st):
+    save_checkpoint(run_dir, state,
+                    {"num_active": int(st.num_active),
+                     "capacity": state.params["points"].capacity})
+
+
+def train_scene(cfg: PointNeRFConfig,
+                scene_pts: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                train_items_fn, test_items: List[Dict],
+                probe_items: List[Dict], wh: Tuple[int, int],
+                run_dir: str = "runs/scene", max_steps: Optional[int] = None,
+                resume: bool = False, log_every: Optional[int] = None,
+                target_psnr: Optional[float] = None,
+                features: Optional[np.ndarray] = None,
+                conf: Optional[np.ndarray] = None,
+                sampler=None, device: DeviceLike = None):
+    """Optimize one scene. `train_items_fn(step)` yields a numpy ray-batch
+    item (as `data.synthetic.view_ray_batch`); `features`/`conf` seed the
+    point payloads when given, else they start per
+    cfg.points.feature_init_method. `sampler` (train/sampler.
+    ErrorMapSampler, optional) receives each step's per-ray errors.
+    Randomness comes from cfg.train.seed: the features from
+    torch.Generator seed, the MLP weights from seed + 1, the jitter from a
+    generator on the device seeded with seed + 2.
+
+    Returns (state, st, history): history["loss"] holds (step, mean total
+    loss) at the log cadence, history["eval"] the eval results."""
+    dev = resolve_device(device)
+    xyz, color, normals = scene_pts
+    vis = Visualizer(run_dir, name=os.path.basename(run_dir))
+    vis.save_options(cfg.to_json())
+    seed = cfg.train.seed
+    if features is not None and features.shape[1] != cfg.agg.point_features_dim:
+        features = None  # the aggregator wants another width: init instead
+
+    def fresh_state(capacity=None):
+        pc, st = make_point_cloud(
+            xyz, torch.Generator().manual_seed(seed), cfg.points,
+            cfg.agg.point_features_dim, features=features, conf=conf,
+            color=color, dirs=normals, capacity=capacity, device=dev)
+        params = init_mlp_params(torch.Generator().manual_seed(seed + 1), cfg,
+                                 device=dev)
+        key = torch.Generator(device=dev).manual_seed(seed + 2)
+        return create_train_state(key, params, pc, cfg), st
+
+    state, st = fresh_state()
+    if resume:
+        path = latest_checkpoint(run_dir)
+        if path:
+            meta = checkpoint_meta(path)
+            cap = meta.get("capacity")
+            if cap is not None and cap != state.params["points"].capacity:
+                # growth re-bucketed the cloud: the template at that size
+                state, st = fresh_state(capacity=cap)
+            state, meta = load_checkpoint(path, state)
+            if meta.get("num_active") is not None:
+                st = st._replace(num_active=torch.tensor(
+                    meta["num_active"], dtype=torch.int32, device=dev))
+            print(f"resumed from {path} at step {int(state.step)}")
+
+    history = {"loss": [], "eval": []}
+    grid, max_d = refresh_grid(state.params["points"], st, cfg)
+    max_steps = max_steps or cfg.train.maximum_step
+    log_every = log_every or cfg.train.print_freq
+    t = cfg.train
+    t0 = time.time()
+    step_i = int(state.step)
+    prefetch = ItemPrefetcher(train_items_fn, start_step=step_i)
+    # per-view tallies of missed rays (device scalars) for ranking the
+    # probe frames; folded to one scalar per view at the log cadence
+    miss_tally: Dict = {}
+    try:
+        while step_i < max_steps:
+            step_i += 1
+            if (t.prune_iter > 0 and step_i % t.prune_iter == 0
+                    and step_i <= t.prune_max_iter):
+                state, st, kept = apply_prune(state, st, cfg)
+                grid, max_d = refresh_grid(state.params["points"], st, cfg,
+                                           max_d=max_d)
+                print(f"[prune] step {step_i}: kept {kept} points")
+            if t.prob_freq > 0 and step_i % t.prob_freq == 0 and probe_items:
+                ranked = probe_items
+                if miss_tally:
+                    # the frames whose batches missed the most rays
+                    ids = list(miss_tally)
+                    totals = torch.stack([torch.stack(miss_tally[k]).sum()
+                                          for k in ids]).cpu().tolist()
+                    score = dict(zip(ids, totals))
+                    ranked = sorted(probe_items,
+                                    key=lambda it: -score.get(it.get("id"), 0))
+                    n_probe = max(1, len(ranked) // max(t.prob_num_step, 1))
+                    ranked = ranked[:n_probe]
+                    miss_tally.clear()
+                cand = probe_hole(state.params, st, grid, cfg, ranked, wh)
+                state, st, added = apply_grow(state, st, cand, cfg)
+                if added:
+                    grid, max_d = refresh_grid(state.params["points"], st,
+                                               cfg, max_d=max_d)
+                print(f"[grow] step {step_i}: +{added} points "
+                      f"(total {int(st.num_active)})")
+            if (t.split_iter > 0 and step_i % t.split_iter == 0
+                    and step_i <= t.prune_max_iter):
+                state, st, added = split_high_grad(state, st, cfg)
+                if added:
+                    grid, max_d = refresh_grid(state.params["points"], st,
+                                               cfg, max_d=max_d)
+                print(f"[split] step {step_i}: +{added} points "
+                      f"(total {int(st.num_active)})")
+
+            fetched_step, item = prefetch.get()
+            if fetched_step != step_i:
+                raise RuntimeError(f"prefetched item of step {fetched_step} "
+                                   f"at step {step_i}")
+            batch = ray_batch_from_numpy(item, cfg, device=dev)
+            state, items = train_step(state, st, grid, batch, cfg)
+            n_miss = items.pop("n_miss")
+            if t.prob_freq > 0 and probe_items and item.get("id") is not None:
+                miss_tally.setdefault(item["id"], []).append(n_miss)
+            per_ray_err = items.pop("per_ray_err", None)
+            if sampler is not None and per_ray_err is not None:
+                sampler.record(item.get("id"), item["pixel_idx"], per_ray_err)
+            vis.accumulate_losses(items)
+
+            if step_i % log_every == 0:
+                if sampler is not None:
+                    sampler.flush()
+                miss_tally = {k: [torch.stack(vs).sum()]
+                              for k, vs in miss_tally.items()}
+                means = vis.print_losses(step_i)
+                history["loss"].append((step_i, means.get("loss_total", 0.0)))
+            if t.test_freq > 0 and step_i % t.test_freq == 0 and test_items:
+                m = evaluate(state.params, st, grid, cfg, test_items, wh, vis,
+                             step_i, save_images=True,
+                             lpips=step_i + t.test_freq > max_steps)
+                m["step"] = step_i
+                m["wall_s"] = time.time() - t0
+                if state.hits is not None and hits_tracked(cfg):
+                    h = state.hits[:max(1, int(st.num_active)), 0].cpu().numpy()
+                    m["hits_pct"] = {str(q): round(float(np.percentile(h, q)),
+                                                   1)
+                                     for q in (1, 5, 25, 50, 90)}
+                history["eval"].append(m)
+                print(f"[eval] step {step_i}: psnr={m['psnr']:.2f} "
+                      f"ssim={m['ssim']:.4f} t={m['wall_s']:.0f}s")
+                if target_psnr is not None and m["psnr"] >= target_psnr:
+                    print(f"[done] reached target PSNR {target_psnr}")
+                    break
+            if t.save_iter_freq > 0 and step_i % t.save_iter_freq == 0:
+                _save(run_dir, state, st)
+    finally:
+        prefetch.close()
+    _save(run_dir, state, st)
+    return state, st, history
+
+
+def demo_config(steps: int) -> PointNeRFConfig:
+    """tiny_test_config with the port's query (prebuilt neighbor tables,
+    K1) and kernels on, and a schedule that prunes, grows and evaluates
+    within `steps`."""
+    cfg = tiny_test_config()
+    return cfg.replace(
+        query=dataclasses.replace(cfg.query, prebuild_neighbors=True,
+                                  shell_layered=False, knn_select="pallas"),
+        agg=dataclasses.replace(cfg.agg, fused_decode=True),
+        render=dataclasses.replace(cfg.render, fused_march=True),
+        train=dataclasses.replace(
+            cfg.train, maximum_step=steps, prune_iter=max(steps // 2, 1),
+            prune_max_iter=steps, prob_freq=max(steps // 2 + 1, 1),
+            test_freq=max(steps // 2, 1), print_freq=50,
+            save_iter_freq=steps, random_sample_size=16))
+
+
+def demo(steps: int = 300, n_pts: int = 2048, wh=(64, 64),
+         run_dir: str = "runs/demo", device: DeviceLike = None):
+    """A small end-to-end run on the synthetic sphere (analytic ground
+    truth), with prune, grow and eval once each."""
+    cfg = demo_config(steps)
+    xyz, color, normals = sphere_scene(n_pts=n_pts)
+    views = ring_cameras(n_views=6, wh=wh, focal=float(wh[0]))
+    rng = np.random.RandomState(0)
+
+    def train_item(step):
+        campos, rot, K = views[rng.randint(0, len(views) - 1)]
+        return view_ray_batch(campos, rot, K, wh,
+                              n_rays=cfg.train.random_sample_size ** 2,
+                              seed=step)
+
+    test_items = [view_ray_batch(*views[-1], wh)]
+    probe_items = [view_ray_batch(*views[0], wh)]
+    _state, _st, hist = train_scene(
+        cfg, (xyz, color, normals), train_item, test_items, probe_items, wh,
+        run_dir=run_dir, max_steps=steps, device=device)
+    print("final eval:", hist["eval"][-1] if hist["eval"] else "(none)")
+    return hist
+
+
+def main():
+    ap = argparse.ArgumentParser(description="Per-scene optimization of the "
+                                 "PyTorch port")
+    ap.add_argument("--demo", action="store_true",
+                    help="a small end-to-end run on the synthetic sphere")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--run-dir", default="runs/demo")
+    ap.add_argument("--device", default="cuda", help="cuda | cpu")
+    args = ap.parse_args()
+    if not args.demo:
+        ap.error("use --demo; call train_scene() from code for other scenes")
+    demo(steps=args.steps, run_dir=args.run_dir, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,13 @@ not run K2, as in JAX) is a few dozen small PyTorch kernels in its forward
 and in autograd's backward, so its device time is read apart: the march is
 replayed on the inputs a step gave it, forward and backward, under the
 profiler, and "everything else" is the step's kernel time less K1, K3, K4
-and that replay. Needs one CUDA card.
+and that replay.
+
+Probe: one full-frame probe (prob=True, the dense decode) of the probe view
+of chip_smoke's maintenance scene (the sphere with view 0's silhouette band
+cut), chunks of 2,304 rays as train/grow.py renders them, after one warm-up
+frame. Prints the breakdown per chunk, with K1, K3 and K2 named. Needs one
+CUDA card.
 """
 from __future__ import annotations
 
@@ -177,6 +183,30 @@ def main() -> None:
         + f", plain march fwd+bwd (replayed) {march_ms / n:.4f} "
         f"({100 * march_ms / total:.1f}%), everything else {rest / n:.4f} "
         f"({100 * rest / total:.1f}%); kernel total {total / n:.4f}")
+
+    # a probe frame
+    from pointnerf_tpu_torch.models.points import make_point_cloud
+    from pointnerf_tpu_torch.train.grow import render_full_frame
+    from pointnerf_tpu_torch.train.step import refresh_grid
+    (xyz, color, normals), conf, _ti, (item,), _test = cs.maintenance_scene()
+    mpc, mst = make_point_cloud(xyz, torch.Generator().manual_seed(0),
+                                cfg.points, cfg.agg.point_features_dim,
+                                color=color, dirs=normals, conf=conf,
+                                device="cuda")
+    mgrid, _ = refresh_grid(mpc, mst, cfg)
+    mp = {"mlp": params, "points": mpc}
+    render_full_frame(mp, mst, mgrid, cfg, item, cs.MAINT_WH)
+    wall, per_kernel, busy = profiled(
+        lambda: render_full_frame(mp, mst, mgrid, cfg, item, cs.MAINT_WH))
+    n = -(-len(item["raydir"]) // 2304)
+    total = report("probe frame, per chunk", n, 2304, wall, per_kernel, busy)
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+             for k in ("K1", "K3", "K2")}
+    rest = total - sum(parts.values())
+    print(f"probe frame: {n} chunks, host {wall:.4f} s; per chunk, device "
+          f"ms: " + ", ".join(f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+                              for k, ms in parts.items())
+          + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%)")
 
 
 if __name__ == "__main__":

@@ -447,3 +447,86 @@ def test_tc_smem_formulas_match_the_kernels(dev, case):
     _ins, _p, spec, _gf, _ga = _tc_inputs(dev, **TC_CASES[case])
     assert tc_smem_bytes_built(spec) == (tc_smem_bytes(spec),
                                          *tc_bwd_smem_bytes(spec))
+
+
+def _dense_probe_k1_inputs(rays=96, SR=80, D=40, QP=243, seed=11):
+    """K1 inputs in the dense prob-mode layout of a probe chunk: rays x SR
+    slots in ray-major order, ~10% selecting (ok = 1) in one run of
+    consecutive slots per hit ray, each run stepping through a few rows;
+    the other slots have ok = 0 and sit at the origin, whose row is either
+    none (-1) or a real one."""
+    rng = np.random.RandomState(seed)
+    base = (rng.rand(D, 3, QP) * 0.2).astype(np.float32)
+    base[:, 0][rng.rand(D, QP) < 0.3] = 1.0e8          # dead entries
+    C = rays * SR
+    ok = np.zeros(C, bool)
+    dslot = np.where(rng.rand(C) < 0.5, -1, 0).astype(np.int32)
+    centers = np.zeros((C, 3), np.float32)
+    for r in rng.choice(rays, rays // 2, replace=False):
+        s0 = r * SR + rng.randint(0, SR - 20)
+        n = rng.randint(5, 20)
+        ok[s0:s0 + n] = True
+        dslot[s0:s0 + n] = np.repeat(rng.randint(0, D, 4), 5)[:n]
+        centers[s0:s0 + n] = rng.rand(n, 3) * 0.2
+    pid = rng.randint(0, 10 ** 6, size=(D, QP)).astype(np.int32)
+    return [torch.from_numpy(a) for a in
+            (base.reshape(D, 3 * QP), pid, dslot, centers, ok)]
+
+
+def test_knn_select_dense_probe_slots_match_plain(dev):
+    """K1 bit-equal to its plain version on the dense probe layout, where
+    ~90% of the slots do not select."""
+    args = _dense_probe_k1_inputs()
+    assert 0.05 < float(args[4].float().mean()) < 0.15
+    for r2 in (0.0, 0.004):
+        pk = _hold_k1(dev, args, 8, r2)
+        ok = args[4].to(dev)
+        assert bool((pk[~ok] == -1).all()) and bool((pk[ok] >= 0).any())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_decode_dense_probe_rows_match_plain(dev, bf16):
+    """K3 on a dense prob-mode input: rays x SR=80 x K=8 rows, live (a
+    nonzero weight) only in one run of slots on a few rays, every other row
+    zero as the masked dense decode feeds it. Against the plain version at
+    the bars of test_fused_decode_kernel_matches_plain; the groups without
+    a live row come out exactly zero."""
+    from pointnerf_tpu_torch.config import bench_config
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec,
+                                                      fused_decode,
+                                                      fused_decode_plain)
+    cfg = bench_config()
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(4),
+                                    device=dev)
+    spec = DecodeSpec(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+                      neg_slope=0.01, bf16=bf16)
+    rays, SR, K = 48, 80, 8
+    M = rays * SR * K
+    rng = np.random.RandomState(5)
+    live = np.zeros((rays, SR), bool)
+    for r in (2, 17, 18, 40):
+        s0 = rng.randint(0, SR - 16)
+        live[r, s0:s0 + rng.randint(4, 16)] = True
+    row_live = np.repeat(live.reshape(-1), K) & (rng.rand(M) > 0.2)
+    feat, dists, extras = (rng.normal(0, s, (M, n)).astype(np.float32)
+                           for s, n in ((0.5, 32), (0.05, 6), (0.5, 7)))
+    w = rng.rand(M, 1).astype(np.float32)
+    for a in (feat, dists, extras, w):
+        a[~row_live] = 0.0
+    ins = [torch.from_numpy(a).to(dev) for a in (feat, dists, extras, w)]
+    fk, ak = fused_decode(*ins, params, spec)
+    fp, ap = fused_decode_plain(*ins, params, spec)
+    f64, a64 = fused_decode_plain(*ins, params, spec, dtype=torch.float64)
+    torch.cuda.synchronize()
+    if bf16:
+        assert _mean_rel(fk, fp) <= K3_BF16_TOL
+        assert _mean_rel(ak, ap) <= K3_BF16_TOL
+        assert _max_within(fk, fp, f64) and _max_within(ak, ap, a64)
+    else:
+        scale = max(float(fp.abs().max()), float(ap.abs().max()))
+        assert float((fk - fp).abs().max()) <= 2e-4 * scale
+        assert float((ak - ap).abs().max()) <= 2e-4 * scale
+    dead = ~torch.from_numpy(row_live.reshape(-1, K).any(1)).to(dev)
+    assert bool((fk[dead] == 0).all()) and bool((ak[dead] == 0).all())
+    assert bool((fk[~dead] != 0).any())

@@ -23,7 +23,12 @@ MODULES = [
     "pointnerf_tpu_torch.ops.knn_select",
     "pointnerf_tpu_torch.ops.fused_decode",
     "pointnerf_tpu_torch.ops.fused_march", "pointnerf_tpu_torch.ops._build",
-    "pointnerf_tpu_torch.train.step",
+    "pointnerf_tpu_torch.train.step", "pointnerf_tpu_torch.train.optim",
+    "pointnerf_tpu_torch.models.losses", "pointnerf_tpu_torch.utils.metrics",
+    "pointnerf_tpu_torch.utils.visualizer",
+    "pointnerf_tpu_torch.train.sampler", "pointnerf_tpu_torch.train.grow",
+    "pointnerf_tpu_torch.train.checkpoint",
+    "pointnerf_tpu_torch.train.driver",
 ]
 
 

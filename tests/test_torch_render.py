@@ -140,9 +140,13 @@ def test_eval_step_overflow_counts_dropped(interpret_pallas):
 def test_out_of_slice_configs_raise():
     cfg = tc.PointNeRFConfig.from_json(_cfg().to_json())
     dev = torch.device("cpu")
+    # the dense decode is in the envelope, on the card too
+    dense = cfg.replace(query=dataclasses.replace(cfg.query,
+                                                  decode_capacity=0.0))
+    tr.check_envelope(dense, dev)
+    tr.check_envelope(dense, torch.device("cuda"))
+    tr.check_envelope(dense, torch.device("cuda"), train=True)
     for bad, match in (
-            (dict(query=dataclasses.replace(cfg.query, decode_capacity=0.0)),
-             "dense decode"),
             (dict(render=dataclasses.replace(cfg.render, fine_sample_num=4)),
              "fine pass"),
             (dict(render=dataclasses.replace(cfg.render,
