@@ -78,9 +78,48 @@ Phases:
      most MAX_TIE_SHARE of the hit rays inside it), the opacities (per
      sample and the peak) on their mean error and the other probe outputs
      on their largest, each beside a control;
- 10. the kernels JSON line (launches per path, the maintenance path's
-     included, and each render kernel's numbers on the probe chunk and
-     the eval chunk), the card line, and the final status line.
+ 10. the dataset path: a NeRF-Synthetic-format scene of the procedural
+     cluster is written under build/nerf_synth (6 train and 1 test views
+     of 800 x 800 from the analytic ground truth, blender poses at
+     distance 4.0, points.ply of 200,000 surface samples), and the launch
+     counts are set to 0; train_dataset_scene runs 16 steps of 3,600 rays
+     at scene_config() as it builds it (K=8, SR=80, D=400, H=256, f32,
+     dense decode, bucket + shell-layered KNN, both fused flags off) with
+     only the schedule cut (a prune at 10, an eval of the test view and a
+     checkpoint at 16), then test_dataset_scene from that checkpoint.
+     Checks: each step launches K3 and K4 once on the CUDA-core (f32)
+     route, each eval chunk (9,216 rays) K3 and K2 once, K1 never; the
+     prune keeps the points with conf > prune_thresh; the loaded state
+     equals the saved one; the two PSNRs agree within 0.01 dB. K3 f32 and
+     K4 f32 are then held against their plain versions (2e-4 of scale) on
+     a recorded train step (M = 2,304,000 rows) and K3 f32 on a recorded
+     eval chunk (M = 5,898,240), with times and bounds;
+ 11. the query branches: 512 rays of the test view through every ray
+     generator (and the jittered ones from one shared draw) and every KNN
+     branch (bucket rows or prebuilt tables; K nearest, shell-layered, the
+     NN=0 random subset) on the card and on the CPU: slot masks, ray masks
+     and neighbor ids equal;
+ 12. construct_vox_points_closest on a 2,500,000-point cluster cloud on
+     the card and on the CPU: ids and centroids equal;
+ 13. the flags-off path: the JAX package's recorded quality configuration
+     (runs/quality_cluster_full_r5/opt.json, loaded as it is: prebuilt
+     tables, compacted decode at 0.4, bf16, fused_decode and fused_march
+     off) on a 200,000-point cluster cloud, launch counts set to 0: a
+     512-ray request on the card against the CPU with the flags set (the
+     kernels' plain versions) at random weights, under phase 5's bars;
+     3 + 10 train steps of 3,600 rays (K1 on its run path, K3 and K4 on
+     the tensor cores, once each a step) and 2 serving requests (K1, K3
+     and K2 once each); the parity request again from the trained state,
+     integers equal and colors within COLOR_TRAINED_BF16_TOL. Then K3 and
+     K4 bf16 are held against their plain versions on the first train
+     step's recorded inputs (921,600 rows), and K1, K3 and K2 on the first
+     request's, at the bars of phases 3-5;
+ 14. the kernels JSON line (one row per kernel source; K3 and K4 have a
+     tensor-core row and a CUDA-core row, counted by route; launches per
+     path: serve, train, maintenance, dataset, flags_off; each kernel's
+     numbers on the maintenance path's probe and eval chunks and on the
+     flags-off path's train step and request), the card line, and the
+     final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -119,6 +158,12 @@ K3_F32_TOL = 2e-4      # decode in f32: the parity bar, relative to max|plain|
 # K4 4.1e-4 vs control 8.4e-2.
 K3_BF16_TOL = 1e-4     # decode in bf16, mean relative error
 COLOR_BF16_TOL = 1e-5  # card vs CPU colors of the rays that hit, bf16 decode
+# the same, from the flags-off path's trained state: the colors there also
+# carry the bf16 color head's roundings (cuBLAS and the CPU sum in other
+# orders), which weigh more as the opacities grow. Readings on an H100 80GB
+# HBM3 at 700 W (PERF.md §6): 5.7e-05 to 1.06e-04, control 5.2e-04 to
+# 6.1e-04
+COLOR_TRAINED_BF16_TOL = 2.5e-4
 K4_F32_TOL = 2e-4      # decode backward in f32, per gradient, of max|plain|
 K4_BF16_TOL = 5e-3     # decode backward in bf16, mean relative error
 # K3 and K4 in bf16 are also held on their largest error, output by output
@@ -366,8 +411,8 @@ def recording_kernels():
             setattr(mod, attr, real)
 
 
-def all_recorded(seen, what: str):
-    missing = [n for n in RENDER_KERNELS if n not in seen]
+def all_recorded(seen, what: str, kernels=RENDER_KERNELS):
+    missing = [n for n in kernels if n not in seen]
     if missing:
         fail(f"{what} did not reach {missing}")
     return seen
@@ -694,9 +739,16 @@ def same_integers(o_card, o_cpu):
              f"{len(bad_rows)} slots")
 
 
-def cpu_parity(params, pc, st, grid, cfg):
+def cpu_parity(params, pc, st, grid, cfg, cfg_cpu=None, b_card=None,
+               bar=COLOR_BF16_TOL):
     """One 512-ray request on the card and on the CPU (plain versions); the
-    control renders it on the CPU with an f32 decode."""
+    control renders it on the CPU with an f32 decode. `cfg_cpu` (default
+    `cfg`) is the CPU side's config: with the fused flags set it runs the
+    kernels' plain versions, which the card's kernels follow whatever the
+    flags say. `b_card` (default a ring view's 512 rays) is the request.
+    Integers must be equal and the colors of the rays that hit within
+    `bar`."""
+    cfg_cpu = cfg_cpu or cfg
     import torch
     from pointnerf_tpu_torch.ops.grid import build_grid
     from pointnerf_tpu_torch.train.step import eval_step
@@ -711,14 +763,15 @@ def cpu_parity(params, pc, st, grid, cfg):
     for f in ("vox_dslot", "nbr_pid", "nbr_xyz", "vox_occ"):
         if not torch.equal(getattr(grid_c, f), mv(getattr(grid, f))):
             fail(f"grid table {f} differs between the card and the CPU")
-    b_card = batches(cfg, 512, 1, "cuda", seed0=7)[0]
+    if b_card is None:
+        b_card = batches(cfg, 512, 1, "cuda", seed0=7)[0]
     b_cpu = type(b_card)(*[None if t is None else mv(t) for t in b_card])
     o_card = eval_step({"mlp": params, "points": pc}, st, grid, b_card, cfg)
     o_cpu = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
-                      cfg)
+                      cfg_cpu)
     same_integers(o_card, o_cpu)
-    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                  compute_dtype="f32"))
+    cfg32 = cfg_cpu.replace(train=dataclasses.replace(cfg_cpu.train,
+                                                      compute_dtype="f32"))
     o_ctl = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
                       cfg32)
     hit = o_cpu.ray_mask
@@ -727,10 +780,9 @@ def cpu_parity(params, pc, st, grid, cfg):
         f"{int(hit.sum())} rays hit")
     if not bool(hit.any()):
         fail("no ray of the parity request hits the scene")
-    hold_bf16("card vs CPU colors of the rays that hit",
-              float((col - o_cpu.coarse_raycolor[hit]).abs().max()),
-              float((col - o_ctl.coarse_raycolor[hit]).abs().max()),
-              COLOR_BF16_TOL)
+    err = float((col - o_cpu.coarse_raycolor[hit]).abs().max())
+    ctl = float((col - o_ctl.coarse_raycolor[hit]).abs().max())
+    hold_bf16("card vs CPU colors of the rays that hit", err, ctl, bar)
 
 
 def capture_k4_inputs(state, st, grid, batch, cfg):
@@ -752,6 +804,34 @@ def capture_k4_inputs(state, st, grid, batch, cfg):
     if len(seen) != 1:
         fail(f"a training step called the decode backward {len(seen)} times")
     return seen[0]
+
+
+@contextlib.contextmanager
+def recording_decode():
+    """Recording wrappers around K3's entry point (as the aggregator calls
+    it) and K4's (as the autograd Function's backward calls it); yields
+    {"fused_decode": args, "fused_decode_bwd": args} of the last calls."""
+    from pointnerf_tpu_torch.models import aggregator
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    seen = {}
+    real_fwd, real_bwd = aggregator.fused_decode, fd.fused_decode_bwd
+
+    def fwd(*a, **k):
+        seen["fused_decode"] = a
+        return real_fwd(*a, **k)
+
+    def bwd(*a, **k):
+        seen["fused_decode_bwd"] = a
+        fd.fused_decode_bwd = real_bwd  # the wrapper counts on its own name
+        try:
+            return real_bwd(*a, **k)
+        finally:
+            fd.fused_decode_bwd = bwd
+    aggregator.fused_decode, fd.fused_decode_bwd = fwd, bwd
+    try:
+        yield seen
+    finally:
+        aggregator.fused_decode, fd.fused_decode_bwd = real_fwd, real_bwd
 
 
 def decode_grad_leaves(out):
@@ -1117,11 +1197,17 @@ class MaintRecorder:
     records the K1, K3 and K2 inputs of one dense probe chunk and of one
     eval chunk."""
 
-    def __init__(self, cfg, kernels):
+    def __init__(self, cfg, kernels, train_kernels=TRAIN_KERNELS,
+                 render_kernels=RENDER_KERNELS, record_step=None):
         import torch
         from pointnerf_tpu_torch.train import driver as td, grow as tg
         self.torch, self.td, self.tg = torch, td, tg
         self.cfg, self.kernels = cfg, kernels
+        # the kernels each train step and each rendered chunk launch once
+        self.train_kernels, self.render_kernels = train_kernels, render_kernels
+        # the train step (1-based) whose K3 and K4 inputs are recorded
+        self.record_step = record_step
+        self.step_inputs = None   # {"fused_decode": args, "fused_decode_bwd": args}
         self.times = {k: [] for k in ("prune", "probe_frame", "grow", "split",
                                       "grid_refresh", "eval_frame",
                                       "checkpoint_save", "checkpoint_load",
@@ -1231,16 +1317,18 @@ class MaintRecorder:
         eval frame records the three kernels' inputs."""
         def run(params, st, grid, batch, cfg, prob=False):
             kind = "probe_chunk" if prob else "eval_chunk"
-            before = {n: self.kernels[n].launches for n in RENDER_KERNELS}
+            before = {n: self.kernels[n].launches
+                      for n in self.render_kernels}
             record = (kind not in self.captured
                       and self._chunk == self._chunks // 2)
             with (recording_kernels() if record
                   else contextlib.nullcontext()) as seen:
                 out = real(params, st, grid, batch, cfg, prob=prob)
             if record:
-                self.captured[kind] = all_recorded(seen, f"a {kind}")
+                self.captured[kind] = all_recorded(seen, f"a {kind}",
+                                                   self.render_kernels)
             self._chunk += 1
-            for n in RENDER_KERNELS:
+            for n in self.render_kernels:
                 if self.kernels[n].launches != before[n] + 1:
                     fail(f"a {'probe' if prob else 'eval'} chunk launched {n} "
                          f"{self.kernels[n].launches - before[n]} times, not "
@@ -1299,10 +1387,16 @@ class MaintRecorder:
 
     def train_step(self, real):
         def run(state, st, grid, batch, cfg):
-            before = {n: self.kernels[n].launches for n in TRAIN_KERNELS}
-            state, items = self._timed("train_step", real, state, st, grid,
-                                       batch, cfg)
-            for n in TRAIN_KERNELS:
+            before = {n: self.kernels[n].launches
+                      for n in self.train_kernels}
+            record = len(self.times["train_step"]) + 1 == self.record_step
+            with (recording_decode() if record
+                  else contextlib.nullcontext()) as seen:
+                state, items = self._timed("train_step", real, state, st,
+                                           grid, batch, cfg)
+            if record:
+                self.step_inputs = seen
+            for n in self.train_kernels:
                 if self.kernels[n].launches != before[n] + 1:
                     fail(f"a maintenance-path train step launched {n} "
                          f"{self.kernels[n].launches - before[n]} times")
@@ -1556,6 +1650,513 @@ def maintenance_path(cfg, kernels, device="cuda"):
     return rec, counts, routes, secs, rate
 
 
+# ---- the dataset path: scene_config() as train_dataset_scene builds it ----
+DS_WH = (800, 800)
+DS_TRAIN_VIEWS = 6          # NeRF-Synthetic has 100 (cut)
+DS_TEST_VIEWS = 1           # and 200 (cut)
+DS_POINTS = 200_000
+DS_STEPS = 16
+DS_CAMERA_DIST = 4.0        # NeRF-Synthetic's camera distance
+DS_CAMERA_ANGLE_X = 0.6911112070083618
+DS_SCAN = "cluster"
+VOX_POINTS = 2_500_000      # above train_dataset_scene's 2M downsample line
+QUERY_RAYS = 512
+
+
+def blender_pose(azim_deg: float, elev_deg: float, dist: float):
+    """Camera-to-world [4, 4] in the blender convention (x right, y up, z
+    back), at `dist` from the origin and looking at it."""
+    import numpy as np
+    a, e = np.radians(azim_deg), np.radians(elev_deg)
+    pos = dist * np.array([np.cos(e) * np.sin(a), np.sin(e),
+                           np.cos(e) * np.cos(a)])
+    back = pos / np.linalg.norm(pos)
+    right = np.cross([0.0, 1.0, 0.0], back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = right, up, back, pos
+    return pose
+
+
+def write_nerf_synth_scene(root: str):
+    """The procedural `cluster` scene in the NeRF-Synthetic layout under
+    `root`: 800 x 800 RGB PNGs of its analytic ground truth (the port's
+    write_png), transforms_{train,test}.json with blender poses at distance
+    DS_CAMERA_DIST, and points.ply of DS_POINTS surface samples."""
+    import numpy as np
+    from pointnerf_tpu_torch.camera import BLENDER2OPENCV, get_dtu_raydir
+    from pointnerf_tpu_torch.data.ply import save_ply
+    from pointnerf_tpu_torch.data.procedural import (SCENES, gt_render,
+                                                      sample_cloud)
+    from pointnerf_tpu_torch.utils.visualizer import to8b, write_png
+    prims = SCENES[DS_SCAN]()
+    W, H = DS_WH
+    focal = 0.5 * W / np.tan(0.5 * DS_CAMERA_ANGLE_X)
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1]],
+                 np.float32)
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    views = {"train": [(60.0 * i, 25.0 if i % 2 else -10.0)
+                       for i in range(DS_TRAIN_VIEWS)],
+             "test": [(30.0 + 90.0 * i, 15.0) for i in range(DS_TEST_VIEWS)]}
+    for split, angles in views.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i, (az, el) in enumerate(angles):
+            pose = blender_pose(az, el, DS_CAMERA_DIST)
+            cv = (pose.astype(np.float32) @ BLENDER2OPENCV)
+            rd = get_dtu_raydir(pix, K, cv[:3, :3]).astype(np.float32)
+            img = gt_render(prims, cv[:3, 3].astype(np.float32), rd)
+            write_png(os.path.join(root, split, f"r_{i}.png"),
+                      to8b(img.reshape(H, W, 3)))
+            frames.append({"file_path": f"{split}/r_{i}",
+                           "transform_matrix": pose.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": DS_CAMERA_ANGLE_X,
+                       "frames": frames}, f)
+    xyz, color, _normals = sample_cloud(prims, DS_POINTS, seed=0)
+    save_ply(os.path.join(root, "points.ply"), xyz, color)
+
+
+def dataset_config(xyz):
+    """scene_config() of the cloud as train_dataset_scene builds it (K=8,
+    SR=80, D=400, H=256, f32, dense decode, bucket + shell-layered KNN, the
+    fused flags off), with only the schedule cut to DS_STEPS steps: one
+    prune (step 10), one eval of the test view and one checkpoint (step
+    16)."""
+    from pointnerf_tpu_torch.config import scene_config
+    cfg = scene_config(xyz, near=2.0, far=6.0)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=DS_STEPS, prune_iter=10, test_freq=DS_STEPS,
+        save_iter_freq=DS_STEPS, print_freq=4))
+
+
+def dataset_path(kernels, data_root: str, device="cuda"):
+    """train_dataset_scene for DS_STEPS steps on the nerf_synth scene, then
+    test_dataset_scene from its checkpoint. Every train step launches K3
+    and K4 once on the CUDA-core (f32) route, every eval chunk K3 and K2
+    once, K1 never (the bucket branch is torch code, as it is XLA code in
+    JAX); the two PSNRs of the test view agree. Returns the recorder, the
+    launch counts and routes, the seconds per event and the PSNR."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.data.ply import load_ply
+    from pointnerf_tpu_torch.train import driver as td
+    xyz = load_ply(os.path.join(data_root, DS_SCAN, "points.ply"))["xyz"]
+    cfg = dataset_config(xyz)
+    q = cfg.query
+    log(f"dataset config: vsize {q.vsize[0]:.6f}, ranges "
+        f"{tuple(round(r, 4) for r in q.ranges)}, K={q.K} SR={q.SR} "
+        f"D={q.z_depth_dim} P={q.P} max_o={q.max_o}, shell_layered "
+        f"{q.shell_layered}, prebuild_neighbors {q.prebuild_neighbors}, "
+        f"decode_capacity {q.decode_capacity}, compute "
+        f"{cfg.train.compute_dtype}, fused_decode {cfg.agg.fused_decode}, "
+        f"fused_march {cfg.render.fused_march}")
+    rec = MaintRecorder(cfg, kernels, ("fused_decode", "fused_decode_bwd"),
+                        ("fused_decode", "fused_march"),
+                        record_step=DS_STEPS // 2)
+    reset_counts(kernels)
+    rec.install()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    try:
+        with tempfile_dir(build) as run_dir:
+            t0 = time.perf_counter()
+            state, _st, hist = td.train_dataset_scene(
+                "nerf_synth360_ft", data_root, DS_SCAN, run_dir,
+                max_steps=DS_STEPS, cfg=cfg, resume=False, device=device)
+            t1 = time.perf_counter()
+            m = td.test_dataset_scene("nerf_synth360_ft", data_root, DS_SCAN,
+                                      run_dir, cfg=cfg, save_images=False,
+                                      device=device)
+            t2 = time.perf_counter()
+    finally:
+        rec.restore()
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = {n: dict(kernels[n].launches_by_route)
+              for n in ("fused_decode", "fused_decode_bwd")}
+    n_steps = len(rec.times["train_step"])
+    n_chunks = -(-DS_WH[0] * DS_WH[1] // 9216)
+    frames = len(rec.times["eval_frame"])
+    if int(state.step) != DS_STEPS or n_steps != DS_STEPS:
+        fail(f"the dataset path took {n_steps} steps")
+    if frames != 2:
+        fail(f"the dataset path rendered {frames} eval frames, not 2")
+    want = {"knn_select": 0, "fused_decode": DS_STEPS + frames * n_chunks,
+            "fused_decode_bwd": DS_STEPS, "fused_march": frames * n_chunks}
+    if counts != want:
+        fail(f"dataset path launches {counts}, expected {want}")
+    for n in routes:
+        if routes[n]["tensor_core"]:
+            fail(f"the f32 dataset path launched {n} on the tensor cores")
+    kinds = [e for e, _d in rec.log if e not in ("grid",)]
+    if kinds.count("prune") != 1 or "save" not in kinds \
+            or "load" not in kinds:
+        fail(f"dataset path events {kinds}: expected one prune, a "
+             f"checkpoint and its load")
+    losses = torch.stack(rec.losses).cpu()
+    p_train = hist["eval"][-1]["psnr"] if hist["eval"] else float("nan")
+    if not bool(torch.isfinite(losses).all()) \
+            or not np.isfinite([p_train, m["psnr"]]).all():
+        fail(f"dataset path: losses or PSNR not finite: {losses.tolist()}, "
+             f"{p_train}, {m['psnr']}")
+    if not abs(p_train - m["psnr"]) <= 1e-2:
+        fail(f"test_dataset_scene PSNR {m['psnr']} differs from the "
+             f"training run's eval {p_train} by more than 0.01 dB")
+    secs = {k: (sum(v) / len(v) if v else None, len(v))
+            for k, v in rec.times.items()}
+    log(f"dataset path: losses {[round(float(v), 6) for v in losses]}")
+    log(f"dataset path: {DS_STEPS} steps of {N_RAYS} rays, a prune "
+        f"({[d for e, d in rec.log if e == 'prune']}), an eval and a "
+        f"checkpoint, then test_dataset_scene: {t1 - t0:.2f} s + "
+        f"{t2 - t1:.2f} s (host clock); eval PSNR {p_train:.4f} dB, "
+        f"test_dataset_scene {m['psnr']:.4f} dB (SSIM {m['ssim']:.4f}); "
+        f"launches {counts}, routes {routes}")
+    log("dataset seconds per event (mean, count): " + ", ".join(
+        f"{k} {v:.4f} x{c}" for k, (v, c) in secs.items() if v is not None))
+    return rec, counts, routes, secs, m["psnr"]
+
+
+@contextlib.contextmanager
+def tempfile_dir(parent: str):
+    import tempfile
+    os.makedirs(parent, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=parent) as d:
+        yield d
+
+
+def check_f32_decode(fwd_cases, bwd_args):
+    """K3 f32 on each (label, args) of `fwd_cases` and K4 f32 on `bwd_args`
+    against their plain versions (K3 within K3_F32_TOL of max|plain|, K4
+    each gradient within K4_F32_TOL of its max|plain|), with times, the
+    plain versions' times and the bounds. Returns {label: numbers} for K3
+    and the numbers of K4."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (flops, fused_decode,
+                                                      fused_decode_bwd,
+                                                      fused_decode_bwd_plain,
+                                                      fused_decode_plain,
+                                                      param_count)
+    k3 = {}
+    for label, args in fwd_cases:
+        feat, dists, extras, w, params, spec = args
+        if spec.bf16:
+            fail(f"the recorded {label} decode is not on the f32 route")
+        M = feat.shape[0]
+        with torch.no_grad():
+            out = fused_decode(feat, dists, extras, w, params, spec)
+            plain = fused_decode_plain(feat, dists, extras, w, params, spec)
+            torch.cuda.synchronize()
+            scale = max(float(t.abs().max()) for t in plain)
+            err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+            del out, plain
+            ms = cuda_ms(lambda: fused_decode(feat, dists, extras, w, params,
+                                              spec), iters=3, warmup=1)
+            plain_ms = cuda_ms(lambda: fused_decode_plain(
+                feat, dists, extras, w, params, spec), iters=2, warmup=1)
+        rows = int((w != 0).sum())
+        wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
+                     for layer in params[n] for p in layer.values())
+        nbytes = rows * (spec.Fi + spec.Dd + spec.E + 1) * 4 + wbytes \
+            + (M // spec.K) * (spec.H + 1) * 4
+        b, by = bound_ms(nbytes, flops(rows, spec), PEAK_F32)
+        log(f"K3 f32 (cuda_core kernel), {label}, M={M} H={spec.H}: max abs "
+            f"err {err:.3e}, scale {scale:.3e} (tolerance {K3_F32_TOL} x "
+            f"scale); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b:.4f} ms ({by}: {rows} of {M} rows carry weight)")
+        if not err <= K3_F32_TOL * scale:
+            fail(f"K3 (f32) disagrees with its plain version on the {label}")
+        k3[label] = {"M": M, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": None}
+
+    feat, dists, extras, w, params, spec, g_fagg, g_alpha = bwd_args
+    M = feat.shape[0]
+    with torch.no_grad():
+        names, out = decode_grad_leaves(fused_decode_bwd(
+            feat, dists, extras, w, params, spec, g_fagg, g_alpha))
+        _, plain = decode_grad_leaves(fused_decode_bwd_plain(
+            feat, dists, extras, w, params, spec, g_fagg, g_alpha))
+        torch.cuda.synchronize()
+        rel, abs_err = [], 0.0
+        for a, p in zip(out, plain):
+            s = float(p.abs().max())
+            e = float((a - p).abs().max())
+            abs_err = max(abs_err, e)
+            rel.append(e / s if s > 0 else (0.0 if e == 0 else float("inf")))
+        del out, plain
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        ms = cuda_ms(lambda: fused_decode_bwd(feat, dists, extras, w, params,
+                                              spec, g_fagg, g_alpha),
+                     iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: fused_decode_bwd_plain(
+            feat, dists, extras, w, params, spec, g_fagg, g_alpha),
+            iters=2, warmup=1)
+    rows = int((w != 0).sum())
+    wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
+                 for layer in params[n] for p in layer.values())
+    width = spec.Fi + spec.Dd + spec.E + 1
+    nbytes = (rows * width * 4 + M * 4 + wbytes
+              + (M // spec.K) * (spec.H + 1) * 4
+              + M * width * 4 + param_count(spec) * 4)
+    b, by = bound_ms(nbytes, 3 * flops(rows, spec), PEAK_F32)
+    log(f"K4 f32 (cuda_core kernel), train step, M={M} H={spec.H}: max abs "
+        f"err {abs_err:.3e}, worst relative {rel[worst]:.3e} ({names[worst]}, "
+        f"tolerance {K4_F32_TOL}); time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b:.4f} ms ({by}: {rows} of {M} rows carry weight)")
+    if not rel[worst] <= K4_F32_TOL:
+        fail("K4 (f32) disagrees with its plain version on the train step")
+    k4 = {"M": M, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": b, "bound_by": by, "library_ms": None}
+    return k3, k4
+
+
+def query_branches(data_root: str, cfg_ds, device="cuda"):
+    """QUERY_RAYS rays of the dataset scene's test view through every ray
+    generator (un-jittered, and jittered from one shared draw) and every KNN
+    branch — bucket rows or prebuilt tables; K nearest, shell-layered, or
+    the NN=0 random subset — on the card and on the CPU: slot masks and
+    neighbor ids equal."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig, generator_kwargs
+    from pointnerf_tpu_torch.data import find_dataset_class_by_name
+    from pointnerf_tpu_torch.data.ply import load_ply
+    from pointnerf_tpu_torch.ops.grid import build_grid
+    from pointnerf_tpu_torch.ops.query import RAY_GENERATORS, query_points
+    cpu, dev = torch.device("cpu"), torch.device(device)
+    ds = find_dataset_class_by_name("nerf_synth360_ft")(
+        DataConfig(data_root=data_root, scan=DS_SCAN), split="test")
+    item = ds.get_item(0)
+    rng = np.random.RandomState(3)
+    sel = rng.choice(len(item["raydir"]), QUERY_RAYS, replace=False)
+    xyz = load_ply(os.path.join(data_root, DS_SCAN, "points.ply"))["xyz"]
+    n = xyz.shape[0]
+    t = {d: (torch.tensor(xyz, device=d), torch.tensor(item["campos"],
+                                                         device=d),
+             torch.tensor(item["raydir"][sel], device=d)) for d in (cpu, dev)}
+    branches = {
+        "bucket, shell-layered": dict(),
+        "bucket": dict(shell_layered=False),
+        "bucket, NN=0": dict(NN=0),
+        "tables, shell-layered": dict(prebuild_neighbors=True),
+        "tables, NN=0": dict(prebuild_neighbors=True, NN=0),
+        "tables (K1)": dict(prebuild_neighbors=True, shell_layered=False)}
+    cfg_ds = cfg_ds.replace(render=dataclasses.replace(cfg_ds.render,
+                                                        ray_middle=4.0))
+    D = cfg_ds.query.z_depth_dim
+    n_slots = n_hits = 0
+    t0 = time.perf_counter()
+    for bname, kw in branches.items():
+        q = dataclasses.replace(cfg_ds.query, **kw)
+        if q.prebuild_neighbors:
+            q = dataclasses.replace(q, max_d=262144)
+        grid_d = build_grid(t[dev][0], torch.tensor(n, device=dev), q)
+        need = int(grid_d.num_dil)
+        if q.prebuild_neighbors and need > q.max_d:
+            q = dataclasses.replace(q, max_d=-(-int(need * 1.25) // 4096)
+                                    * 4096)
+            grid_d = build_grid(t[dev][0], torch.tensor(n, device=dev), q)
+        grid_c = build_grid(t[cpu][0], torch.tensor(n), q)
+        for name in RAY_GENERATORS:
+            cg = cfg_ds.replace(render=dataclasses.replace(
+                cfg_ds.render, which_ray_generation=name))
+            jitters = [0.0] + ([0.3] if bname == "bucket, shell-layered"
+                               else [])
+            for jit in jitters:
+                u = None
+                if jit:
+                    cols = {"near_far_disparity_linear": D + 1,
+                            "near_middle_far": int(D * 0.6) + int(D * 0.4)
+                            + 2}.get(name, D)
+                    u = torch.rand((QUERY_RAYS, cols),
+                                   generator=torch.Generator().manual_seed(5))
+                outs = {}
+                for d, g in ((dev, grid_d), (cpu, grid_c)):
+                    x, c, r = t[d]
+                    outs[d.type] = query_points(
+                        x, g, c, r, 2.0, 6.0, q, jitter=jit,
+                        u=None if u is None else u.to(d), gen_name=name,
+                        gen_kwargs=generator_kwargs(cg))
+                a, b = outs[dev.type], outs["cpu"]
+                for f in ("sample_mask", "ray_mask", "sample_pidx"):
+                    if not torch.equal(getattr(a, f).cpu(), getattr(b, f)):
+                        fail(f"query {bname}, {name}, jitter {jit}: {f} "
+                             f"differs between the card and the CPU")
+                n_slots += int(b.sample_mask.sum())
+                n_hits += int(b.ray_mask.sum())
+    log(f"query branches, card vs CPU: {len(branches)} KNN branches x "
+        f"{len(RAY_GENERATORS)} generators (+ the jittered generators on the "
+        f"default branch) on {QUERY_RAYS} rays of the test view: slot masks, "
+        f"ray masks and neighbor ids equal ({n_slots} shading slots, "
+        f"{n_hits} rays with a neighbor over all runs), "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def voxel_parity():
+    """construct_vox_points_closest on the card and on the CPU over a
+    VOX_POINTS-point cluster cloud: the same kept ids and centroids."""
+    import numpy as np
+    from pointnerf_tpu_torch.data.procedural import SCENES, sample_cloud
+    from pointnerf_tpu_torch.ops.voxel import construct_vox_points_closest
+    xyz, _c, _n = sample_cloud(SCENES[DS_SCAN](), VOX_POINTS, seed=1)
+    t0 = time.perf_counter()
+    ic, cc = construct_vox_points_closest(xyz, 320, device="cuda")
+    t1 = time.perf_counter()
+    ih, ch = construct_vox_points_closest(xyz, 320, device="cpu")
+    t2 = time.perf_counter()
+    if not (np.array_equal(ic, ih) and np.array_equal(cc, ch)):
+        fail(f"construct_vox_points_closest: {int((ic != ih).sum())} ids "
+             f"differ between the card and the CPU")
+    log(f"voxel downsample of {VOX_POINTS} points at 320^3: {len(ic)} kept, "
+        f"ids and centroids equal on the card and the CPU; card "
+        f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+
+
+# ---- the flags-off path: the recorded quality configuration ----
+QUALITY_OPT = "runs/quality_cluster_full_r5/opt.json"
+QUALITY_POINTS = 200_000
+FLAGS_OFF_WARMUP, FLAGS_OFF_STEPS, FLAGS_OFF_REQUESTS = 3, 10, 2
+
+
+def quality_config():
+    """The recorded quality configuration of the JAX package: prebuilt
+    tables, no shell cut, compacted decode at capacity 0.4, bf16, and both
+    fused flags off."""
+    from pointnerf_tpu_torch.config import PointNeRFConfig
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           QUALITY_OPT)) as f:
+        return PointNeRFConfig.from_json(f.read())
+
+
+def flags_off_path(kernels, device="cuda"):
+    """The quality configuration on the QUALITY_POINTS-point cluster cloud
+    with random weights: a 512-ray request on the card against the CPU run
+    with the flags set (held to phase 5's bars); FLAGS_OFF_WARMUP +
+    FLAGS_OFF_STEPS train steps of 3,600 rays on one batch (K1 on its run
+    path, K3 and K4 on the tensor cores once each per step) and
+    FLAGS_OFF_REQUESTS serving requests (K1, K3 and K2 once each), although
+    both fused flags are off; then the same request from the trained state,
+    held to COLOR_TRAINED_BF16_TOL. Each kernel is then held against its
+    plain version on the inputs the path gave it: K3 and K4 on a recorded
+    train step's, K1, K3 and K2 on a recorded request's. Returns the
+    launches, the routes and {"flags_off_step"|"flags_off_request":
+    {kernel: numbers}}."""
+    import torch
+    from pointnerf_tpu_torch.data.procedural import (SCENES, sample_cloud,
+                                                      sphere_cameras,
+                                                      view_item)
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.models.points import make_point_cloud
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, refresh_grid,
+                                                train_step)
+    cfg = quality_config()
+    if cfg.agg.fused_decode or cfg.render.fused_march:
+        fail("the quality configuration has a fused flag on")
+    dev = torch.device(device)
+    prims = SCENES[DS_SCAN]()
+    xyz, color, normals = sample_cloud(prims, QUALITY_POINTS, seed=0)
+    pc, st = make_point_cloud(xyz, torch.Generator().manual_seed(0),
+                              cfg.points, cfg.agg.point_features_dim,
+                              color=color, dirs=normals, device=dev)
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                    device=dev)
+    grid, _ = refresh_grid(pc, st, cfg)
+    views = sphere_cameras(8, radius=2.4, focal=875.0, wh=DS_WH, seed=0)
+    items = [view_item(prims, *v, DS_WH, n_rays=N_RAYS, seed=i, view_id=i)
+             for i, v in enumerate(views)]
+    # card vs CPU, the CPU with the flags set (the kernels' plain versions),
+    # at random weights from a seed, as phase 5
+    flags_on = cfg.replace(
+        agg=dataclasses.replace(cfg.agg, fused_decode=True),
+        render=dataclasses.replace(cfg.render, fused_march=True))
+    parity_batch = ray_batch_from_numpy(view_item(
+        prims, *views[5], DS_WH, n_rays=512, seed=7, view_id=5), cfg,
+        device=dev)
+    cpu_parity(params, pc, st, grid, cfg, cfg_cpu=flags_on,
+               b_card=parity_batch)
+    state = create_train_state(torch.Generator(device=dev).manual_seed(2),
+                               params, pc, cfg)
+    tbatch = ray_batch_from_numpy(items[0], cfg, device=dev)
+    reset_counts(kernels)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FLAGS_OFF_WARMUP + FLAGS_OFF_STEPS):
+        if i == FLAGS_OFF_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = {n: kernels[n].launches for n in TRAIN_KERNELS}
+        if i == 0:
+            with recording_decode() as step_inputs:
+                state, it = train_step(state, st, grid, tbatch, cfg)
+        else:
+            state, it = train_step(state, st, grid, tbatch, cfg)
+        for n in TRAIN_KERNELS:
+            if kernels[n].launches != before[n] + 1:
+                fail(f"flags-off train step {i}: {n} launched "
+                     f"{kernels[n].launches - before[n]} times, not once")
+        losses.append(it["loss_total"])
+    torch.cuda.synchronize()
+    dt_train = time.perf_counter() - t0
+    if kernels["fused_march"].launches:
+        fail("flags-off training launched K2 (training takes the plain "
+             "march)")
+    losses = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"a flags-off training loss is not finite: {losses.tolist()}")
+    t1 = time.perf_counter()
+    for i in range(FLAGS_OFF_REQUESTS):
+        before = {n: kernels[n].launches for n in RENDER_KERNELS}
+        b = ray_batch_from_numpy(items[1 + i], cfg, device=dev)
+        if i == 0:
+            with recording_kernels() as request_inputs:
+                out = eval_step(state.params, st, grid, b, cfg)
+        else:
+            out = eval_step(state.params, st, grid, b, cfg)
+        for n in RENDER_KERNELS:
+            if kernels[n].launches != before[n] + 1:
+                fail(f"flags-off request {i}: {n} launched "
+                     f"{kernels[n].launches - before[n]} times, not once")
+        if not bool(torch.isfinite(out.coarse_raycolor).all()):
+            fail(f"flags-off request {i}: colors not finite")
+    torch.cuda.synchronize()
+    dt_serve = time.perf_counter() - t1
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = kernel_routes(kernels, "flags-off")
+    log(f"flags-off path (quality configuration, fused_decode "
+        f"{cfg.agg.fused_decode}, fused_march {cfg.render.fused_march}): "
+        f"{FLAGS_OFF_STEPS} steps x {N_RAYS} rays after {FLAGS_OFF_WARMUP} "
+        f"warm-up steps, {FLAGS_OFF_STEPS * N_RAYS / dt_train:.1f} train "
+        f"rays/s; {FLAGS_OFF_REQUESTS} requests in {dt_serve:.4f} s; losses "
+        f"{[round(float(v), 6) for v in losses]}; launches {counts}, routes "
+        f"{routes}")
+    # the same request from the trained state, at its own bar
+    cpu_parity(state.params["mlp"], state.params["points"], st, grid, cfg,
+               cfg_cpu=flags_on, b_card=parity_batch,
+               bar=COLOR_TRAINED_BF16_TOL)
+    del state
+    all_recorded(step_inputs, "the recorded flags-off train step",
+                 ("fused_decode", "fused_decode_bwd"))
+    all_recorded(request_inputs, "the recorded flags-off request")
+    with torch.no_grad():
+        step = {"fused_decode": check_k3(
+                    [(step_inputs["fused_decode"], {})],
+                    what="flags-off train step")["bf16"],
+                "fused_decode_bwd": check_k4(
+                    step_inputs["fused_decode_bwd"])["bf16"]}
+        del step_inputs
+        request = {"knn_select": check_k1(*request_inputs["knn_select"]),
+                   "fused_decode": check_k3(
+                       [request_inputs["fused_decode"]],
+                       what="flags-off request")["bf16"],
+                   "fused_march": check_k2(*request_inputs["fused_march"])}
+    return counts, routes, {"flags_off_step": step,
+                            "flags_off_request": request}
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -1632,55 +2233,87 @@ def main() -> None:
                                      what=kind.replace("_", " "))["bf16"]}
     maint.captured.clear()
     window_parity(maintenance_config(cfg), maint)
+    del maint
+
+    # the dataset path: a generated nerf_synth scene through
+    # train_dataset_scene / test_dataset_scene at scene_config()
+    data_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "nerf_synth")
+    t0 = time.perf_counter()
+    write_nerf_synth_scene(os.path.join(data_root, DS_SCAN))
+    log(f"nerf_synth scene written under {data_root}: {DS_TRAIN_VIEWS} train "
+        f"and {DS_TEST_VIEWS} test views of {DS_WH[0]} x {DS_WH[1]}, "
+        f"{DS_POINTS} points, {time.perf_counter() - t0:.2f} s")
+    ds, ds_counts, ds_routes, _ds_secs, _psnr = dataset_path(
+        kernel_wrappers(), data_root)
+    if ds.step_inputs is None or "eval_chunk" not in ds.captured:
+        fail("the dataset path's decode inputs were not recorded")
+    f32_k3, f32_k4 = check_f32_decode(
+        [("train step", ds.step_inputs["fused_decode"]),
+         ("eval chunk", ds.captured["eval_chunk"]["fused_decode"][0])],
+        ds.step_inputs["fused_decode_bwd"])
+    ds_cfg = ds.cfg
+    del ds
+    query_branches(data_root, ds_cfg)
+    voxel_parity()
+    fo_counts, fo_routes, fo_checks = flags_off_path(kernel_wrappers())
 
     csrc = "pointnerf_tpu_torch/csrc/"
-    meta = {"knn_select": ("knn_select.cu", "pointnerf_tpu/ops/pallas_knn.py:89"),
-            "fused_decode": ("fused_decode_tc.cu",
+    # one row per kernel source: K3 and K4 have two, the tensor-core
+    # kernels (bf16) and the CUDA-core kernels (f32), counted by route
+    meta = {"knn_select": ("knn_select", None, "knn_select.cu",
+                           "pointnerf_tpu/ops/pallas_knn.py:89"),
+            "fused_decode": ("fused_decode", "tensor_core",
+                             "fused_decode_tc.cu",
                              "pointnerf_tpu/ops/pallas_decode.py:404"),
-            "fused_march": ("fused_march.cu",
+            "fused_decode_f32": ("fused_decode", "cuda_core",
+                                 "fused_decode.cu",
+                                 "pointnerf_tpu/ops/pallas_decode.py:404"),
+            "fused_march": ("fused_march", None, "fused_march.cu",
                             "pointnerf_tpu/ops/pallas_march.py:69"),
-            "fused_decode_bwd": ("fused_decode_bwd_tc.cu",
-                                 "pointnerf_tpu/ops/pallas_decode.py:467")}
-    # K3 and K4 per precision: bf16 (the main paths) on the tensor-core
-    # kernels, f32 on the CUDA-core kernels
-    by_precision = {
-        "fused_decode": {"bf16": ("fused_decode_tc.cu", k3["bf16"]),
-                         "f32": ("fused_decode.cu", k3["f32"])},
-        "fused_decode_bwd": {"bf16": ("fused_decode_bwd_tc.cu", k4["bf16"]),
-                             "f32": ("fused_decode_bwd.cu", k4["f32"])}}
-    routes = {n: {"serve": serve_routes[n], "train": train_routes[n],
-                  "maintenance": maint_routes[n]} for n in MAIN_ROUTES}
+            "fused_decode_bwd": ("fused_decode_bwd", "tensor_core",
+                                 "fused_decode_bwd_tc.cu",
+                                 "pointnerf_tpu/ops/pallas_decode.py:467"),
+            "fused_decode_bwd_f32": ("fused_decode_bwd", "cuda_core",
+                                     "fused_decode_bwd.cu",
+                                     "pointnerf_tpu/ops/pallas_decode.py:467")}
+    # the numbers of each row: at the main paths' shapes for K1, K2 and the
+    # tensor-core kernels; the CUDA-core kernels at the dataset path's train
+    # step, the shapes they run at on a path
+    results["fused_decode_f32"] = {**f32_k3["train step"],
+                                   "eval_chunk": f32_k3["eval chunk"],
+                                   "bench_request": k3["f32"]}
+    results["fused_decode_bwd_f32"] = {**f32_k4, "bench_step": k4["f32"]}
+    paths = {"serve": (serve_counts, serve_routes),
+             "train": (train_counts, train_routes),
+             "maintenance": (maint_counts, maint_routes),
+             "dataset": (ds_counts, ds_routes),
+             "flags_off": (fo_counts, fo_routes)}
     rows = []
-    for name, (src, rep) in meta.items():
-        r = results[name]
-        # launches over the main paths' runs: the serving requests, the
-        # training steps, and the maintenance path (train_scene with its
-        # probes, eval and resume)
-        by_path = {"serve": serve_counts[name], "train": train_counts[name],
-                   "maintenance": maint_counts[name]}
-        row = {"name": name, "route": "cuda", "source": csrc + src,
+    for row_name, (wrapper, route_name, src, rep) in meta.items():
+        r = results[row_name]
+        # launches over the main paths' runs, of this source's route
+        by_path = {p: (c[wrapper] if route_name is None
+                       else rts[wrapper][route_name])
+                   for p, (c, rts) in paths.items()}
+        row = {"name": row_name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if name in routes:
-            row["launches_by_route"] = routes[name]
-        for k in ("host_us", "run_stats"):
+        for k in ("host_us", "run_stats", "gemm_chain_ms", "M",
+                  "eval_chunk", "bench_request", "bench_step"):
             if k in r:
                 row[k] = r[k]
-        for kind, res in chunks.items():
-            if name in res:
-                # the same comparison and timing on the maintenance path's
-                # dense probe chunk and its eval chunk
-                row[kind] = {k: v for k, v in res[name].items()
+        # the same comparison and timing on the maintenance path's dense
+        # probe chunk and its eval chunk, and on the flags-off path's train
+        # step and request
+        for kind, res in ({"maintenance_" + k: v for k, v in chunks.items()}
+                          | fo_checks).items():
+            if row_name in res:
+                row[kind] = {k: v for k, v in res[row_name].items()
                              if k != "gemm_chain_ms"}
-        if name in by_precision:
-            row["gemm_chain_ms"] = r["gemm_chain_ms"]
-            row["by_precision"] = {
-                p: {"kernel_route": "tensor_core" if p == "bf16"
-                    else "cuda_core", "source": csrc + f, **v}
-                for p, (f, v) in by_precision[name].items()}
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -1,7 +1,8 @@
 """Camera math: world <-> perspective transforms and ray directions.
 
 Counterpart of `pointnerf_tpu/camera.py` (`w2pers`, `pers2w`,
-`get_dtu_raydir`). Poses follow the OpenCV convention (+z forward);
+`get_dtu_raydir`, `get_blender_raydir`, `BLENDER2OPENCV`,
+`pose_spherical`). Poses follow the OpenCV convention (+z forward);
 `camrotc2w` is the camera-to-world rotation.
 """
 from __future__ import annotations
@@ -43,3 +44,46 @@ def get_dtu_raydir(pixelcoords, intrinsic, camrotc2w, dir_norm: bool = False):
                 else np.linalg.norm(dirs, axis=-1, keepdims=True))
         dirs = dirs / (norm + 1e-5)
     return dirs
+
+
+def get_blender_raydir(pixelcoords, height, width, focal, camrot,
+                       dir_norm: bool = False):
+    """Blender-convention ray dirs: x right, y up, looking down -z, rotated
+    by camrot. Works on numpy arrays or torch tensors."""
+    xp = torch if isinstance(pixelcoords, torch.Tensor) else np
+    x = (pixelcoords[..., 0] + 0.5 - width / 2.0) / focal
+    y = (pixelcoords[..., 1] + 0.5 - height / 2.0) / focal
+    z = xp.ones_like(x)
+    dirs = xp.stack([x, -y, -z], -1)
+    dirs = (dirs[..., None, :] * camrot[:, :]).sum(-1)
+    if dir_norm:
+        norm = (torch.linalg.norm(dirs, dim=-1, keepdim=True) if xp is torch
+                else np.linalg.norm(dirs, axis=-1, keepdims=True))
+        dirs = dirs / (norm + 1e-5)
+    return dirs
+
+
+# blender (+y up, -z forward) -> OpenCV (+y down, +z forward) camera axes
+BLENDER2OPENCV = np.array(
+    [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]],
+    dtype=np.float32)
+
+
+def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
+    """Camera-to-world pose [4, 4] of the spiral render path (blender
+    convention): `radius` out, pitched by `phi` and turned by `theta`
+    degrees."""
+    trans_t = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, radius],
+                        [0, 0, 0, 1]], dtype=np.float32)
+    ph = phi / 180.0 * np.pi
+    th = theta / 180.0 * np.pi
+    rot_phi = np.array([[1, 0, 0, 0], [0, np.cos(ph), -np.sin(ph), 0],
+                        [0, np.sin(ph), np.cos(ph), 0], [0, 0, 0, 1]],
+                       dtype=np.float32)
+    rot_theta = np.array([[np.cos(th), 0, -np.sin(th), 0], [0, 1, 0, 0],
+                          [np.sin(th), 0, np.cos(th), 0], [0, 0, 0, 1]],
+                         dtype=np.float32)
+    c2w = rot_theta @ rot_phi @ trans_t
+    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
+                     [0, 0, 0, 1]], dtype=np.float32)
+    return flip @ c2w

@@ -15,6 +15,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+import numpy as np
+
 
 def _t3(x) -> Tuple[float, float, float]:
     a, b, c = x
@@ -412,6 +414,33 @@ def hits_tracked(cfg: PointNeRFConfig) -> bool:
         return t.track_hits
     return (t.hit_lr_boost > 1.0 or t.prune_min_hits > 0
             or t.split_iter > 0)
+
+
+def ranges_from_cloud(xyz, pad_frac: float = 0.05
+                      ) -> Tuple[float, float, float, float, float, float]:
+    """Scene AABB from a point cloud [N, 3] (numpy), padded by `pad_frac`
+    of its extent plus 1e-3 on each side. Call once at scene setup and
+    keep it in QueryConfig.ranges: the grid's shape follows from it."""
+    lo = np.asarray(xyz).min(axis=0)
+    hi = np.asarray(xyz).max(axis=0)
+    pad = (hi - lo) * pad_frac + 1e-3
+    lo, hi = lo - pad, hi + pad
+    return (float(lo[0]), float(lo[1]), float(lo[2]),
+            float(hi[0]), float(hi[1]), float(hi[2]))
+
+
+def scene_config(xyz, vox_res: int = 320, K: int = 8, SR: int = 80,
+                 z_depth_dim: int = 400, near: float = 2.0, far: float = 6.0
+                 ) -> PointNeRFConfig:
+    """A per-scene config sized from an init cloud: ranges from its padded
+    AABB, the voxel size its longest side / vox_res."""
+    r = ranges_from_cloud(xyz)
+    span = max(r[3] - r[0], r[4] - r[1], r[5] - r[2])
+    v = span / vox_res
+    return PointNeRFConfig(
+        query=QueryConfig(vsize=(v, v, v), K=K, SR=SR,
+                          z_depth_dim=z_depth_dim, ranges=r),
+        render=RenderConfig(near_plane=near, far_plane=far))
 
 
 def lego_config() -> PointNeRFConfig:

@@ -1,1 +1,29 @@
-"""Scene data for the PyTorch port (counterpart of `pointnerf_tpu/data/`)."""
+"""Scene data for the PyTorch port (counterpart of `pointnerf_tpu/data/`):
+the dataset registry and its loaders. Datasets register by name; items are
+dicts of numpy arrays that the drivers turn into ray batches."""
+from __future__ import annotations
+
+from .. import not_ported
+
+DATASET_REGISTRY = {}
+# registered by the JAX package, not ported yet (ROADMAP Queue 1, datasets)
+NOT_PORTED = ("dtu", "dtu_ft", "llff_ft", "tt_ft", "nsvf", "scannet_ft",
+              "waymo_ft")
+
+
+def register_dataset(name):
+    def deco(cls):
+        DATASET_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def find_dataset_class_by_name(name: str):
+    """The loader class registered as `name`."""
+    from . import nerf_synth  # noqa: F401  (registers its names)
+    if name in DATASET_REGISTRY:
+        return DATASET_REGISTRY[name]
+    if name in NOT_PORTED:
+        raise not_ported(f"the {name!r} dataset", "Queue 1, datasets")
+    raise KeyError(f"dataset '{name}' not registered; "
+                   f"have {sorted(DATASET_REGISTRY)}")

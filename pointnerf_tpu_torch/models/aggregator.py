@@ -4,8 +4,9 @@ Counterpart of `pointnerf_tpu/models/aggregator.py`: `init_aggregator_params`,
 `block_dims`, `kernel_consumed_channels`, `fused_decode_supported`,
 `compute_dists`, `_dist_weight` (the `linear` kernel), `_gradient_clamp`
 and `aggregate`, with both the fused branch (kernel K3, `ops/fused_decode.py`)
-and the plain branch inside the same envelope (agg_intrp_order = 2, no
-block2, no *_xyz_mode hooks). Parameters are plain dicts in the JAX layout:
+and the unfused branch, JAX's XLA decode (agg_intrp_order = 2, no block2, no
+*_xyz_mode hooks). `decode_takes_kernel` picks the branch: on the CPU the
+flag, on the card the kernels wherever they compute the function. Parameters are plain dicts in the JAX layout:
 `{"block1": [{"w": [in, out], "b": [out]}, ...], "block3": ..., "alpha": ...,
 "color": ...}`.
 """
@@ -18,7 +19,7 @@ import torch
 
 from .. import DeviceLike, not_ported, resolve_device
 from ..config import AggregatorConfig
-from ..ops.fused_decode import DecodeSpec, fused_decode
+from ..ops.fused_decode import DecodeSpec, fused_decode, kernel_takes
 from ..ops.pe import pe_dim, positional_encoding
 from .points import SampledPoints
 
@@ -43,10 +44,11 @@ def _mlp_init(gen, dims, gain, final_gain, device):
     return layers
 
 
-def fused_decode_supported(cfg: AggregatorConfig) -> bool:
-    """True when the config sits inside the fused decode envelope."""
-    return (cfg.fused_decode
-            and cfg.agg_intrp_order == 2
+def fused_envelope(cfg: AggregatorConfig) -> bool:
+    """The layouts the fused decode computes (JAX's `fused_decode_supported`
+    without the flag). Inside it the JAX package's XLA decode and its
+    kernel compute the same function."""
+    return (cfg.agg_intrp_order == 2
             and cfg.shading_feature_mlp_layer1 >= 1
             and cfg.shading_feature_mlp_layer2 == 0
             and cfg.shading_feature_mlp_layer3 >= 1
@@ -56,6 +58,38 @@ def fused_decode_supported(cfg: AggregatorConfig) -> bool:
             and cfg.agg_feat_xyz_mode == "None"
             and cfg.agg_alpha_xyz_mode == "None"
             and cfg.agg_color_xyz_mode == "None")
+
+
+def fused_decode_supported(cfg: AggregatorConfig) -> bool:
+    """JAX's selection: the flag is on and the config sits inside the fused
+    envelope."""
+    return cfg.fused_decode and fused_envelope(cfg)
+
+
+def decode_takes_kernel(cfg: AggregatorConfig, K: int, bf16: bool,
+                        device: torch.device, backward: bool) -> bool:
+    """Whether the decode runs the fused formulation: K3, and K4 under a
+    gradient, on the card; their plain versions on the CPU.
+
+    On the CPU the flag decides, as in the JAX package, so that the port
+    follows JAX's roundings exactly. On CUDA the kernels run whenever the
+    config lies inside the fused envelope, whatever `agg.fused_decode`
+    says: there the unfused torch decode would compute the kernels'
+    function, and the card never runs a kernel's plain twin. A config
+    inside the envelope but past the port kernels' limits (`kernel_takes`)
+    raises, whatever the flag. Outside the envelope the card takes the
+    unfused torch decode, the port of JAX's XLA branch."""
+    if device.type != "cuda":
+        return fused_decode_supported(cfg)
+    if not fused_envelope(cfg):
+        return False
+    spec = decode_spec(cfg, K, bf16=bf16)
+    if kernel_takes(spec, backward=backward):
+        return True
+    what = "decode kernels (K3, K4)" if backward else "decode kernel"
+    raise not_ported(f"the fused {what} at H={spec.H}, "
+                     f"L1+L3={spec.L1 + spec.L3}, K={spec.K}",
+                     "Queue 2, K3 and K4 at JAX's whole fused envelope")
 
 
 def decode_spec(cfg: AggregatorConfig, K: int, bf16: bool) -> DecodeSpec:
@@ -304,11 +338,13 @@ def aggregate(params: Dict, cfg: AggregatorConfig, sp: SampledPoints,
         extras.append(sdir - ov)
         extras.append(torch.sum(sdir * ov, -1, keepdim=True))
 
-    if fused_decode_supported(cfg):
+    bf16 = compute_dtype == torch.bfloat16
+    if decode_takes_kernel(cfg, K, bf16, mask.device,
+                           backward=torch.is_grad_enabled()):
         # kernel K3: PE -> block1 -> block3 -> per-point alpha -> K-sum
         ex = (torch.cat(extras, -1) if extras
               else feat.new_zeros(mask.shape + (0,)))
-        spec = decode_spec(cfg, K, bf16=compute_dtype == torch.bfloat16)
+        spec = decode_spec(cfg, K, bf16=bf16)
         M = R * SR * K
         fagg, alpha = fused_decode(
             feat.reshape(M, -1).float().contiguous(),
@@ -318,7 +354,8 @@ def aggregate(params: Dict, cfg: AggregatorConfig, sp: SampledPoints,
         fagg = fagg.reshape(R, SR, -1).to(compute_dtype)
         alpha = alpha.reshape(R, SR, 1)
     else:
-        # plain branch: the same function through separate torch ops
+        # unfused branch (JAX's XLA decode): the same function through
+        # separate torch ops, rounding each layer's product in bf16
         parts = [feat]
         if cfg.num_feat_freqs > 0:
             parts.append(positional_encoding(feat, cfg.num_feat_freqs))

@@ -9,7 +9,9 @@ the static-capacity compacted decode or the dense one (decode_capacity=0,
 and every prob-mode probe), for inference and for training (jittered
 samples, gradients). The kernels of this path: K1 (KNN select) inside
 `knn_query`, K3 (fused decode) and its backward K4 inside `aggregate`, K2
-(fused march) inside `_finalize` when not training.
+(fused march) inside `_finalize` when not training; on the card they run
+wherever they compute the function, whatever the fused flags say
+(`aggregator.decode_takes_kernel`, `march_takes_kernel`).
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ import torch
 
 from .. import DeviceLike, not_ported, resolve_device
 from ..camera import w2pers
-from ..config import PointNeRFConfig, effective_ray_generator
-from ..ops.fused_decode import kernel_takes
-from ..ops.fused_march import fused_march
+from ..config import (PointNeRFConfig, effective_ray_generator,
+                      generator_kwargs)
+from ..ops.fused_march import MAX_C, fused_march
 from ..ops.grid import PointGrid
 from ..ops.query import generate_shading_points, knn_query, query_points
-from .aggregator import aggregate, decode_spec, fused_decode_supported
+from .aggregator import aggregate, decode_takes_kernel
 from .points import PointCloud, PointCloudStatic, gather_points
 from .ray_march import (BLEND_FUNCS, RENDER_FUNCS, TONEMAP_FUNCS,
                         exclusive_transmission, ray_march)
@@ -81,35 +83,49 @@ def ray_batch_from_numpy(item: Dict, cfg: PointNeRFConfig,
                     gt_image=None if gt is None else t(gt))
 
 
+def march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
+                       train: bool) -> bool:
+    """Whether the compositor is K2 (its plain version on the CPU).
+    Training takes the plain march under autograd, as the JAX package does.
+    On the CPU the flag decides, as in JAX; on CUDA serving takes K2
+    whenever it computes the march (radiance render, alpha blend), whatever
+    `render.fused_march` says — the card never runs a kernel's plain twin.
+    Such a render with more than `MAX_C` channels raises on CUDA, whatever
+    the flag."""
+    if train:
+        return False
+    r = cfg.render
+    kernel_func = (r.which_render_func == "radiance"
+                   and r.which_blend_func == "alpha")
+    if r.fused_march and not kernel_func:
+        raise ValueError(
+            "render.fused_march supports only which_render_func="
+            "'radiance' + which_blend_func='alpha'; got "
+            f"{r.which_render_func!r}/{r.which_blend_func!r}")
+    if device.type != "cuda":
+        return r.fused_march
+    if kernel_func and cfg.agg.shading_color_channel_num > MAX_C:
+        raise not_ported(f"the fused march at C="
+                         f"{cfg.agg.shading_color_channel_num}",
+                         "Queue 2, K2 at C > 8")
+    return kernel_func
+
+
 def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                    train: bool = False) -> None:
-    """Raise for what the port does not implement yet. On CUDA the path must
-    also run its kernels (K1, K3, K4 when training, K2 when not): the port
-    never routes the card through the plain versions."""
+    """Raise for what the port does not implement yet, before any work: the
+    fine pass and the hybrid, and on CUDA a config inside the fused
+    envelope but past the port kernels' limits (`decode_takes_kernel`,
+    `march_takes_kernel`)."""
     if cfg.render.fine_sample_num > 0:
         raise not_ported("the fine pass", "Queue 1, fine pass and hybrid")
     if cfg.render.nerf_importance > 0:
         raise not_ported("the proposal-NeRF hybrid",
                          "Queue 1, fine pass and hybrid")
-    if device.type == "cuda":
-        if not fused_decode_supported(cfg.agg):
-            raise not_ported("the unfused decode on CUDA (set "
-                             "agg.fused_decode inside its envelope)",
-                             "Queue 1, decode: unfused formulations")
-        # the route the config decodes on: tensor cores in bf16, CUDA
-        # cores in f32
-        spec = decode_spec(cfg.agg, cfg.query.K,
-                           bf16=cfg.train.compute_dtype == "bf16")
-        if not kernel_takes(spec, backward=train):
-            what = "decode kernels (K3, K4)" if train else "decode kernel"
-            raise not_ported(f"the fused {what} at H={spec.H}, "
-                             f"L1+L3={spec.L1 + spec.L3}, K={spec.K}",
-                             "Queue 1, decode: the rest of the decode "
-                             "envelope")
-        if not cfg.render.fused_march and not train:
-            raise not_ported("the unfused march on CUDA (set "
-                             "render.fused_march)",
-                             "Queue 1, render: unfused march")
+    decode_takes_kernel(cfg.agg, cfg.query.K,
+                        cfg.train.compute_dtype == "bf16", device,
+                        backward=train)
+    march_takes_kernel(cfg, device, train)
 
 
 def compute_ray_dist(sample_loc_pers, ray_valid, vsize_z: float,
@@ -143,14 +159,7 @@ def _finalize(cfg: PointNeRFConfig, features, ray_valid, weight, conf_coeff,
     # custom VJP recomputes through the plain march, so under a gradient the
     # kernel would be pure overhead. The plain march runs under autograd on
     # the card.
-    if cfg.render.fused_march and not train:
-        if (cfg.render.which_render_func != "radiance"
-                or cfg.render.which_blend_func != "alpha"):
-            raise ValueError(
-                "render.fused_march supports only which_render_func="
-                "'radiance' + which_blend_func='alpha'; got "
-                f"{cfg.render.which_render_func!r}/"
-                f"{cfg.render.which_blend_func!r}")
+    if march_takes_kernel(cfg, dev, train):
         # kernel K2; the blend weights for the depth are recomputed from its
         # opacity
         ray_color, opacity, background_transmission = fused_march(
@@ -378,13 +387,15 @@ def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
         sample_loc_w, sample_mask = generate_shading_points(
             grid, batch.campos, batch.raydir, near, far, cfg.query,
             jitter=jitter, generator=generator, u=u,
-            gen_name=effective_ray_generator(cfg))
+            gen_name=effective_ray_generator(cfg),
+            gen_kwargs=generator_kwargs(cfg))
         return _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
                          sample_mask, prob=prob, compute_dtype=compute_dtype,
                          train=train)
     q = query_points(pc.xyz, grid, batch.campos, batch.raydir, near, far,
                      cfg.query, jitter=jitter, generator=generator, u=u,
-                     gen_name=effective_ray_generator(cfg))
+                     gen_name=effective_ray_generator(cfg),
+                     gen_kwargs=generator_kwargs(cfg))
     sp, sample_loc, dirs = _dense_inputs(pc, batch, q.sample_pidx,
                                          q.sample_loc_w, q.sample_mask,
                                          cfg.query.gather_bwd)

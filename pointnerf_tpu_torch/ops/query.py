@@ -1,10 +1,12 @@
 """Ray sampling, shading-point selection and the K-nearest-neighbor query.
 
-Counterpart of `pointnerf_tpu/ops/query.py`: `near_far_linear_ray_generation`,
-`select_shading_points`, `generate_shading_points`, `knn_query`, the
-prebuilt-table branch of `_knn_chunk`, whose selection is kernel K1
-(`ops/knn_select.py`), and the dense neighbor query `query_points`. Static shapes as in JAX: all R rays are kept and
-`sample_mask` / `ray_mask` carry validity.
+Counterpart of `pointnerf_tpu/ops/query.py`: the five ray generators of
+`RAY_GENERATORS`, `select_shading_points`, `generate_shading_points`,
+`knn_query` with every branch of `_knn_chunk` (prebuilt tables or bucket
+rows; K nearest, the shell-layered cut or the NN=0 random subset; the
+table path's plain K nearest is kernel K1, `ops/knn_select.py`) and the
+dense neighbor query `query_points`. Static shapes as in JAX: all R rays
+are kept and `sample_mask` / `ray_mask` carry validity.
 
 Integer outputs (which ray samples are shading slots, which points are
 neighbors) must equal the JAX package's, so the float arithmetic that decides
@@ -19,9 +21,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..config import QueryConfig
-from .grid import GridMeta, PointGrid, flat_vid, grid_meta, voxel_coords
+from .grid import (GridMeta, PointGrid, flat_vid, grid_meta,
+                   kernel_offsets_layered, voxel_coords)
+from .knn_select import DEAD as KNN_DEAD
 from .knn_select import knn_select
 
 
@@ -64,6 +67,37 @@ def _xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
     return out[:, :N]
 
 
+def _lin_t(n: int, dev) -> torch.Tensor:
+    """jnp.linspace(0, 1, n) as compiled: i * float32(1 / (n - 1)), the last
+    entry exactly 1."""
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    if n > 1:
+        t = t * torch.tensor(np.float32(1.0) / np.float32(n - 1), device=dev)
+        t[-1] = 1.0
+    return t
+
+
+def _c(x: float, dev) -> torch.Tensor:
+    return torch.tensor(np.float32(x), device=dev)
+
+
+def _disparity(t: torch.Tensor, near: float, far: float) -> torch.Tensor:
+    """1 / (1/near * (1 - t) + 1/far * t) in float32, the reciprocals of the
+    Python floats rounded once and the sum one multiply-add, as compiled."""
+    dev = t.device
+    inv = _fma(_c(1.0 / far, dev), t, _c(1.0 / near, dev) * (1.0 - t))
+    return 1.0 / inv
+
+
+def _draw(u, generator, shape, dev):
+    return (torch.rand(shape, generator=generator, device=dev) if u is None
+            else u.float())
+
+
+def _jittered(jitter: float, u, generator) -> bool:
+    return jitter > 0.0 and (u is not None or generator is not None)
+
+
 def near_far_linear_ray_generation(campos, raydir, point_count: int, near,
                                    far, jitter: float = 0.0,
                                    generator: Optional[torch.Generator] = None,
@@ -79,13 +113,12 @@ def near_far_linear_ray_generation(campos, raydir, point_count: int, near,
     dev = raydir.device
     seg, mid = (torch.from_numpy(a).to(dev)
                 for a in _linear_depths(D, float(near), float(far)))
-    if jitter > 0.0 and (u is not None or generator is not None):
-        if u is None:
-            u = torch.rand((R, D), generator=generator, device=dev)
+    if _jittered(jitter, u, generator):
+        u = _draw(u, generator, (R, D), dev)
         # XLA contracts 1 + jitter * (u - 0.5) into one fused multiply-add
-        j = torch.tensor(jitter, dtype=torch.float32, device=dev)
-        seg = seg[None, :] * _fma(j, u.float() - 0.5, torch.ones((), device=dev))
-        nearf = torch.tensor(float(near), dtype=torch.float32, device=dev)
+        seg = seg[None, :] * _fma(_c(jitter, dev), u - 0.5,
+                                  torch.ones((), device=dev))
+        nearf = _c(near, dev)
         end = torch.cat([nearf.expand(R, 1), nearf + _xla_cumsum(seg)], -1)
         mid = 0.5 * (end[:, :-1] + end[:, 1:])
     else:
@@ -95,7 +128,128 @@ def near_far_linear_ray_generation(campos, raydir, point_count: int, near,
     return raypos, seglen, mid
 
 
-RAY_GENERATORS = {"near_far_linear": near_far_linear_ray_generation}
+def near_far_disparity_linear_ray_generation(
+        campos, raydir, point_count: int, near, far, jitter: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None):
+    """Uniform-in-disparity samples; with jitter every bin value moves
+    uniformly between its neighbors' midpoints (`u` [R, D + 1])."""
+    R, D = raydir.shape[0], point_count
+    dev = raydir.device
+    tvals = _disparity(_lin_t(D + 1, dev), float(near), float(far))
+    tvals = tvals[None, :].expand(R, D + 1)
+    if _jittered(jitter, u, generator):
+        u = _draw(u, generator, (R, D + 1), dev)
+        mids = 0.5 * (tvals[:, 1:] + tvals[:, :-1])
+        upper = torch.cat([mids, tvals[:, -1:]], -1)
+        lower = torch.cat([tvals[:, :1], mids], -1)
+        tvals = _fma(upper - lower, u, lower)
+    mid = 0.5 * (tvals[:, :-1] + tvals[:, 1:])
+    seglen = (tvals[:, 1:] - tvals[:, :-1]) * torch.linalg.norm(
+        raydir, dim=-1, keepdim=True)
+    raypos = _fma(raydir[:, None, :], mid[..., None], campos)
+    return raypos, seglen, mid
+
+
+def near_middle_far_ray_generation(
+        campos, raydir, point_count: int, near, far, jitter: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None, middle: float = 2.0,
+        middle_split: float = 0.6):
+    """Linear from near to middle, uniform in disparity from middle to far,
+    truncated to D segments as the JAX package does (the deepest 1-2
+    disparity segments drop, a zero-length segment stays at the junction).
+    With jitter, `u` is [R, n0 + n1 - 1]. The bin values are computed on
+    the host (they depend on no input)."""
+    R, D = raydir.shape[0], point_count
+    dev, cpu = raydir.device, torch.device("cpu")
+    n0 = int(D * middle_split) + 1
+    n1 = int(D * (1.0 - middle_split)) + 2
+    t0 = _lin_t(n0, cpu)
+    vals0 = _fma(_c(middle, cpu), t0, _c(near, cpu) * (1.0 - t0))
+    vals1 = _disparity(_lin_t(n1, cpu), float(middle), float(far))
+    tv = torch.cat([vals0, vals1])
+    seg = tv[1:] - tv[:-1]
+    if _jittered(jitter, u, generator):
+        u = _draw(u, generator, (R, seg.shape[0]), dev)
+        seg = seg.to(dev)[None, :] * _fma(_c(jitter, dev), u - 0.5,
+                                          torch.ones((), device=dev))
+        seg = seg[:, :D]
+        nearf = _c(near, dev)
+        end = torch.cat([nearf.expand(R, 1), nearf + _xla_cumsum(seg)], -1)
+        mid = 0.5 * (end[:, :-1] + end[:, 1:])
+    else:
+        seg = seg[:D].numpy()
+        end = np.concatenate([[np.float32(near)], np.float32(near) + np.cumsum(
+            seg, dtype=np.float32)]).astype(np.float32)
+        mid = torch.from_numpy(0.5 * (end[:-1] + end[1:])).to(dev)
+        seg = torch.from_numpy(seg).to(dev)[None, :].expand(R, D)
+        mid = mid[None, :].expand(R, D)
+    raypos = _fma(raydir[:, None, :], mid[..., None], campos)
+    return raypos, seg, mid
+
+
+def _nerf_stratified(tvals: torch.Tensor, R: int, jitter: float, generator,
+                     u) -> torch.Tensor:
+    """NeRF's stratified bin jitter: each bin value uniform between its
+    neighbors' midpoints (`u` [R, n])."""
+    n = tvals.shape[0]
+    if _jittered(jitter, u, generator):
+        u = _draw(u, generator, (R, n), tvals.device)
+        mids = 0.5 * (tvals[1:] + tvals[:-1])
+        upper = torch.cat([mids, tvals[-1:]])
+        lower = torch.cat([tvals[:1], mids])
+        return _fma((upper - lower)[None], u, lower[None])
+    return tvals[None, :].expand(R, n)
+
+
+def _nerf_tail(campos, raydir, tvals):
+    R = raydir.shape[0]
+    seg = torch.cat([tvals[:, 1:] - tvals[:, :-1],
+                     torch.full((R, 1), 1e10, device=raydir.device)], -1)
+    seg = seg * torch.linalg.norm(raydir, dim=-1, keepdim=True)
+    raypos = _fma(raydir[:, None, :], tvals[..., None], campos)
+    return raypos, seg, tvals
+
+
+def nerf_near_far_linear_ray_generation(
+        campos, raydir, point_count: int, near, far, jitter: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None):
+    """NeRF-style samples at the (stratified) bin values themselves, the
+    last segment open (1e10)."""
+    dev = raydir.device
+    t = _lin_t(point_count, dev)
+    n, f = _c(near, dev), _c(far, dev)
+    # near * (1 - t) + far * t is one multiply-add in the compiled query;
+    # which product XLA contracts there depends on whether the bins are
+    # jittered (the other choice moves some bins by 1 ulp, and with them
+    # the shading positions)
+    base = (_fma(f, t, n * (1.0 - t)) if _jittered(jitter, u, generator)
+            else _fma(n, 1.0 - t, f * t))
+    tvals = _nerf_stratified(base, raydir.shape[0], jitter, generator, u)
+    return _nerf_tail(campos, raydir, tvals)
+
+
+def nerf_near_far_disparity_linear_ray_generation(
+        campos, raydir, point_count: int, near, far, jitter: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None):
+    """NeRF-style samples uniform in disparity."""
+    base = _disparity(_lin_t(point_count, raydir.device), float(near),
+                      float(far))
+    tvals = _nerf_stratified(base, raydir.shape[0], jitter, generator, u)
+    return _nerf_tail(campos, raydir, tvals)
+
+
+RAY_GENERATORS = {
+    "near_far_linear": near_far_linear_ray_generation,
+    "near_far_disparity_linear": near_far_disparity_linear_ray_generation,
+    "near_middle_far": near_middle_far_ray_generation,
+    "nerf_near_far_linear": nerf_near_far_linear_ray_generation,
+    "nerf_near_far_disparity_linear":
+        nerf_near_far_disparity_linear_ray_generation,
+}
 
 
 def select_shading_points(raypos: torch.Tensor, grid: PointGrid,
@@ -123,38 +277,150 @@ def select_shading_points(raypos: torch.Tensor, grid: PointGrid,
     return sample_loc_w, sample_mask
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mix_u32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 finalizer on uint32 values held in int64 (torch has no full
+    uint32 arithmetic): the products wrap in int64 and their low 32 bits,
+    kept by the mask, are the uint32 products."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _U32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _U32
+    return x ^ (x >> 16)
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 -> its uint32 value in int64 (-1 -> 0xFFFFFFFF)."""
+    return t.long() & _U32
+
+
+def _random_subset(pid, d2, cand_ok, centers, K: int):
+    """NN=0: a uniform random K-subset of the in-radius candidates. Every
+    candidate gets the JAX package's hash key of (center bits, point id),
+    valid keys shifted below the invalid sentinel, and the K smallest keys
+    win (stable sort: equal keys keep their candidate order)."""
+    cb = _u32(centers.contiguous().view(torch.int32))            # [C, 3]
+    hc = _mix_u32(cb[:, 0] ^ _mix_u32(cb[:, 1] ^ _mix_u32(cb[:, 2])))
+    keys = _mix_u32(_u32(pid) ^ hc[:, None])
+    keys = torch.where(cand_ok, keys >> 1, _U32)
+    ks, order = torch.sort(keys, dim=1, stable=True)
+    ok = ks[:, :K] < _U32
+    win = order[:, :K]
+    return (torch.where(ok, pid.gather(1, win), -1).to(torch.int32),
+            torch.where(ok, d2.gather(1, win), float("inf")))
+
+
+def _shell_cut(cand_ok, layer, K: int):
+    """shell_layered: keep the candidates of the complete shells up to the
+    first one where the running in-radius count reaches K (the last shell
+    when none does). cand_ok [C, Q, P]; layer [Q] int64."""
+    n_layers = int(layer.max()) + 1
+    per = torch.stack([(cand_ok & (layer == l)[None, :, None]).sum((1, 2))
+                       for l in range(n_layers)], -1)             # [C, L]
+    reach = torch.cumsum(per, -1) >= K
+    L = torch.where(reach.any(-1), reach.to(torch.int8).argmax(-1),
+                    n_layers - 1)
+    return cand_ok & (layer[None, :, None] <= L[:, None, None])
+
+
+def _d2(dx, dy, dz):
+    """Squared distance as (dx*dx + dy*dy) + dz*dz, each product rounded
+    (no fused multiply-add, as K1 and its plain version sum it)."""
+    return dx * dx + dy * dy + dz * dz
+
+
+def _nearest(d2, cand_ok, K: int):
+    """The K smallest candidate distances per row, ties to the lowest
+    candidate index (what lax.top_k and K1 give). Returns (d2 [C, K],
+    candidate index [C, K]); empty winners carry inf."""
+    d2 = torch.where(cand_ok, d2, float("inf"))
+    top_d2, top_i = torch.sort(d2, dim=1, stable=True)
+    return top_d2[:, :K], top_i[:, :K]
+
+
 def _knn_chunk(centers, center_valid, grid: PointGrid, meta: GridMeta,
                cfg: QueryConfig):
-    """Prebuilt-table KNN: each center reads its own cell's table row.
-    Returns (pidx [C, K] int32 -1-padded, d2 [C, K])."""
+    """KNN for the centers [C, 3] of one chunk. Returns (pidx [C, K] int32
+    -1-padded, d2 [C, K] inf-padded).
+
+    With prebuilt tables each center reads its own cell's table row; else
+    it reads the bucket rows of the Q kernel-offset cells around it. The
+    selection is K1 on the table path with NN > 0 and no shell cut, as in
+    the JAX package; the shell cut (`shell_layered`), the random subset
+    (NN = 0) and the bucket path are torch code on every device, as they
+    are XLA code in JAX."""
+    C, K, P = centers.shape[0], cfg.K, cfg.P
+    dev = centers.device
     G1 = grid.vox_slot.shape[0] - 1
-    cvid, cinb = flat_vid(voxel_coords(centers, meta), meta)
-    dslot = torch.where(cinb, grid.vox_dslot[cvid.clamp(max=G1).long()], -1)
-    ok = (dslot >= 0) & center_valid
-    return knn_select(grid.nbr_xyz, grid.nbr_pid, dslot.to(torch.int32),
-                      centers.contiguous(), ok.contiguous(), K=cfg.K,
-                      r2=cfg.radius_limit ** 2)
+    r2 = cfg.radius_limit ** 2
+    offs, layer = kernel_offsets_layered(cfg.kernel_size)
+    Q = offs.shape[0]
+    ccoor = voxel_coords(centers, meta)
+    if grid.nbr_xyz is not None:
+        cvid, cinb = flat_vid(ccoor, meta)
+        dslot = torch.where(cinb, grid.vox_dslot[cvid.clamp(max=G1).long()],
+                            -1)
+        ok = (dslot >= 0) & center_valid
+        if cfg.NN > 0 and not cfg.shell_layered:
+            return knn_select(grid.nbr_xyz, grid.nbr_pid,
+                              dslot.to(torch.int32), centers.contiguous(),
+                              ok.contiguous(), K=K, r2=r2)
+        QP = Q * P
+        dsc = dslot.clamp(min=0).long()
+        row = grid.nbr_xyz[dsc].view(C, 3, QP)
+        d2 = _d2(row[:, 0] - centers[:, 0:1], row[:, 1] - centers[:, 1:2],
+                 row[:, 2] - centers[:, 2:3])
+        cand_ok = ok[:, None] & (row[:, 0] < KNN_DEAD)
+        pid = grid.nbr_pid[dsc]                                   # [C, QP]
+    else:
+        offs_t = torch.from_numpy(offs).to(dev)
+        nvid, ninb = flat_vid(ccoor[:, None, :] + offs_t[None], meta)
+        slot = torch.where(ninb, grid.vox_slot[nvid.clamp(max=G1).long()],
+                           -1)                                    # [C, Q]
+        has = slot >= 0
+        slot_c = slot.clamp(min=0).long()
+        pxyz = grid.bucket_xyz[slot_c]                            # [C,Q,P,3]
+        cnt = torch.where(has, grid.bucket_cnt[slot_c], 0)
+        cand_ok = (torch.arange(P, device=dev)[None, None, :]
+                   < cnt[..., None]) & center_valid[:, None, None]
+        diff = pxyz - centers[:, None, None, :]
+        d2 = _d2(diff[..., 0], diff[..., 1], diff[..., 2]).reshape(C, Q * P)
+        cand_ok = cand_ok.reshape(C, Q * P)
+        pid = grid.bucket_pnt[slot_c].reshape(C, Q * P)
+    if r2 > 0:
+        cand_ok = cand_ok & (d2 <= r2)
+    if cfg.NN <= 0:
+        return _random_subset(pid, d2, cand_ok, centers, K)
+    if cfg.shell_layered:
+        lay = torch.from_numpy(layer).to(dev)
+        cand_ok = _shell_cut(cand_ok.view(C, Q, P), lay, K).view(C, Q * P)
+    top_d2, top_i = _nearest(d2, cand_ok, K)
+    fin = torch.isfinite(top_d2)
+    return (torch.where(fin, pid.gather(1, top_i), -1).to(torch.int32),
+            torch.where(fin, top_d2, float("inf")))
 
 
 def knn_query(sample_loc_w: torch.Tensor, sample_mask: torch.Tensor,
               xyz: torch.Tensor, grid: PointGrid, cfg: QueryConfig):
     """K nearest neural points for every shading point.
     sample_loc_w [..., 3]; sample_mask [...]. Returns (sample_pidx [..., K]
-    int32, -1 invalid; d2 [..., K]). The whole batch is one kernel launch
-    (`knn_chunk` only bounds workspace in the JAX package)."""
-    if grid.nbr_xyz is None:
-        raise not_ported("the KNN without prebuilt neighbor tables",
-                         "Queue 1, query: bucket branch")
-    if cfg.NN <= 0:
-        raise not_ported("the NN=0 random-subset query",
-                         "Queue 1, query: NN=0 branch")
-    if cfg.shell_layered:
-        raise not_ported("the shell-layered KNN", "Queue 1, query: "
-                         "shell_layered branch")
+    int32, -1 invalid; d2 [..., K]). K1 takes the whole batch in one
+    launch; the torch branches run `knn_chunk` centers at a time, as the
+    JAX package does, to bound their [chunk, Q*P] workspace (chunking
+    changes no result)."""
     meta = grid_meta(cfg)
     lead = sample_mask.shape
-    pidx, d2 = _knn_chunk(sample_loc_w.reshape(-1, 3),
-                          sample_mask.reshape(-1), grid, meta, cfg)
+    centers = sample_loc_w.reshape(-1, 3)
+    valid = sample_mask.reshape(-1)
+    n = centers.shape[0]
+    kernel = grid.nbr_xyz is not None and cfg.NN > 0 and not cfg.shell_layered
+    step = n if kernel else max(1, min(cfg.knn_chunk, n))
+    parts = [_knn_chunk(centers[s:s + step], valid[s:s + step], grid, meta,
+                        cfg) for s in range(0, max(n, 1), step)]
+    pidx = torch.cat([p for p, _ in parts])[:n]
+    d2 = torch.cat([d for _, d in parts])[:n]
     return pidx.reshape(lead + (cfg.K,)), d2.reshape(lead + (cfg.K,))
 
 
@@ -166,19 +432,19 @@ def generate_shading_points(grid: PointGrid, campos, raydir, near: float,
                             gen_kwargs: Tuple = (),
                             u: Optional[torch.Tensor] = None):
     """Ray generation + occupancy-selected shading locations (the pre-KNN
-    half of the query). `generator` / `u` feed the jitter (see
-    `near_far_linear_ray_generation`). Returns (sample_loc_w [R,SR,3],
-    sample_mask [R,SR])."""
+    half of the query). `gen_name` is a `RAY_GENERATORS` key (default by
+    `cfg.inverse`), `gen_kwargs` its extra (name, value) pairs (e.g.
+    near_middle_far's middle / middle_split); `generator` / `u` feed the
+    jitter, `u` shaped as the generator draws it. Returns (sample_loc_w
+    [R,SR,3], sample_mask [R,SR])."""
     name = gen_name or ("near_far_disparity_linear" if cfg.inverse > 0
                         else "near_far_linear")
-    if name not in RAY_GENERATORS or gen_kwargs:
-        raise not_ported(f"ray generator {name!r}",
-                         "Queue 1, query: other ray generators")
     raypos, _seg, tvals = RAY_GENERATORS[name](
         campos, raydir, cfg.z_depth_dim, near, far, jitter=jitter,
-        generator=generator, u=u)
+        generator=generator, u=u, **dict(gen_kwargs))
     return select_shading_points(raypos, grid, grid_meta(cfg), cfg.SR,
-                                 tvals, campos, raydir)
+                                 tvals.expand(raypos.shape[:2]), campos,
+                                 raydir)
 
 
 class QueryResult(NamedTuple):

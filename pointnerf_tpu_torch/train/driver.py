@@ -1,7 +1,8 @@
 """Per-scene optimization driver.
 
 Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
-`init_mlp_params`, `evaluate`, `train_scene`, `demo` and `main --demo`.
+`init_mlp_params`, `evaluate`, `train_scene`, `train_dataset_scene`,
+`test_dataset_scene`, `demo` and `main` (`--demo`, `--dataset`, `--test`).
 One process, no restart loop: prune and grow change the cloud in place
 (`train/grow.py`) and the Adam state is carried through. The schedule:
 
@@ -17,6 +18,8 @@ size (max_d) that the previous build settled on. Everything runs on one
 device, `cuda` unless the caller asks for the CPU.
 
     python -m pointnerf_tpu_torch.train.driver --demo [--device cpu]
+    python -m pointnerf_tpu_torch.train.driver --dataset nerf_synth360_ft \
+        --data-root DIR --scan NAME [--test] [--device cpu]
 """
 from __future__ import annotations
 
@@ -32,11 +35,14 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, not_ported, resolve_device
-from ..config import PointNeRFConfig, hits_tracked, tiny_test_config
+from ..config import (DataConfig, PointNeRFConfig, hits_tracked,
+                      scene_config, tiny_test_config)
+from ..data import find_dataset_class_by_name
 from ..data.synthetic import ring_cameras, sphere_scene, view_ray_batch
 from ..models.aggregator import init_aggregator_params
 from ..models.points import make_point_cloud
 from ..models.renderer import ray_batch_from_numpy
+from ..ops.voxel import construct_vox_points_closest
 from ..utils.metrics import lpips_proxy, psnr, rmse, ssim
 from ..utils.visualizer import Visualizer
 from .checkpoint import (checkpoint_meta, latest_checkpoint, load_checkpoint,
@@ -323,18 +329,132 @@ def demo(steps: int = 300, n_pts: int = 2048, wh=(64, 64),
     return hist
 
 
+def train_dataset_scene(dataset_name: str, data_root: str, scan: str,
+                        run_dir: str, max_steps: Optional[int] = None,
+                        cfg: Optional[PointNeRFConfig] = None,
+                        resume: bool = True, device: DeviceLike = None):
+    """Per-scene optimization on a dataset on disk: load the init cloud,
+    size the config from its AABB (`scene_config`) unless one is given,
+    voxel-downsample a cloud above 2M points, sample
+    `random_sample_size`^2 rays of a random training view per step, and
+    evaluate on every eighth test view. Returns train_scene's
+    (state, st, history)."""
+    dev = resolve_device(device)
+    dcfg = DataConfig(dataset_name=dataset_name, data_root=data_root,
+                      scan=scan)
+    cls = find_dataset_class_by_name(dataset_name)
+    train_ds = cls(dcfg, split="train")
+    test_ds = cls(dcfg, split="test")
+    try:
+        cloud = train_ds.load_init_points()
+    except (FileNotFoundError, AttributeError):
+        if not hasattr(train_ds, "get_mvs_item"):
+            raise
+        raise not_ported("MVS point initialization (mvs_init_cloud)",
+                         "Queue 1, MVS stack")
+    xyz = cloud["xyz"]
+    if cfg is None:
+        cfg = scene_config(xyz, near=float(train_ds.near),
+                           far=float(train_ds.far))
+    if xyz.shape[0] > 2_000_000:
+        idx, _ = construct_vox_points_closest(xyz, cfg.points.vox_res,
+                                              device=dev)
+        cloud = {k: v[idx] for k, v in cloud.items()}
+        xyz = cloud["xyz"]
+    wh = (train_ds.width, train_ds.height)
+    rng = np.random.RandomState(cfg.train.seed)
+
+    def train_item(step):
+        i = rng.randint(0, len(train_ds))
+        return train_ds.get_item(
+            i, random_sample=cfg.train.random_sample,
+            random_sample_size=cfg.train.random_sample_size, seed=step)
+
+    test_items = [test_ds.get_item(i) for i in
+                  range(0, len(test_ds), max(1, len(test_ds) // 8))]
+    probe_items = [train_ds.get_item(i) for i in
+                   range(0, len(train_ds), max(1, len(train_ds) // 4))]
+    return train_scene(cfg, (xyz, cloud.get("color"), cloud.get("normal")),
+                       train_item, test_items, probe_items, wh,
+                       run_dir=run_dir, max_steps=max_steps, resume=resume,
+                       features=cloud.get("feature"), conf=cloud.get("conf"),
+                       device=dev)
+
+
+def test_dataset_scene(dataset_name: str, data_root: str, scan: str,
+                       run_dir: str, cfg: Optional[PointNeRFConfig] = None,
+                       save_images: bool = True,
+                       device: DeviceLike = None) -> Dict[str, float]:
+    """Evaluate the latest checkpoint under `run_dir` on the whole test
+    split: PSNR / SSIM / RMSE, and the rendered frames under
+    `run_dir/images` with `save_images`."""
+    dev = resolve_device(device)
+    dcfg = DataConfig(dataset_name=dataset_name, data_root=data_root,
+                      scan=scan)
+    cls = find_dataset_class_by_name(dataset_name)
+    train_ds = cls(dcfg, split="train")
+    test_ds = cls(dcfg, split="test")
+    cloud = train_ds.load_init_points()
+    if cfg is None:
+        cfg = scene_config(cloud["xyz"], near=float(train_ds.near),
+                           far=float(train_ds.far))
+    path = latest_checkpoint(run_dir)
+    if path is None:
+        raise SystemExit(f"no checkpoint under {run_dir}")
+    # a template at the checkpoint's capacity (growth may have re-bucketed
+    # the cloud, a downsample shrunk it); the checkpoint fills it
+    cap = checkpoint_meta(path).get("capacity")
+    n = cloud["xyz"].shape[0] if cap is None else min(cap,
+                                                      cloud["xyz"].shape[0])
+    pc, st = make_point_cloud(cloud["xyz"][:n], torch.Generator().manual_seed(
+        cfg.train.seed), cfg.points, cfg.agg.point_features_dim,
+        capacity=cap, device=dev)
+    params = init_mlp_params(torch.Generator().manual_seed(
+        cfg.train.seed + 1), cfg, device=dev)
+    state = create_train_state(torch.Generator(device=dev), params, pc, cfg)
+    state, meta = load_checkpoint(path, state)
+    if meta.get("num_active") is not None:
+        st = st._replace(num_active=torch.tensor(
+            meta["num_active"], dtype=torch.int32, device=dev))
+    grid, _ = refresh_grid(state.params["points"], st, cfg)
+    vis = Visualizer(run_dir, name="test")
+    items = [test_ds.get_item(i) for i in range(len(test_ds))]
+    m = evaluate(state.params, st, grid, cfg, items,
+                 (test_ds.width, test_ds.height), vis, int(state.step),
+                 save_images=save_images)
+    print(f"[test] step {int(state.step)}: psnr={m['psnr']:.2f} "
+          f"ssim={m['ssim']:.4f} over {len(items)} frames")
+    return m
+
+
 def main():
     ap = argparse.ArgumentParser(description="Per-scene optimization of the "
                                  "PyTorch port")
     ap.add_argument("--demo", action="store_true",
                     help="a small end-to-end run on the synthetic sphere")
+    ap.add_argument("--dataset", default=None,
+                    help="per-scene training on a dataset on disk: its "
+                         "registered name (nerf_synth360_ft)")
+    ap.add_argument("--data-root", default="")
+    ap.add_argument("--scan", default="lego")
+    ap.add_argument("--test", action="store_true",
+                    help="evaluate the latest checkpoint on the test split "
+                         "(with --dataset/--data-root/--scan)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--run-dir", default="runs/demo")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args()
-    if not args.demo:
-        ap.error("use --demo; call train_scene() from code for other scenes")
-    demo(steps=args.steps, run_dir=args.run_dir, device=args.device)
+    if args.dataset and args.test:
+        test_dataset_scene(args.dataset, args.data_root, args.scan,
+                           run_dir=args.run_dir, device=args.device)
+    elif args.dataset:
+        train_dataset_scene(args.dataset, args.data_root, args.scan,
+                            run_dir=args.run_dir, max_steps=args.steps,
+                            device=args.device)
+    elif args.demo:
+        demo(steps=args.steps, run_dir=args.run_dir, device=args.device)
+    else:
+        ap.error("use --demo or --dataset NAME --data-root DIR --scan NAME")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ dumps, optional tensorboardX.
 
 Counterpart of `pointnerf_tpu/utils/visualizer.py` (`to8b`, `Visualizer`
 without `gen_video`). Losses may be device tensors: they are held as they
-are and read back once per print. Images are written as 8-bit RGB PNG with
-the standard library (zlib + struct), so no image package is needed.
+are and read back once per print. PNG files are written (`write_png`) and
+read (`read_png`) with the standard library (zlib + struct), so no image
+package is needed.
 """
 from __future__ import annotations
 
@@ -23,12 +24,12 @@ def to8b(x: np.ndarray) -> np.ndarray:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """An [H, W] or [H, W, 1|3|4] uint8 array as a PNG file (filter type 0
-    on every row, one zlib stream)."""
+    """An [H, W] or [H, W, 1|2|3|4] uint8 array (grey, grey+alpha, RGB,
+    RGBA) as a PNG file (filter type 0 on every row, one zlib stream)."""
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(img, np.uint8).reshape(h, -1)],
                           axis=1)
@@ -42,6 +43,70 @@ def write_png(path: str, img: np.ndarray) -> None:
                                            0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # color type -> channels
+
+
+def _unfilter(raw: np.ndarray, H: int, W: int, c: int) -> np.ndarray:
+    """Undo the PNG row filters (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
+    of [H, 1 + W*c] scanlines. Each byte depends on its left, upper and
+    upper-left neighbors, so pixels are reconstructed one anti-diagonal at
+    a time (H + W - 1 vectorized steps), each pixel by its row's filter."""
+    ftype = raw[:, 0].astype(np.int32)
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown filter type {ftype.max()}")
+    filt = raw[:, 1:].reshape(H, W, c).astype(np.int32)
+    if not ftype.any():
+        return filt.astype(np.uint8)
+    out = np.zeros((H + 1, W + 1, c), np.int32)   # zero row above, column left
+    for d in range(H + W - 1):
+        r = np.arange(max(0, d - W + 1), min(H, d + 1))
+        col = d - r
+        a, b, ul = out[r + 1, col], out[r, col + 1], out[r, col]
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        ft = ftype[r][:, None]
+        pred = np.where(ft == 1, a, np.where(ft == 2, b, np.where(
+            ft == 3, (a + b) >> 1, np.where(ft == 4, paeth, 0))))
+        out[r + 1, col + 1] = (filt[r, col] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced grey, grey+alpha, RGB or RGBA PNG file as a
+    uint8 array: [H, W] for grey, else [H, W, 2|3|4] (the layout imageio
+    returns). Anything else raises. Standard library only (zlib)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    W, H, depth, ctype, _comp, _filt, interlace = ihdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey, grey+"
+                         f"alpha, RGB and RGBA are read (bit depth {depth}, "
+                         f"color type {ctype}, interlace {interlace})")
+    c = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != H * (1 + W * c):
+        raise ValueError(f"{path}: {raw.size} bytes of scanlines for "
+                         f"{W}x{H}x{c}")
+    img = _unfilter(raw.reshape(H, 1 + W * c), H, W, c)
+    return img[..., 0] if c == 1 else img
 
 
 class Visualizer:

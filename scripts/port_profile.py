@@ -25,8 +25,18 @@ and that replay.
 Probe: one full-frame probe (prob=True, the dense decode) of the probe view
 of chip_smoke's maintenance scene (the sphere with view 0's silhouette band
 cut), chunks of 2,304 rays as train/grow.py renders them, after one warm-up
-frame. Prints the breakdown per chunk, with K1, K3 and K2 named. Needs one
-CUDA card.
+frame. Prints the breakdown per chunk, with K1, K3 and K2 named.
+
+Dataset: the nerf_synth scene of chip_smoke's dataset path (written under
+build/nerf_synth) at its scene_config (dense f32 decode, bucket +
+shell-layered KNN): N_PROFILED_STEPS train steps of 3,600 rays after two
+warm-up steps, and N_PROFILED_CHUNKS eval chunks of 9,216 rays of the test
+view after one warm-up chunk, each broken down with K3 and K4 (f32, CUDA
+cores) and K2 named.
+
+    python3 scripts/port_profile.py [--sections main dataset]
+
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
+N_PROFILED_CHUNKS = 4
+SECTIONS = ("main", "dataset")   # main: serving, training and the probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or fused_decode_kernel (f32), K4 the three
@@ -103,7 +115,96 @@ def report(what: str, n: int, n_rays: int, wall: float, per_kernel,
     return total
 
 
+def dataset_section(cs) -> None:
+    """Per train step and per eval chunk of the dataset path."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig
+    from pointnerf_tpu_torch.data import find_dataset_class_by_name
+    from pointnerf_tpu_torch.models.points import make_point_cloud
+    from pointnerf_tpu_torch.models.renderer import (RayBatch,
+                                                     ray_batch_from_numpy)
+    from pointnerf_tpu_torch.train.driver import init_mlp_params
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, refresh_grid,
+                                                train_step)
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build", "nerf_synth")
+    cs.write_nerf_synth_scene(os.path.join(root, cs.DS_SCAN))
+    cls = find_dataset_class_by_name("nerf_synth360_ft")
+    dcfg = DataConfig(data_root=root, scan=cs.DS_SCAN)
+    train_ds, test_ds = cls(dcfg, split="train"), cls(dcfg, split="test")
+    cloud = train_ds.load_init_points()
+    cfg = cs.dataset_config(cloud["xyz"])
+    dev = torch.device("cuda")
+    pc, st = make_point_cloud(cloud["xyz"], torch.Generator().manual_seed(0),
+                              cfg.points, cfg.agg.point_features_dim,
+                              color=cloud.get("color"), device=dev)
+    params = init_mlp_params(torch.Generator().manual_seed(1), cfg,
+                             device=dev)
+    grid, _ = refresh_grid(pc, st, cfg)
+    state = create_train_state(torch.Generator(device=dev).manual_seed(2),
+                               params, pc, cfg)
+    batches = [ray_batch_from_numpy(train_ds.get_item(
+        i % len(train_ds), random_sample="random", random_sample_size=60,
+        seed=i), cfg, device=dev) for i in range(2 + N_PROFILED_STEPS)]
+    for b in batches[:2]:
+        state, _it = train_step(state, st, grid, b, cfg)
+    steps = [state]
+
+    def train():
+        for b in batches[2:]:
+            steps[0], _it = train_step(steps[0], st, grid, b, cfg)
+    n = N_PROFILED_STEPS
+    wall, per_kernel, busy = profiled(train)
+    total = report("dataset training", n, cs.N_RAYS, wall, per_kernel, busy)
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k]) for k in ("K3", "K4")}
+    rest = total - sum(parts.values())
+    print("per dataset train step, device ms: " + ", ".join(
+        f"{k} f32 {ms / n:.4f} ({100 * ms / total:.1f}%)"
+        for k, ms in parts.items())
+        + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%); "
+        f"kernel total {total / n:.4f}")
+
+    item = test_ds.get_item(0)
+    chunk = 9216
+    mid = len(item["raydir"]) // 2 - chunk * (N_PROFILED_CHUNKS + 1) // 2
+    p = {"mlp": steps[0].params["mlp"], "points": steps[0].params["points"]}
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    chunks = [RayBatch(campos=t(item["campos"]),
+                       camrotc2w=t(item["camrotc2w"]),
+                       raydir=t(item["raydir"][s:s + chunk]),
+                       pixel_idx=torch.zeros((chunk, 2), dtype=torch.int32,
+                                             device=dev),
+                       near=t(cfg.render.near_plane),
+                       far=t(cfg.render.far_plane))
+              for s in range(mid, mid + chunk * (N_PROFILED_CHUNKS + 1),
+                             chunk)]
+    eval_step(p, st, grid, chunks[0], cfg)
+
+    def evaluate():
+        for b in chunks[1:]:
+            eval_step(p, st, grid, b, cfg)
+    n = N_PROFILED_CHUNKS
+    wall, per_kernel, busy = profiled(evaluate)
+    total = report("dataset eval, per chunk", n, chunk, wall, per_kernel,
+                   busy)
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k]) for k in ("K3", "K2")}
+    rest = total - sum(parts.values())
+    print("per dataset eval chunk (the middle of the test view), device ms: "
+          + ", ".join(f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+                      for k, ms in parts.items())
+          + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%)")
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sections", nargs="+", choices=SECTIONS,
+                    default=list(SECTIONS))
+    sections = ap.parse_args().sections
     import torch
     if not torch.cuda.is_available():
         sys.exit("port_profile: needs a CUDA card")
@@ -113,6 +214,10 @@ def main() -> None:
                                                 eval_step, train_step)
 
     print(f"card: {cs.card_line()}")
+    if "dataset" in sections:
+        dataset_section(cs)
+    if "main" not in sections:
+        return
     cfg = cs.slice_config()
     pc, st, params, grid = cs.make_scene(cfg, torch.device("cuda"))
 

@@ -1,0 +1,257 @@
+"""The JAX package's own default configuration through the port, and the
+card's rule for the kernels (ROADMAP "Rules for the port").
+
+- tiny_test_config() as it is — bucket rows, the shell-layered KNN, the
+  dense decode, both fused flags off — renders and trains as JAX's
+  eval_step / train_step do: integers equal, pixels, the loss and the
+  gradients within 2e-4; and train_scene runs on it.
+- On CUDA the decode takes K3 (and K4 under a gradient) whenever the config
+  lies inside the fused envelope and the kernels' limits, and serving takes
+  K2 whenever it computes the march, whatever the fused flags say; outside
+  the envelope the card runs the unfused torch decode (JAX's XLA branch).
+  On the CPU the flags decide, as in JAX. The card is faked by passing a
+  CUDA device to the route predicates (no card is needed to decide a route).
+- The unfused decode against the fused one's plain version in f32, within
+  2e-4 of scale; in bf16 against JAX's unfused (XLA) decode, at the bf16
+  bar of the plain-vs-JAX decode tests."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointnerf_tpu.config import tiny_test_config
+from pointnerf_tpu.models.aggregator import aggregate as j_aggregate
+from pointnerf_tpu.models.points import SampledPoints as JSP
+from pointnerf_tpu.train import step as js
+from pointnerf_tpu_torch import SliceNotPorted
+from pointnerf_tpu_torch import config as tc
+from pointnerf_tpu_torch.convert import params_from_jax, train_state_from_jax
+from pointnerf_tpu_torch.models import aggregator as ta
+from pointnerf_tpu_torch.models import renderer as tr
+from pointnerf_tpu_torch.models.points import SampledPoints as TSP
+from pointnerf_tpu_torch.ops.fused_march import MAX_C
+from pointnerf_tpu_torch.train import step as ts
+from test_torch_decode import BF16_TOL, _case
+from test_torch_dense import _assert_outputs
+from test_torch_render import (FLOATS, INTS, _render_both,
+                               interpret_pallas)  # noqa: F401
+from test_torch_train import (TOL, _assert_tree_close, _jax_u, _port_st,
+                              _scene, _warm_jax_state)
+
+CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+
+
+def test_eval_step_default_config_matches_jax():
+    """tiny_test_config() unchanged: the bucket / shell-layered query, the
+    dense decode through the unfused branch and the plain march, as JAX
+    runs them."""
+    cfg = tiny_test_config()
+    assert not (cfg.query.prebuild_neighbors or cfg.agg.fused_decode
+                or cfg.render.fused_march) and cfg.query.shell_layered
+    oj, ot = _render_both(cfg)
+    _assert_outputs(oj, ot, [f for f in INTS if f != "decode_dropped"],
+                    FLOATS)
+    assert ot.ray_mask.any() and not ot.ray_mask.all()
+
+
+def test_train_step_default_config_matches_jax():
+    """One train step of tiny_test_config() unchanged (jittered with JAX's
+    draw) from a warm JAX state: loss, every gradient, the Adam moments and
+    the step's counts as JAX's."""
+    cfg = tiny_test_config()
+    pc, st, params, grid, jb, tcfg, tb, tgrid = _scene(cfg)
+    state_np = _warm_jax_state(cfg, params, pc, grid, st, jb)
+    tstate = train_state_from_jax(state_np, torch.Generator(), device="cpu")
+    jstate = jax.tree.map(jnp.asarray, state_np)
+    u = torch.from_numpy(_jax_u(jstate.key, cfg, 64))
+    _key, sub = jax.random.split(jstate.key)
+    (jtot, _ji), jgrads = jax.jit(lambda p, k: jax.value_and_grad(
+        js.loss_fn, has_aux=True)(p, st, grid, jb, cfg, k))(jstate.params, sub)
+    ttot, _ti, tgrads = ts.loss_and_grads(tstate.params, _port_st(st), tgrid,
+                                          tb, tcfg, u=u)
+    np.testing.assert_allclose(ttot.numpy(), np.asarray(jtot), rtol=TOL)
+    _assert_tree_close(tgrads["mlp"], jgrads["mlp"], "mlp grads")
+    for f in ("features", "conf", "color", "dirs"):
+        _assert_tree_close(getattr(tgrads["points"], f),
+                           getattr(jgrads["points"], f), f"{f} grads")
+    jnew, jout = js.train_step(jstate, st, grid, jb, cfg)
+    tnew, tout = ts.train_step(tstate, _port_st(st), tgrid, tb, tcfg, u=u)
+    assert int(tout["n_miss"]) == int(jout["n_miss"])
+    np.testing.assert_allclose(tout["loss_total"].numpy(),
+                               np.asarray(jout["loss_total"]), rtol=TOL)
+    for g in ("mlp", "points"):
+        inner = jnew.opt_state.inner_states[g].inner_state[0]
+        _assert_tree_close(tnew.opt_state[g].mu, inner.mu[g], f"{g} mu")
+
+
+def test_train_scene_runs_the_default_config(tmp_path):
+    """train_scene(tiny_test_config()) on the CPU: the configuration the
+    port refused before runs its schedule to the end."""
+    from pointnerf_tpu_torch.data.synthetic import (ring_cameras, sphere_scene,
+                                                    view_ray_batch)
+    from pointnerf_tpu_torch.train.driver import train_scene
+    cfg = tiny_test_config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=4, prune_iter=2, prune_max_iter=4,
+        test_freq=4, print_freq=1, save_iter_freq=0))
+    xyz, color, normals = sphere_scene(n_pts=600, radius=0.6)
+    views = ring_cameras(n_views=2, wh=(16, 16), focal=20.0)
+
+    def item(step):
+        return view_ray_batch(*views[step % 2], (16, 16), n_rays=64,
+                              seed=step, radius=0.6, view_id=step % 2)
+    state, _st, hist = train_scene(
+        cfg, (xyz, color, normals), item, [view_ray_batch(
+            *views[1], (16, 16), radius=0.6)], [], (16, 16),
+        run_dir=str(tmp_path / "run"), device="cpu")
+    assert int(state.step) == 4 and len(hist["loss"]) == 4
+    assert np.isfinite(hist["eval"][0]["psnr"])
+
+
+def _agg(**kw):
+    return dataclasses.replace(tc.tiny_test_config().agg, **kw)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decode_route_on_the_card(bf16):
+    """decode_takes_kernel: the kernels inside the envelope whatever the
+    flag on CUDA, the flag on the CPU, the unfused decode outside the
+    envelope, and a refusal inside the envelope past the port kernels'
+    limits, whatever the flag."""
+    pick = ta.decode_takes_kernel
+    for flag in (True, False):
+        assert pick(_agg(fused_decode=flag), 4, bf16, CUDA, backward=False)
+        assert pick(_agg(fused_decode=flag), 4, bf16, CUDA, backward=True)
+        assert pick(_agg(fused_decode=flag), 4, bf16, CPU, False) == flag
+        for outside in (dict(act_super=0), dict(act_type="ReLU"),
+                        dict(shading_feature_mlp_layer2=1),
+                        dict(agg_intrp_order=1)):
+            assert not pick(_agg(fused_decode=flag, **outside), 4, bf16,
+                            CUDA, backward=True)
+            assert not pick(_agg(fused_decode=flag, **outside), 4, bf16, CPU,
+                            backward=True)
+    for flag in (True, False):
+        for agg, K in ((_agg(fused_decode=flag, shading_feature_num=512), 4),
+                       (_agg(fused_decode=flag), 6)):
+            for backward in (False, True):
+                with pytest.raises(SliceNotPorted, match="fused envelope"):
+                    pick(agg, K, bf16, CUDA, backward=backward)
+            assert pick(agg, K, bf16, CPU, backward=True) == flag
+
+
+def test_march_route_on_the_card():
+    """march_takes_kernel: K2 for every radiance / alpha render served on
+    CUDA whatever the flag, never in training, the flag on the CPU; past
+    K2's channel limit a refusal on CUDA whatever the flag."""
+    cfg = tc.tiny_test_config()
+    for flag in (True, False):
+        c = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                   fused_march=flag))
+        assert tr.march_takes_kernel(c, CUDA, train=False)
+        assert not tr.march_takes_kernel(c, CUDA, train=True)
+        assert tr.march_takes_kernel(c, CPU, train=False) == flag
+    wide = cfg.replace(agg=dataclasses.replace(
+        cfg.agg, shading_color_channel_num=MAX_C + 1))
+    for flag in (True, False):
+        c = wide.replace(render=dataclasses.replace(wide.render,
+                                                    fused_march=flag))
+        with pytest.raises(SliceNotPorted, match="K2 at C > 8"):
+            tr.march_takes_kernel(c, CUDA, train=False)
+        with pytest.raises(SliceNotPorted, match="K2 at C > 8"):
+            tr.check_envelope(c, CUDA)
+        assert not tr.march_takes_kernel(c, CUDA, train=True)
+        assert tr.march_takes_kernel(c, CPU, train=False) == flag
+    other = cfg.replace(render=dataclasses.replace(
+        cfg.render, which_blend_func="add"))
+    assert not tr.march_takes_kernel(other, CUDA, train=False)
+    with pytest.raises(ValueError, match="fused_march supports only"):
+        tr.march_takes_kernel(other.replace(render=dataclasses.replace(
+            other.render, fused_march=True)), CUDA, train=False)
+
+
+def test_card_route_runs_the_kernels_with_the_flags_off(interpret_pallas,
+                                                        monkeypatch):
+    """A render of tiny_test_config() (flags off) with the route predicates
+    seeing a card calls the decode kernel's and K2's entry points (their
+    plain versions here, on CPU tensors) and gives what the CPU run with
+    the flags set gives, bit for bit."""
+    cfg = tiny_test_config()
+    calls = {"fused_decode": 0, "fused_march": 0}
+    real_dec, real_march = ta.fused_decode, tr.fused_march
+
+    def dec(*a, **k):
+        calls["fused_decode"] += 1
+        return real_dec(*a, **k)
+
+    def march(*a, **k):
+        calls["fused_march"] += 1
+        return real_march(*a, **k)
+    _oj, off = _render_both(cfg)
+    assert calls == {"fused_decode": 0, "fused_march": 0}
+    real_pick_d, real_pick_m = ta.decode_takes_kernel, tr.march_takes_kernel
+    monkeypatch.setattr(ta, "fused_decode", dec)
+    monkeypatch.setattr(tr, "fused_march", march)
+    monkeypatch.setattr(ta, "decode_takes_kernel",
+                        lambda c, K, b, _d, backward: real_pick_d(
+                            c, K, b, CUDA, backward))
+    monkeypatch.setattr(tr, "march_takes_kernel",
+                        lambda c, _d, train: real_pick_m(c, CUDA, train))
+    _oj, card = _render_both(cfg)
+    assert calls["fused_decode"] == 1 and calls["fused_march"] == 1
+    monkeypatch.setattr(ta, "decode_takes_kernel", real_pick_d)
+    monkeypatch.setattr(tr, "march_takes_kernel", real_pick_m)
+    on = cfg.replace(agg=dataclasses.replace(cfg.agg, fused_decode=True),
+                     render=dataclasses.replace(cfg.render, fused_march=True))
+    _oj, flags = _render_both(on)
+    for f in ("coarse_raycolor", "coarse_point_opacity", "coarse_depth",
+              "neighbor_pidx", "ray_mask"):
+        assert torch.equal(getattr(card, f), getattr(flags, f)), f
+    np.testing.assert_allclose(card.coarse_raycolor.numpy(),
+                               off.coarse_raycolor.numpy(), rtol=0,
+                               atol=2e-4)
+
+
+def _features(fused, dtype, seed, K):
+    cfg, params, sp, sl, slw, rd = _case(seed=seed, R=24, SR=10, K=K)
+    c = tc.PointNeRFConfig.from_json(cfg.replace(agg=dataclasses.replace(
+        cfg.agg, fused_decode=fused)).to_json())
+    tp = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    spt = TSP(**{k: torch.from_numpy(v.copy()) for k, v in sp.items()})
+    return ta.aggregate(tp, c.agg, spt, torch.from_numpy(sl.copy()),
+                        torch.from_numpy(slw.copy()),
+                        torch.from_numpy(rd.copy()), c.query.vsize,
+                        Rw2c=torch.eye(3), compute_dtype=dtype).features
+
+
+@pytest.mark.parametrize("K", [4, 8])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_unfused_decode_against_the_fused_plain_version(seed, K):
+    """f32: the unfused branch computes the fused decode's function, within
+    2e-4 of scale of its plain version."""
+    ref = _features(True, torch.float32, seed, K)
+    err = float((_features(False, torch.float32, seed, K) - ref).abs().max())
+    assert err <= TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("K", [4, 8])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_unfused_decode_bf16_matches_jax_unfused(seed, K):
+    """bf16: the port's unfused branch against JAX's unfused (XLA) branch on
+    the same inputs, at the bf16 decode bar of the plain-vs-JAX tests (2e-2
+    of the output scale). Readings on _case inputs (seeds 0-5, K 4 and 8):
+    3.9e-3 to 8.9e-3. The port's f32 decode reads about the same against
+    JAX's bf16 one (5.3e-3 to 8.8e-3): the bar holds the function, not
+    where the two round."""
+    cfg, params, sp, sl, slw, rd = _case(seed=seed, R=24, SR=10, K=K)
+    c = cfg.replace(agg=dataclasses.replace(cfg.agg, fused_decode=False))
+    ref = np.asarray(j_aggregate(
+        params, c.agg, JSP(**{k: jnp.asarray(v.copy()) for k, v in sp.items()}),
+        jnp.asarray(sl.copy()), jnp.asarray(slw.copy()),
+        jnp.asarray(rd.copy()), c.query.vsize, Rw2c=jnp.eye(3),
+        compute_dtype=jnp.bfloat16).features.astype(jnp.float32))
+    got = _features(False, torch.bfloat16, seed, K).float().numpy()
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=BF16_TOL * scale)

@@ -116,13 +116,18 @@ def _bwd_case(K, bf16, seed):
     rng = np.random.RandomState(9)
     gf = rng.normal(0, 1, (M // K, tspec.H)).astype(np.float32)
     ga = rng.normal(0, 1, (M // K, 1)).astype(np.float32)
+    # JAX and torch each get their own copy of every input (jnp.asarray and
+    # torch.from_numpy would both alias the numpy buffers: JAX does so for
+    # 64-byte-aligned ones, which depends on the heap an earlier test left),
+    # and JAX's gradients are complete before the port computes
     _, vjp = jax.vjp(lambda a, b, c, d, p: j_fused_decode(a, b, c, d, p,
                                                           jspec),
-                     *[jnp.asarray(a) for a in ins], sub)
-    gj = vjp((jnp.asarray(gf), jnp.asarray(ga)))
+                     *[jnp.array(a, copy=True) for a in ins], sub)
+    gj = jax.block_until_ready(vjp((jnp.array(gf, copy=True),
+                                    jnp.array(ga, copy=True))))
     tp = params_from_jax(jax.tree.map(np.asarray, sub), device="cpu")
-    return ([torch.from_numpy(a) for a in ins], tp, tspec,
-            torch.from_numpy(gf), torch.from_numpy(ga), gj)
+    return ([torch.tensor(a) for a in ins], tp, tspec, torch.tensor(gf),
+            torch.tensor(ga), gj)
 
 
 def _rel_errs(t_grads, j_grads):

@@ -1,5 +1,6 @@
 """The port package stands alone: importing it pulls in neither JAX nor the
-JAX package (checked in a subprocess, since this process has imported JAX
+JAX package, nor an image library (imageio, cv2, PIL: the card host has
+none; checked in a subprocess, since this process has imported them
 already), every kernel module imports without nvcc or a card, entry points
 default to the card and raise without one, and CPU tensors take the plain
 versions without a build."""
@@ -28,7 +29,10 @@ MODULES = [
     "pointnerf_tpu_torch.utils.visualizer",
     "pointnerf_tpu_torch.train.sampler", "pointnerf_tpu_torch.train.grow",
     "pointnerf_tpu_torch.train.checkpoint",
-    "pointnerf_tpu_torch.train.driver",
+    "pointnerf_tpu_torch.train.driver", "pointnerf_tpu_torch.presets",
+    "pointnerf_tpu_torch.eval_cli", "pointnerf_tpu_torch.data",
+    "pointnerf_tpu_torch.data.ply", "pointnerf_tpu_torch.data.procedural",
+    "pointnerf_tpu_torch.data.nerf_synth", "pointnerf_tpu_torch.ops.voxel",
 ]
 
 
@@ -48,6 +52,26 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'pointnerf_tpu' or m.startswith('pointnerf_tpu.'))\n"
+        "print('BAD', bad)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+@pytest.mark.parametrize("library", ["imageio", "cv2", "PIL"])
+def test_import_pulls_in_no_image_library(library):
+    """Neither importing the port nor reading and writing a PNG through it
+    loads an image library: the card host has none."""
+    code = (
+        "import importlib, sys, tempfile, os\n"
+        "import numpy as np\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from pointnerf_tpu_torch.utils.visualizer import read_png, write_png\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'x.png')\n"
+        "write_png(p, np.zeros((4, 5, 3), np.uint8)); read_png(p)\n"
+        f"bad = sorted(m for m in sys.modules if m == {library!r} or "
+        f"m.startswith({library + '.'!r}))\n"
         "print('BAD', bad)\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr

@@ -162,17 +162,21 @@ def test_out_of_slice_configs_raise():
     tr.check_envelope(cfg, torch.device("cuda"), train=True)
     tr.check_envelope(cfg.replace(render=dataclasses.replace(
         cfg.render, fused_march=False)), torch.device("cuda"), train=True)
-    # on the card the unfused formulations are refused, never run plain
-    with pytest.raises(NotImplementedError, match="unfused decode"):
-        tr.check_envelope(plain, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="unfused decode"):
-        tr.check_envelope(plain, torch.device("cuda"), train=True)
-    # past K3's own limits the card refuses up front, naming the slice
+    # on the card the kernels run inside the fused envelope whatever the
+    # flags say, so the flags-off config is accepted there too
+    tr.check_envelope(plain, torch.device("cuda"))
+    tr.check_envelope(plain, torch.device("cuda"), train=True)
+    # past K3's own limits the card refuses up front, naming the slice,
+    # whatever the flag: inside the envelope the card never runs the
+    # kernel's plain twin
     tr.check_envelope(cfg, torch.device("cuda"))
     wide = cfg.replace(agg=dataclasses.replace(cfg.agg,
                                                shading_feature_num=512))
-    with pytest.raises(NotImplementedError, match="decode envelope"):
+    with pytest.raises(NotImplementedError, match="fused envelope"):
         tr.check_envelope(wide, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="fused envelope"):
+        tr.check_envelope(wide.replace(agg=dataclasses.replace(
+            wide.agg, fused_decode=False)), torch.device("cuda"))
     # the f32 K4 keeps every layer's input of a tile in shared memory:
     # eight 256-wide layers fit K3 but not K4, so in f32 the card serves
     # them and refuses to train them; the bf16 (tensor-core) K4 keeps the
@@ -186,7 +190,7 @@ def test_out_of_slice_configs_raise():
     deep32 = deep.replace(train=dataclasses.replace(deep.train,
                                                     compute_dtype="f32"))
     tr.check_envelope(deep32, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match=r"K3, K4.*decode envelope"):
+    with pytest.raises(NotImplementedError, match=r"K3, K4.*fused envelope"):
         tr.check_envelope(deep32, torch.device("cuda"), train=True)
     tr.check_envelope(deep, torch.device("cuda"), train=True)
 
