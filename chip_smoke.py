@@ -93,7 +93,13 @@ Phases:
      equals the saved one; the two PSNRs agree within 0.01 dB. K3 f32 and
      K4 f32 are then held against their plain versions (2e-4 of scale) on
      a recorded train step (M = 2,304,000 rows) and K3 f32 on a recorded
-     eval chunk (M = 5,898,240), with times and bounds;
+     eval chunk (M = 5,898,240), with times, bounds and shares of the
+     bound; two K4 f32 calls must give the same bits; the kernels'
+     live-group list must equal its plain version, and the rows with
+     weight, the live groups x K (the rows the f32 kernels decode) and the
+     rows of 64-row tiles with a weighted row (what a test per tile would
+     decode) are printed for the step and the chunk, and the f32 times
+     beside the first f32 kernels' readings (FIRST_F32_MS);
  11. the query branches: 512 rays of the test view through every ray
      generator (and the jittered ones from one shared draw) and every KNN
      branch (bucket rows or prebuilt tables; K nearest, shell-layered, the
@@ -1825,24 +1831,61 @@ def tempfile_dir(parent: str):
         yield d
 
 
+def live_counts(w, K: int, g_fagg=None, g_alpha=None):
+    """The f32 kernels' live-group list (the list pass alone, K3's rule or,
+    given the upstream gradients, K4's) held against live_groups_plain bit
+    for bit; returns (rows with weight, live groups x K, 64-row tiles with a
+    weighted row): the rows a kernel must compute, the rows the f32 kernels
+    compute, and the rows a test per tile would compute."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (F32_ROWS, live_groups,
+                                                      live_groups_plain)
+    got = live_groups(w, K, g_fagg, g_alpha)
+    want = live_groups_plain(w, K, g_fagg, g_alpha)
+    if not torch.equal(got, want):
+        fail(f"the live-group list ({got.numel()} groups) differs from its "
+             f"plain version ({want.numel()})")
+    row = (w != 0).view(-1)
+    pad = (-row.numel()) % F32_ROWS
+    tiles = int(torch.nn.functional.pad(row, (0, pad)).view(-1, F32_ROWS)
+                .any(1).sum())
+    return int(row.sum()), got.numel() * K, tiles * F32_ROWS
+
+
+# readings of the first f32 kernels (no live list) on the dataset path, on
+# an H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's
+FIRST_F32_MS = {"K3 f32, train step": 94.1594, "K3 f32, eval chunk": 242.2127,
+                "K4 f32, train step": 295.6045}
+
+
 def check_f32_decode(fwd_cases, bwd_args):
     """K3 f32 on each (label, args) of `fwd_cases` and K4 f32 on `bwd_args`
     against their plain versions (K3 within K3_F32_TOL of max|plain|, K4
-    each gradient within K4_F32_TOL of its max|plain|), with times, the
-    plain versions' times and the bounds. Returns {label: numbers} for K3
-    and the numbers of K4."""
+    each gradient within K4_F32_TOL of its max|plain|, and the same bits in
+    two K4 calls), with times, the plain versions' times and the bounds, and
+    the live rows, groups and tiles of each input. Returns {label: numbers}
+    for K3 and the numbers of K4."""
     import torch
     from pointnerf_tpu_torch.ops.fused_decode import (flops, fused_decode,
                                                       fused_decode_bwd,
                                                       fused_decode_bwd_plain,
                                                       fused_decode_plain,
                                                       param_count)
+
+    def live_log(what, M, counts):
+        rows, grouped, tiled = counts
+        log(f"{what}, M={M}: {rows} rows carry weight; live groups x K = "
+            f"{grouped} rows decoded ({grouped / M:.4%}); 64-row tiles with "
+            f"a weighted row = {tiled} rows ({tiled / M:.4%})")
+
     k3 = {}
     for label, args in fwd_cases:
         feat, dists, extras, w, params, spec = args
         if spec.bf16:
             fail(f"the recorded {label} decode is not on the f32 route")
         M = feat.shape[0]
+        counts = live_counts(w, spec.K)
+        live_log(f"K3 f32 live list, {label}", M, counts)
         with torch.no_grad():
             out = fused_decode(feat, dists, extras, w, params, spec)
             plain = fused_decode_plain(feat, dists, extras, w, params, spec)
@@ -1851,7 +1894,7 @@ def check_f32_decode(fwd_cases, bwd_args):
             err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
             del out, plain
             ms = cuda_ms(lambda: fused_decode(feat, dists, extras, w, params,
-                                              spec), iters=3, warmup=1)
+                                              spec), iters=5, warmup=1)
             plain_ms = cuda_ms(lambda: fused_decode_plain(
                 feat, dists, extras, w, params, spec), iters=2, warmup=1)
         rows = int((w != 0).sum())
@@ -1863,32 +1906,42 @@ def check_f32_decode(fwd_cases, bwd_args):
         log(f"K3 f32 (cuda_core kernel), {label}, M={M} H={spec.H}: max abs "
             f"err {err:.3e}, scale {scale:.3e} (tolerance {K3_F32_TOL} x "
             f"scale); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b:.4f} ms ({by}: {rows} of {M} rows carry weight)")
+            f"{b:.4f} ms ({by}: {rows} of {M} rows carry weight), "
+            f"{b / ms:.2%} of the bound; "
+            f"{flops(counts[1], spec) / ms / 1e9:.2f} TFLOP/s on the "
+            f"{counts[1]} rows it computes")
         if not err <= K3_F32_TOL * scale:
             fail(f"K3 (f32) disagrees with its plain version on the {label}")
         k3[label] = {"M": M, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None}
+                     "library_ms": None, "live_rows": counts[0],
+                     "live_group_rows": counts[1],
+                     "live_tile_rows": counts[2]}
 
     feat, dists, extras, w, params, spec, g_fagg, g_alpha = bwd_args
     M = feat.shape[0]
+    counts = live_counts(w, spec.K, g_fagg, g_alpha)
+    live_log("K4 f32 live list, train step", M, counts)
     with torch.no_grad():
         names, out = decode_grad_leaves(fused_decode_bwd(
             feat, dists, extras, w, params, spec, g_fagg, g_alpha))
         _, plain = decode_grad_leaves(fused_decode_bwd_plain(
             feat, dists, extras, w, params, spec, g_fagg, g_alpha))
+        _, again = decode_grad_leaves(fused_decode_bwd(
+            feat, dists, extras, w, params, spec, g_fagg, g_alpha))
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
         rel, abs_err = [], 0.0
         for a, p in zip(out, plain):
             s = float(p.abs().max())
             e = float((a - p).abs().max())
             abs_err = max(abs_err, e)
             rel.append(e / s if s > 0 else (0.0 if e == 0 else float("inf")))
-        del out, plain
+        del out, plain, again
         worst = max(range(len(rel)), key=rel.__getitem__)
         ms = cuda_ms(lambda: fused_decode_bwd(feat, dists, extras, w, params,
                                               spec, g_fagg, g_alpha),
-                     iters=3, warmup=1)
+                     iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: fused_decode_bwd_plain(
             feat, dists, extras, w, params, spec, g_fagg, g_alpha),
             iters=2, warmup=1)
@@ -1903,11 +1956,20 @@ def check_f32_decode(fwd_cases, bwd_args):
     log(f"K4 f32 (cuda_core kernel), train step, M={M} H={spec.H}: max abs "
         f"err {abs_err:.3e}, worst relative {rel[worst]:.3e} ({names[worst]}, "
         f"tolerance {K4_F32_TOL}); time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b:.4f} ms ({by}: {rows} of {M} rows carry weight)")
+        f"bound {b:.4f} ms ({by}: {rows} of {M} rows carry weight), "
+        f"{b / ms:.2%} of the bound; "
+        f"{3 * flops(counts[1], spec) / ms / 1e9:.2f} TFLOP/s on the "
+        f"{counts[1]} rows it computes")
+    log(f"K4 f32: two calls on the same inputs give the same bits in every "
+        f"gradient: {same}")
     if not rel[worst] <= K4_F32_TOL:
         fail("K4 (f32) disagrees with its plain version on the train step")
+    if not same:
+        fail("K4 (f32) is not deterministic run to run")
     k4 = {"M": M, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": b, "bound_by": by, "library_ms": None}
+          "bound_ms": b, "bound_by": by, "library_ms": None,
+          "live_rows": counts[0], "live_group_rows": counts[1],
+          "live_tile_rows": counts[2]}
     return k3, k4
 
 
@@ -2284,6 +2346,13 @@ def main() -> None:
                                    "eval_chunk": f32_k3["eval chunk"],
                                    "bench_request": k3["f32"]}
     results["fused_decode_bwd_f32"] = {**f32_k4, "bench_step": k4["f32"]}
+    now = {"K3 f32, train step": f32_k3["train step"]["ms"],
+           "K3 f32, eval chunk": f32_k3["eval chunk"]["ms"],
+           "K4 f32, train step": f32_k4["ms"]}
+    log("f32 route on the dataset path, this run vs the first f32 kernels "
+        "(PERF.md §6): " + "; ".join(
+            f"{k} {now[k]:.4f} ms vs {v:.4f} ms ({v / now[k]:.1f}x)"
+            for k, v in FIRST_F32_MS.items()))
     paths = {"serve": (serve_counts, serve_routes),
              "train": (train_counts, train_routes),
              "maintenance": (maint_counts, maint_routes),
@@ -2302,8 +2371,9 @@ def main() -> None:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for k in ("host_us", "run_stats", "gemm_chain_ms", "M",
-                  "eval_chunk", "bench_request", "bench_step"):
+        for k in ("host_us", "run_stats", "gemm_chain_ms", "M", "live_rows",
+                  "live_group_rows", "live_tile_rows", "eval_chunk",
+                  "bench_request", "bench_step"):
             if k in r:
                 row[k] = r[k]
         # the same comparison and timing on the maintenance path's dense

@@ -1,9 +1,10 @@
-// K4: fused decode backward.
+// K4: fused decode backward, f32 route, on the CUDA cores.
 //
 // Replaces: pointnerf_tpu/ops/pallas_decode.py::fused_decode, backward
-// (_bwd_rule -> pallas_call of _bwd_kernel), reached from
+// (_bwd_rule :430 -> pallas_call at :467 of _bwd_kernel), reached from
 // pointnerf_tpu/models/aggregator.py::aggregate when the model trains with
-// agg.fused_decode set.
+// agg.fused_decode set, for DecodeSpec with bf16 unset. The bf16 route, with
+// the JAX kernel's rounding points, is csrc/fused_decode_bwd_tc.cu.
 //
 // Function, per neighbor row m of M rows (g = m / K its shading point):
 //   recompute the forward of K3 (x = [feat | PE(feat) | PE(dists)], block1,
@@ -16,303 +17,214 @@
 //   db += g_z, dW += act^T g_z, g_h = g_z W^T; g_extras from the block3 input
 //   slice, and the PE backward to g_feat and g_dists in the interleaved
 //   (sin, cos) per (channel, freq) layout of ops/pe.py, so the first block1
-//   dW comes out in the JAX parameter layout.
-// This is the f32 route (`spec.bf16` false): no value is rounded. The bf16
-// route, with the JAX kernel's rounding points, is
-// csrc/fused_decode_bwd_tc.cu.
+//   dW comes out in the JAX parameter layout. No value is rounded: every
+//   product is an exact f32 FMA on the CUDA cores.
 //
-// Bound on the H100: operations. A row costs the forward again (~0.54 MFLOP
-// at bench_config) plus as much for dW and for the input gradients, ~1.63
-// MFLOP; M = 290,816 rows is ~473 GFLOP: ~7 ms at the 67 TFLOP/s f32
-// CUDA-core peak.
+// Bound on the H100: operations, 3 x K3's (the forward again, g_h = g_z W^T
+// and dW), counted on the rows that carry a weight, at the 67 TFLOP/s f32
+// CUDA-core peak. bench_config: 131,099 of 290,816 rows, ~213 GFLOP,
+// 3.19 ms. The dataset path's train step at scene_config() (PERF.md §6):
+// 25,666 of 2,304,000 rows, 41.8 GFLOP, 0.62 ms. Bytes: the weighted rows'
+// inputs and every row gradient (written for all M rows) once, under these.
 //
-// Design (a simple kernel on CUDA cores, f32 FMA): persistent CTAs of 256
-// threads, as many as fit on the card at once, each walking tiles of 32 rows
-// (tile = blockIdx.x, += gridDim.x). A tile keeps every layer's input
-// activations, the last hidden layer (then its gradient), the input-gradient
-// buffer and the z-sign bitmasks in shared memory (~209 KB at bench_config);
-// nothing per row goes to device memory except the row gradients. Each CTA
-// accumulates dW/db/dwa/dba for its tiles in its own f32 slice of a
-// workspace (no atomics), and a second launch sums the slices in CTA order,
-// so the result is deterministic run to run on a given card.
-// The products are register-tiled: in the row-parallel ones (the forward
-// again and g_h = g_z W^T) a thread owns 8 rows x 4 columns and reads 4
-// weight rows as float4 per step, the 32 lanes of a warp sharing their rows
-// so each activation read is a shared-memory broadcast; in dW a thread owns
-// 4 input rows x 8 columns and sums over the tile's 32 rows. Layer widths are
-// padded to a multiple of 4 in shared memory and in the weights the wrapper
-// passes (zero rows of W, zero columns of W^T). Tensor cores are later work.
-#include <cuda_runtime.h>
-#include <math.h>
+// Design, on the caller's stream:
+//  0. the live-group list (csrc/decode_live.cuh) with K4's rule: a group is
+//     live when a weight or its upstream gradient is nonzero. The pass
+//     writes zeros into a dead group's row gradients; the live rows (the
+//     live groups' K rows each, in list order) are what the phases visit.
+//  A. fused_decode_bwd_f32_rows: persistent CTAs of 256 threads walk tiles
+//     of 64 live rows, gathered from the list with size_t indexing. A tile
+//     recomputes the forward as K3 does (activations transposed in shared
+//     memory, each layer a register-tiled product whose weights stream
+//     through a 3-stage cp.async ring of 8-row chunks) and keeps each
+//     layer's z signs as bits; it writes every layer's input to a scratch
+//     buffer in device memory. Then the alpha head and g_w, g_za; the chain g_z -> g_h =
+//     g_z W^T layer by layer, the same products with W^T streamed through
+//     the ring in column blocks of 256, each g_z written to scratch; g_extras;
+//     the PE backward. The tile's db, dwa and dba sums go to its own slice.
+//  B. fused_decode_bwd_f32_dw: dW_l = act_l^T g_z_l as a split-K product
+//     over the scratch rows: CTA (64 input rows of layer l, split s) sums the
+//     32-row chunks s, s + S, ... in order, staged through shared memory
+//     with cp.async, into its own f32 partial.
+//  C. fused_decode_bwd_f32_reduce sums the S partials of dW and the live
+//     tiles' slices of db/dwa/dba, each in a fixed order.
+// The scratch holds at most `cap` rows (f32, every layer's padded input and
+// every g_z: 8,336 bytes a row at scene_config), so A and B run in batches
+// of cap rows, as many as M rows could need; a batch past the live rows
+// exits at once. Nothing is summed with atomics: dW, db, dwa, dba and every
+// row gradient are the same bits run to run on a given card. No dW slice
+// is read and written per tile: phase B reads each scratch row a few times
+// (once per 64 inputs of its layer) and writes each partial once a batch.
+#include "decode_f32.cuh"
+#include "decode_live.cuh"
 
 namespace {
 
-constexpr int kRows = 32;          // rows per tile
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kMaxLayers = 8;
+using namespace df32;
 
-struct Net {
-  const float* W[kMaxLayers];   // [inp, H], zero rows past in
-  const float* WT[kMaxLayers];  // [H, inp], the same weights transposed
-  const float* b[kMaxLayers];
-};
+constexpr int kKC = 8;      // phase A: weight rows per ring chunk
+constexpr int kStages = 3;  // phase A: ring depth
+constexpr int kKB = 32;   // phase B: scratch rows per staged chunk
+constexpr int kBI = 64;   // phase B: dW rows (layer inputs) per CTA
 
-struct Dims {
-  int M, Fi, Dd, E, Ff, Fd, H, K, L1, L3, x1;
-  int in[kMaxLayers];       // input width of each layer
-  int inp[kMaxLayers];      // the same rounded up to 4 (row strides)
-  int act_off[kMaxLayers];  // per-row float offset of each layer's input
-  int sum_in;               // per-row floats of all padded layer inputs
-  int gx_stride;            // widest padded layer input
-  int pw[kMaxLayers];       // workspace offsets of dW, db per layer
-  int pb[kMaxLayers];
-  int pwa, pba, P;          // dwa, dba, floats of dW/db/dwa/dba
-  int Ps;                   // P rounded up to 4: the stride of CTA slices
-};
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+size_t smem_a(const Dims& d) {
+  return sizeof(float) * ((size_t)(d.kmax + d.H) * kLds +
+                          (size_t)d.L * kRows * (d.H / 32) +
+                          (size_t)kStages * kKC * kBN + 3 * kRows);
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+size_t smem_b() { return sizeof(float) * 2 * (size_t)kKB * (kBI + kBN); }
+
+// floats of one tile's db/dwa/dba slice
+__host__ __device__ inline int slice_floats(const Dims& d) {
+  return d.L * d.H + d.H + 1;
 }
 
-// acc[r][j] = sum_{k < kdim} A[r0 + r][k] * B[k][c0 + j] for the thread's 8
-// rows and 4 columns. A in shared memory (row stride lda), B in device
-// memory (row stride ldb); kdim, lda, ldb and c0 are multiples of 4. The
-// next 4 rows of B are loaded while the current 4 are used.
-__device__ __forceinline__ void mm_8x4(const float* __restrict__ A, int lda,
-                                       int kdim, const float* __restrict__ B,
-                                       int ldb, int r0, int c0,
-                                       float acc[8][4]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-  const float* Ar = A + r0 * lda;
-  const float* Bc = B + c0;
-  float4 b[4], bn[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    b[q] = __ldg(reinterpret_cast<const float4*>(Bc + (size_t)q * ldb));
-  for (int k = 0; k < kdim; k += 4) {
-    if (k + 4 < kdim) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        bn[q] = __ldg(reinterpret_cast<const float4*>(
-            Bc + (size_t)(k + 4 + q) * ldb));
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float4 a = ld4(Ar + r * lda + k);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[r][0] = fmaf(av[q], b[q].x, acc[r][0]);
-        acc[r][1] = fmaf(av[q], b[q].y, acc[r][1]);
-        acc[r][2] = fmaf(av[q], b[q].z, acc[r][2]);
-        acc[r][3] = fmaf(av[q], b[q].w, acc[r][3]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = bn[q];
+// phase B's CTAs along x: ceil(in_l / kBI) for each layer
+inline int dw_blocks(const Dims& d) {
+  int n = 0;
+  for (int l = 0; l < d.L; ++l) n += (d.in[l] + kBI - 1) / kBI;
+  return n;
+}
+
+// float offset of layer l's scratch inputs ([cap][kq_l], layer after layer)
+__device__ __forceinline__ size_t act_at(const Dims& d, int l, int cap) {
+  size_t o = 0;
+  for (int j = 0; j < l; ++j) o += d.kq[j];
+  return o * cap;
+}
+
+// rows x 4*n4 floats of the transposed tile S (element (r, c) at
+// S[c * kLds + r]) to dst, row r at dst + r * ld; consecutive threads take
+// consecutive rows, so the shared-memory reads do not conflict
+__device__ __forceinline__ void store_rows(const float* S, int n4, float* dst,
+                                           int ld) {
+  for (int i = threadIdx.x; i < kRows * n4; i += kThreads) {
+    const int q = i / kRows, r = i - q * kRows;
+    const float* s = S + 4 * q * kLds + r;
+    *reinterpret_cast<float4*>(dst + (size_t)r * ld + 4 * q) =
+        make_float4(s[0], s[kLds], s[2 * kLds], s[3 * kLds]);
   }
 }
 
-// One forward layer for the tile: out[r][c] = act(in[r] @ W[:, c] + b[c]),
-// c < H; the sign of each pre-activation is or-ed into
-// mask_s[r][c / 32] bit c % 32 (cleared by the caller).
-__device__ __forceinline__ void forward_layer(const float* __restrict__ in_s,
-                                              int inp,
-                                              const float* __restrict__ W,
-                                              const float* __restrict__ bias,
-                                              int H, float* __restrict__ out_s,
-                                              int ostride,
-                                              unsigned* __restrict__ mask_s,
-                                              float slope) {
-  const int r0 = (threadIdx.x >> 6) * 8;
-  const int c0 = (threadIdx.x & 63) * 4;
-  if (c0 >= H) return;
-  float acc[8][4];
-  mm_8x4(in_s, inp, inp, W, H, r0, c0, acc);
-  const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c0));
-  const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-  const int HW = H >> 5;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    float o[4];
-    unsigned bits = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float z = acc[r][j] + bj[j];
-      bits |= (z > 0.f ? 1u : 0u) << j;
-      o[j] = z > 0.f ? z : z * slope;
-    }
-    st4(out_s + (r0 + r) * ostride + c0, make_float4(o[0], o[1], o[2], o[3]));
-    atomicOr(mask_s + (r0 + r) * HW + (c0 >> 5), bits << (c0 & 31));
-  }
+__device__ __forceinline__ bool zsign(const unsigned* masks, int HW, int l,
+                                      int r, int c) {
+  return (masks[(l * kRows + r) * HW + (c >> 5)] >> (c & 31)) & 1u;
 }
 
-// gx[r][c] = sum_{k < H} g[r][k] * WT[k][c] for c < inp (g_h = g_z W^T)
-__device__ __forceinline__ void input_grad(const float* __restrict__ g_s,
-                                           int H, const float* __restrict__ WT,
-                                           int inp, float* __restrict__ gx_s,
-                                           int gx_stride) {
-  const int r0 = (threadIdx.x >> 6) * 8;
-  for (int c0 = (threadIdx.x & 63) * 4; c0 < inp; c0 += 256) {
-    float acc[8][4];
-    mm_8x4(g_s, H, H, WT, inp, r0, c0, acc);
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      st4(gx_s + (r0 + r) * gx_stride + c0,
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
-  }
-}
-
-// this CTA's dW[k][c] (+)= sum_r act[r][k] * g[r][c] over the tile, for the
-// layer's kin real input rows (act padded to row stride inp)
-__device__ __forceinline__ void accum_dw(const float* __restrict__ act_s,
-                                         int inp, int kin,
-                                         const float* __restrict__ g_s, int H,
-                                         float* __restrict__ pw, bool first) {
-  const int c0 = (threadIdx.x & 31) * 8;
-  if (c0 >= H) return;
-  for (int k0 = (threadIdx.x >> 5) * 4; k0 < kin; k0 += 32) {
-    float acc[4][8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[q][j] = 0.f;
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = ld4(act_s + r * inp + k0);
-      const float4 g0 = ld4(g_s + r * H + c0);
-      const float4 g1 = ld4(g_s + r * H + c0 + 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[q][j] = fmaf(av[q], gv[j], acc[q][j]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (k0 + q >= kin) break;
-      float* p = pw + (size_t)(k0 + q) * H + c0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float4 v = make_float4(acc[q][4 * h], acc[q][4 * h + 1],
-                               acc[q][4 * h + 2], acc[q][4 * h + 3]);
-        if (!first) {
-          const float4 o = ld4(p + 4 * h);
-          v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-        }
-        st4(p + 4 * h, v);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void accum(float* p, float v, bool first) {
-  *p = first ? v : *p + v;
-}
-
+// Phase A for tiles t0 + blockIdx.x, + gridDim.x, ... below t1 and the
+// live rows' tiles. act/gz: the batch's scratch (row (t - t0) * 64 + r).
 __global__ void __launch_bounds__(kThreads, 1)
-fused_decode_bwd_kernel(const float* __restrict__ feat,
-                        const float* __restrict__ dists,
-                        const float* __restrict__ extras,
-                        const float* __restrict__ w, Net net,
-                        const float* __restrict__ wa,
-                        const float* __restrict__ ba,
-                        const float* __restrict__ gf,
-                        const float* __restrict__ ga, Dims d, float slope,
-                        float* __restrict__ g_feat,
-                        float* __restrict__ g_dists,
-                        float* __restrict__ g_extras,
-                        float* __restrict__ g_w, float* __restrict__ partials) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int L = d.L1 + d.L3;
-  const int M = d.M, Fi = d.Fi, Dd = d.Dd, E = d.E, Ff = d.Ff, Fd = d.Fd;
-  const int H = d.H, HW = d.H / 32, K = d.K, gxs = d.gx_stride;
-  const int s0 = d.inp[0], s3 = d.inp[d.L1];
-  float* X = smem;                                // layer 0 input
-  float* X3 = smem + kRows * d.act_off[d.L1];     // block3 input
-  float* G = smem + kRows * d.sum_in;             // [kRows][H]
-  float* GX = G + kRows * H;                      // [kRows][gxs]
-  unsigned* masks = reinterpret_cast<unsigned*>(GX + kRows * gxs);
-  float* wr_s = reinterpret_cast<float*>(masks + L * kRows * HW);
-  float* gza_s = wr_s + kRows;
-  float* part = partials + (size_t)blockIdx.x * d.Ps;
-  const int ntiles = (M + kRows - 1) / kRows;
+fused_decode_bwd_f32_rows(
+    const float* __restrict__ feat, const float* __restrict__ dists,
+    const float* __restrict__ extras, const float* __restrict__ w,
+    const float* __restrict__ W, const float* __restrict__ bias,
+    const float* __restrict__ wa, const float* __restrict__ ba,
+    const float* __restrict__ gf, const float* __restrict__ ga, Dims d,
+    float slope, const int* __restrict__ list, const int* __restrict__ count,
+    int t0, int t1, int cap, float* __restrict__ g_feat,
+    float* __restrict__ g_dists, float* __restrict__ g_extras,
+    float* __restrict__ g_w, float* __restrict__ act, float* __restrict__ gz,
+    float* __restrict__ slices) {
+  extern __shared__ __align__(16) float smem[];
+  float* X = smem;                        // [kmax][kLds]: acts, then g_h
+  float* Gz = X + d.kmax * kLds;          // [H][kLds]: a layer's g_z
+  unsigned* masks = reinterpret_cast<unsigned*>(Gz + d.H * kLds);
+  float* ring = reinterpret_cast<float*>(masks + d.L * kRows * (d.H / 32));
+  float* w_s = ring + kStages * kKC * kBN;  // [kRows]
+  float* gza_s = w_s + kRows;               // [kRows]
+  int* m_s = reinterpret_cast<int*>(gza_s + kRows);  // [kRows], -1: none
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = d.H, K = d.K, L = d.L, HW = d.H / 32;
+  const int Fi = d.Fi, Dd = d.Dd, E = d.E, Ff = d.Ff, Fd = d.Fd;
+  const int nrows = *count * K;
+  const int ntiles = (nrows + kRows - 1) / kRows;
+  const int tend = t1 < ntiles ? t1 : ntiles;
+  const int r0 = tile_r0(), c0 = tile_c0();
+  zero_tile(X, d.kmax);
 
-  // the padding columns of the layer inputs are never written: zero them
-  // once (the padded weight rows are zero, but 0 * garbage need not be)
-  for (int l = 0; l < L; ++l)
-    for (int i = tid; i < kRows * (d.inp[l] - d.in[l]); i += kThreads) {
-      const int pad = d.inp[l] - d.in[l];
-      smem[kRows * d.act_off[l] + (i / pad) * d.inp[l] + d.in[l] + i % pad] =
-          0.f;
-    }
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const bool first = tile == (int)blockIdx.x;
-    const int row0 = tile * kRows;
-
-    // x = [feat | PE(feat) | PE(dists)] and the extras of the block3 input
-    for (int i = tid; i < kRows * d.x1; i += kThreads) {
-      const int r = i / d.x1, c = i - r * d.x1;
-      const int m = row0 + r;
-      float v = 0.f;
-      if (m < M) {
-        if (c < Fi) {
-          v = feat[(size_t)m * Fi + c];
-        } else if (c < Fi + 2 * Ff * Fi) {
-          const int q = c - Fi;  // (ch * Ff + f) * 2 + s
-          const int ch = q / (2 * Ff), f = (q >> 1) % Ff;
-          const float base = feat[(size_t)m * Fi + ch] * (float)(1 << f);
-          v = (q & 1) ? cosf(base) : sinf(base);
-        } else if (Fd > 0) {
-          const int q = c - Fi - 2 * Ff * Fi;
-          const int ch = q / (2 * Fd), f = (q >> 1) % Fd;
-          const float base = dists[(size_t)m * Dd + ch] * (float)(1 << f);
-          v = (q & 1) ? cosf(base) : sinf(base);
-        } else {
-          v = dists[(size_t)m * Dd + (c - Fi - 2 * Ff * Fi)];
-        }
-      }
-      X[r * s0 + c] = v;
-    }
-    for (int i = tid; i < kRows * E; i += kThreads) {
-      const int r = i / E, c = i - r * E;
-      const int m = row0 + r;
-      X3[r * s3 + H + c] =
-          m < M ? extras[(size_t)m * E + c] : 0.f;
+  for (int t = t0 + blockIdx.x; t < tend; t += gridDim.x) {
+    const size_t jb = (size_t)(t - t0) * kRows;  // the tile's scratch row
+    float* slice = slices + (size_t)t * slice_floats(d);
+    for (int c = 0; c < kStages - 1; ++c)
+      issue_chunk<kKC, kStages>(d, W, c, true, ring);
+    for (int r = tid; r < kRows; r += kThreads) {
+      const int j = t * kRows + r;
+      const int m = j < nrows ? list[j / K] * K + j % K : -1;
+      m_s[r] = m;
+      w_s[r] = m >= 0 ? w[m] : 0.f;
     }
     for (int i = tid; i < L * kRows * HW; i += kThreads) masks[i] = 0u;
     __syncthreads();
+    build_x(d, feat, dists, m_s, X);
+    __syncthreads();
+    store_rows(X, d.kq[0] / 4, act + jb * d.kq[0], d.kq[0]);
 
-    // forward recompute: layer l reads act[l] and writes act[l + 1] (the
-    // last layer writes G)
+    // forward recompute; layer l's output overwrites its input in place
+    float acc[8][8];
+    int c = 0;
     for (int l = 0; l < L; ++l) {
-      float* in_s = smem + kRows * d.act_off[l];
-      float* out_s = l + 1 < L ? smem + kRows * d.act_off[l + 1] : G;
-      const int ostride = l + 1 < L ? d.inp[l + 1] : H;
-      forward_layer(in_s, d.inp[l], net.W[l], net.b[l], H, out_s, ostride,
-                    masks + l * kRows * HW, slope);
+      c = forward_product<kKC, kStages>(d, W, l, c, true, X, ring, acc, r0,
+                                        c0);
+      __syncthreads();  // every warp has read this layer's input
+      const float* bl = bias + l * H;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = tile_col(c0, j);
+        const float bj = col < H ? __ldg(bl + col) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] += bj;
+      }
+      // the z signs: 8 lanes (lane & 7) share each row's 32-column word
+      unsigned* ml = masks + l * kRows * HW;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        unsigned b0 = 0, b1 = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b0 |= (acc[i][j] > 0.f ? 1u : 0u) << ((lane & 7) * 4 + j);
+          b1 |= (acc[i][4 + j] > 0.f ? 1u : 0u) << ((lane & 7) * 4 + j);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) {
+          b0 |= __shfl_xor_sync(0xffffffffu, b0, off);
+          b1 |= __shfl_xor_sync(0xffffffffu, b1, off);
+        }
+        if ((lane & 7) == 0) {
+          if (c0 / 32 < HW) ml[(r0 + i) * HW + c0 / 32] = b0;
+          if ((c0 + 128) / 32 < HW) ml[(r0 + i) * HW + (c0 + 128) / 32] = b1;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = tile_col(c0, j);
+        if (col < H) {
+          float o[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            o[i] = acc[i][j] > 0.f ? acc[i][j] : acc[i][j] * slope;
+          float* dst = X + col * kLds + r0;
+          *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<float4*>(dst + 4) =
+              make_float4(o[4], o[5], o[6], o[7]);
+        }
+      }
+      if (l == d.L1 - 1) put_extras(d, extras, m_s, X);
       __syncthreads();
+      if (l + 1 < L)
+        store_rows(X, d.kq[l + 1] / 4,
+                   act + act_at(d, l + 1, cap) + jb * d.kq[l + 1],
+                   d.kq[l + 1]);
     }
 
-    // alpha head per row: g_w, g_za (warp w takes rows 4w .. 4w + 3)
-    for (int r = (tid >> 5) * 4; r < (tid >> 5) * 4 + 4; ++r) {
-      const int m = row0 + r;
-      const bool valid = m < M;
+    // alpha head per row (warp w takes rows 8w .. 8w + 7): g_w and g_za
+    for (int r = warp * 8; r < warp * 8 + 8; ++r) {
+      const int m = m_s[r];
+      const bool valid = m >= 0;
       const float* gfr = gf + (size_t)(valid ? m / K : 0) * H;
       float pa = 0.f, pg = 0.f;
       for (int col = lane; col < H; col += 32) {
-        const float hv = G[r * H + col];
+        const float hv = X[col * kLds + r];
         pa = fmaf(hv, __ldg(wa + col), pa);
         pg = fmaf(hv, valid ? __ldg(gfr + col) : 0.f, pg);
       }
@@ -322,215 +234,310 @@ fused_decode_bwd_kernel(const float* __restrict__ feat,
         pg += __shfl_xor_sync(0xffffffffu, pg, off);
       }
       if (lane == 0) {
-        const float wr = valid ? w[m] : 0.f;
         const float gav = valid ? ga[m / K] : 0.f;
         const float x = pa + __ldg(ba) - 1.f;
         const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
         const float sig = 1.f / (1.f + expf(-x));
-        wr_s[r] = wr;
-        gza_s[r] = gav * wr * sig;
+        gza_s[r] = gav * w_s[r] * sig;
         if (valid) g_w[m] = pg + sp * gav;
       }
     }
     __syncthreads();
-    for (int c = tid; c < H; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s = fmaf(G[r * H + c], gza_s[r], s);
-      accum(part + d.pwa + c, s, first);
+    // the tile's dwa, dba; the last layer's g_z = (g_f w + g_za wa) *
+    // leaky'(z) and its db
+    for (int col = tid; col < H; col += kThreads) {
+      const float wac = __ldg(wa + col);
+      float sa = 0.f, sb = 0.f;
+      for (int r = 0; r < kRows; ++r) {
+        sa = fmaf(X[col * kLds + r], gza_s[r], sa);
+        const int m = m_s[r];
+        const float gfv = m >= 0 ? gf[(size_t)(m / K) * H + col] : 0.f;
+        const float g = (gfv * w_s[r] + gza_s[r] * wac) *
+                        (zsign(masks, HW, L - 1, r, col) ? 1.f : slope);
+        sb += g;
+        Gz[col * kLds + r] = g;
+      }
+      slice[L * H + col] = sa;
+      slice[(L - 1) * H + col] = sb;
     }
     if (tid == 0) {
       float s = 0.f;
       for (int r = 0; r < kRows; ++r) s += gza_s[r];
-      accum(part + d.pba, s, first);
-    }
-    __syncthreads();
-    // g_h of the last layer, in place of h_last
-    for (int i = tid; i < kRows * H; i += kThreads) {
-      const int r = i / H, c = i - r * H;
-      const int m = row0 + r;
-      const float gfv = m < M ? gf[(size_t)(m / K) * H + c] : 0.f;
-      G[i] = gfv * wr_s[r] + gza_s[r] * __ldg(wa + c);
+      slice[L * H + H] = s;
     }
     __syncthreads();
 
-    // block3 then block1, in reverse
+    // block3 then block1, in reverse: g_h = g_z W^T into X
     for (int l = L - 1; l >= 0; --l) {
-      const float* gh = l == L - 1 ? G : GX;
-      const int ghs = l == L - 1 ? H : gxs;
-      for (int c = tid; c < H; c += kThreads) {
-        float s = 0.f;
-        for (int r = 0; r < kRows; ++r) {
-          const unsigned bits = masks[(l * kRows + r) * HW + (c >> 5)];
-          const float gz =
-              gh[r * ghs + c] * (((bits >> (c & 31)) & 1u) ? 1.f : slope);
-          s += gz;
-          G[r * H + c] = gz;
+      store_rows(Gz, H / 4, gz + ((size_t)l * cap + jb) * H, H);
+      const int kq = d.kq[l];
+      for (int cb = 0; cb < kq; cb += kBN) {
+        zero8x8(acc);
+        for (int kk = 0; kk < H; kk += kKC, ++c) {
+          const float* st = next_chunk<kKC, kStages>(d, W, c, true, ring);
+          mm<kKC>(acc, Gz + kk * kLds, kLds, st, kBN, r0, c0);
         }
-        accum(part + d.pb[l] + c, s, first);
+        const int ncol = kq - cb < kBN ? kq - cb : kBN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = tile_col(c0, j);
+          if (col < ncol) {
+            float* dst = X + (cb + col) * kLds + r0;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+          }
+        }
       }
-      __syncthreads();
-      accum_dw(smem + kRows * d.act_off[l], d.inp[l], d.in[l], G, H,
-               part + d.pw[l], first);
-      input_grad(G, H, net.WT[l], d.inp[l], GX, gxs);
-      __syncthreads();
+      __syncthreads();  // g_h in X; every warp has read Gz
       if (l == d.L1) {
         for (int i = tid; i < kRows * E; i += kThreads) {
-          const int r = i / E, c = i - r * E;
-          const int m = row0 + r;
-          if (m < M) g_extras[(size_t)m * E + c] = GX[r * gxs + H + c];
+          const int r = i / E, e = i - r * E;
+          const int m = m_s[r];
+          if (m >= 0) g_extras[(size_t)m * E + e] = X[(H + e) * kLds + r];
         }
       }
-    }
-
-    // PE backward: GX holds g_x [kRows][x1]
-    for (int i = tid; i < kRows * Fi; i += kThreads) {
-      const int r = i / Fi, ch = i - r * Fi;
-      const int m = row0 + r;
-      if (m >= M) continue;
-      const float* gx = GX + r * gxs;
-      const float fv = feat[(size_t)m * Fi + ch];
-      float g = gx[ch];
-      for (int f = 0; f < Ff; ++f) {
-        const float sc = (float)(1 << f);
-        const float b = fv * sc;
-        const int q = Fi + (ch * Ff + f) * 2;
-        g = g + sc * (gx[q] * cosf(b) - gx[q + 1] * sinf(b));
-      }
-      g_feat[(size_t)m * Fi + ch] = g;
-    }
-    for (int i = tid; i < kRows * Dd; i += kThreads) {
-      const int r = i / Dd, ch = i - r * Dd;
-      const int m = row0 + r;
-      if (m >= M) continue;
-      const float* gx = GX + r * gxs + Fi + 2 * Ff * Fi;
-      float g;
-      if (Fd > 0) {
-        const float dv = dists[(size_t)m * Dd + ch];
-        g = 0.f;
-        for (int f = 0; f < Fd; ++f) {
-          const float sc = (float)(1 << f);
-          const float b = dv * sc;
-          const int q = (ch * Fd + f) * 2;
-          g = g + sc * (gx[q] * cosf(b) - gx[q + 1] * sinf(b));
+      if (l > 0) {
+        for (int col = tid; col < H; col += kThreads) {
+          float s = 0.f;
+          for (int r = 0; r < kRows; ++r) {
+            const float g = X[col * kLds + r] *
+                            (zsign(masks, HW, l - 1, r, col) ? 1.f : slope);
+            s += g;
+            Gz[col * kLds + r] = g;
+          }
+          slice[(l - 1) * H + col] = s;
         }
       } else {
-        g = gx[ch];
+        // PE backward: X holds g_x [x1][kRows]
+        for (int i = tid; i < kRows * Fi; i += kThreads) {
+          const int r = i / Fi, ch = i - r * Fi;
+          const int m = m_s[r];
+          if (m < 0) continue;
+          const float fv = feat[(size_t)m * Fi + ch];
+          float g = X[ch * kLds + r];
+          for (int f = 0; f < Ff; ++f) {
+            const float sc = (float)(1 << f);
+            const float b = fv * sc;
+            const int q = Fi + (ch * Ff + f) * 2;
+            g = g + sc * (X[q * kLds + r] * cosf(b) -
+                          X[(q + 1) * kLds + r] * sinf(b));
+          }
+          g_feat[(size_t)m * Fi + ch] = g;
+        }
+        const int pe_d = Fi + 2 * Ff * Fi;
+        for (int i = tid; i < kRows * Dd; i += kThreads) {
+          const int r = i / Dd, ch = i - r * Dd;
+          const int m = m_s[r];
+          if (m < 0) continue;
+          float g;
+          if (Fd > 0) {
+            const float dv = dists[(size_t)m * Dd + ch];
+            g = 0.f;
+            for (int f = 0; f < Fd; ++f) {
+              const float sc = (float)(1 << f);
+              const float b = dv * sc;
+              const int q = pe_d + (ch * Fd + f) * 2;
+              g = g + sc * (X[q * kLds + r] * cosf(b) -
+                            X[(q + 1) * kLds + r] * sinf(b));
+            }
+          } else {
+            g = X[(pe_d + ch) * kLds + r];
+          }
+          g_dists[(size_t)m * Dd + ch] = g;
+        }
       }
-      g_dists[(size_t)m * Dd + ch] = g;
+      __syncthreads();
     }
+  }
+  cp_async_wait<0>();
+}
+
+// Phase B for one batch: partial[s] of dW_l[i0 : i0 + 64, :] (+)= the sum
+// over the batch's 32-row chunks s, s + S, ... of act_l^T g_z_l. `first`:
+// the batch that writes the partials (later batches add to them).
+__global__ void __launch_bounds__(kThreads, 2)
+fused_decode_bwd_f32_dw(const float* __restrict__ act,
+                        const float* __restrict__ gz, Dims d,
+                        const int* __restrict__ count, int t0, int cap,
+                        int first, float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  int l = 0, ib = blockIdx.x;
+  while (l < d.L - 1 && ib >= (d.in[l] + kBI - 1) / kBI) {
+    ib -= (d.in[l] + kBI - 1) / kBI;
+    ++l;
+  }
+  const int S = gridDim.y, s = blockIdx.y;
+  const int H = d.H, kq = d.kq[l], i0 = ib * kBI;
+  int rows = *count * d.K - t0 * kRows;  // the batch's live rows
+  rows = rows < 0 ? 0 : (rows > cap ? cap : rows);
+  const int nch = (rows + kRows - 1) / kRows * (kRows / kKB);
+  if (!first && s >= nch) return;
+  const float* A = act + act_at(d, l, cap);
+  const float* B = gz + (size_t)l * cap * H;
+  const int tid = threadIdx.x;
+  auto load = [&](int ch, int stage) {
+    float* As = smem + stage * kKB * (kBI + kBN);
+    float* Bs = As + kKB * kBI;
+    for (int p = tid; p < kKB * (kBI / 4); p += kThreads) {
+      const int rr = p / (kBI / 4), q = p - rr * (kBI / 4);
+      const int col = i0 + 4 * q;
+      const bool ok = col < kq;
+      cp_async16_or_zero(As + rr * kBI + 4 * q,
+                         ok ? A + (size_t)(ch * kKB + rr) * kq + col : A, ok);
+    }
+    const int h4 = H / 4;
+    for (int p = tid; p < kKB * h4; p += kThreads) {
+      const int rr = p / h4, q = p - rr * h4;
+      cp_async16(Bs + rr * kBN + 4 * q, B + (size_t)(ch * kKB + rr) * H + 4 * q);
+    }
+  };
+  const int r0 = tile_r0(), c0 = tile_c0();
+  float acc[8][8];
+  zero8x8(acc);
+  int ch = s, stage = 0;
+  if (ch < nch) load(ch, 0);
+  cp_async_commit();
+  while (ch < nch) {
+    const int cn = ch + S;
+    if (cn < nch) load(cn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
+    const float* As = smem + stage * kKB * (kBI + kBN);
+    mm<kKB>(acc, As, kBI, As + kKB * kBI, kBN, r0, c0);
+    __syncthreads();  // the stage is free for the load after next
+    ch = cn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + (size_t)s * d.Ps + d.pw[l];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = i0 + r0 + i;
+    if (row >= d.in[l]) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + 128 * h;
+      if (col >= H) continue;
+      float4* p = reinterpret_cast<float4*>(out + (size_t)row * H + col);
+      float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                             acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      if (!first) {
+        const float4 o = *p;
+        v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+      }
+      *p = v;
+    }
   }
 }
 
-// out[i] = sum over CTA slices b (in order) of partials[b][i], i < P
-__global__ void fused_decode_bwd_reduce(const float* __restrict__ partials,
-                                        int nblk, int P, int Ps,
-                                        float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
+// Phase C: out[i] for every parameter i, in a fixed order: dW from the S
+// phase-B partials, db/dwa/dba from the live tiles' slices. Block (32, 8):
+// x takes 32 consecutive parameters, y an eighth of the sources; the eight
+// sums are added in y order.
+__global__ void fused_decode_bwd_f32_reduce(const float* __restrict__ partial,
+                                            int S,
+                                            const float* __restrict__ slices,
+                                            const int* __restrict__ count,
+                                            Dims d, float* __restrict__ out) {
+  __shared__ float part[8][33];
+  const int i = blockIdx.x * 32 + threadIdx.x;
   float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += partials[(size_t)b * Ps + i];
-  out[i] = s;
-}
-
-Dims make_dims(int M, int Fi, int Dd, int E, int Ff, int Fd, int H, int K,
-               int L1, int L3) {
-  Dims d{};
-  d.M = M; d.Fi = Fi; d.Dd = Dd; d.E = E; d.Ff = Ff; d.Fd = Fd; d.H = H;
-  d.K = K; d.L1 = L1; d.L3 = L3;
-  d.x1 = Fi + 2 * Ff * Fi + (Fd > 0 ? 2 * Fd * Dd : Dd);
-  int off = 0, p = 0, gx = 0;
-  for (int l = 0; l < L1 + L3; ++l) {
-    d.in[l] = l == 0 ? d.x1 : (l == L1 ? H + E : H);
-    d.inp[l] = (d.in[l] + 3) / 4 * 4;
-    d.act_off[l] = off;
-    off += d.inp[l];
-    gx = gx > d.inp[l] ? gx : d.inp[l];
-    d.pw[l] = p;
-    p += d.in[l] * H;
-    d.pb[l] = p;
-    p += H;
+  if (i < d.P) {
+    int q = -1;  // the parameter's place in a tile slice, if it has one
+    if (i >= d.pwa) {
+      q = d.L * d.H + (i - d.pwa);
+    } else {
+      for (int l = 0; l < d.L; ++l)
+        if (i >= d.pb[l] && i < d.pb[l] + d.H) q = l * d.H + (i - d.pb[l]);
+    }
+    if (q < 0) {
+      for (int k = threadIdx.y; k < S; k += 8) s += partial[(size_t)k * d.Ps + i];
+    } else {
+      const int ntiles = (*count * d.K + kRows - 1) / kRows;
+      const int ns = slice_floats(d);
+      for (int t = threadIdx.y; t < ntiles; t += 8)
+        s += slices[(size_t)t * ns + q];
+    }
   }
-  d.sum_in = off;
-  d.gx_stride = gx;
-  d.pwa = p;
-  d.pba = p + H;
-  d.P = p + H + 1;
-  d.Ps = (d.P + 3) / 4 * 4;
-  return d;
-}
-
-size_t smem_bytes(const Dims& d) {
-  const int L = d.L1 + d.L3;
-  return sizeof(float) * ((size_t)kRows * (d.sum_in + d.H + d.gx_stride) +
-                          (size_t)L * kRows * (d.H / 32) + 2 * kRows);
-}
-
-bool takes(const Dims& d) {
-  return d.L1 >= 1 && d.L3 >= 1 && d.L1 + d.L3 <= kMaxLayers && d.H % 32 == 0 &&
-         d.H <= 256 && d.K >= 1;
-}
-
-int set_smem(const Dims& d) {
-  return (int)cudaFuncSetAttribute(fused_decode_bwd_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_bytes(d));
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < d.P) {
+    float r = 0.f;
+    for (int y = 0; y < 8; ++y) r += part[y][threadIdx.x];
+    out[i] = r;
+  }
 }
 
 }  // namespace
 
-// Number of persistent CTAs the launch will use for M rows (the workspace
-// holds that many slices of P floats, each starting at a multiple of 4).
-extern "C" int fused_decode_bwd_blocks(int M, int Fi, int Dd, int E, int Ff,
-                                       int Fd, int H, int K, int L1, int L3,
-                                       int* nblocks) {
-  const Dims d = make_dims(M, Fi, Dd, E, Ff, Fd, H, K, L1, L3);
-  if (!takes(d)) return (int)cudaErrorInvalidValue;
-  *nblocks = 0;
-  if (M == 0) return 0;
-  int e = set_smem(d);
-  if (e) return e;
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_decode_bwd_kernel, kThreads, smem_bytes(d));
-  if (err != cudaSuccess) return (int)err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int ntiles = (M + kRows - 1) / kRows;
-  const int n = per_sm * sms;
-  *nblocks = n < ntiles ? n : ntiles;
+// Shared memory of one CTA of phase A and of phase B for these dims (0 if
+// the kernels do not take them), for the wrapper's envelope check.
+extern "C" int fused_decode_bwd_smem(int Fi, int Dd, int E, int Ff, int Fd,
+                                     int H, int K, int L1, int L3,
+                                     int* phase_a, int* phase_b) {
+  const Dims d = make_dims(0, Fi, Dd, E, Ff, Fd, H, K, L1, L3);
+  *phase_a = takes(d) ? (int)smem_a(d) : 0;
+  *phase_b = takes(d) ? (int)smem_b() : 0;
   return 0;
 }
 
+// W: the packed weights (pack_f32_weights, both streams); bias [L][H];
+// flags [G] bytes, counts [ceil(G / 1024)], list [G], count [1]: the list's
+// scratch; act [cap][sum kq] and gz [L][cap][H]: the batch scratch (cap a
+// multiple of 64); slices [ceil(M / 64)][L*H + H + 1]; partial [splits][P
+// rounded up to 4]; dparams [P]: the parameter gradients in _flatten order.
 extern "C" int fused_decode_bwd_launch(
     const float* feat, const float* dists, const float* extras,
-    const float* w, const void* const* Ws, const void* const* WTs,
-    const void* const* bs, int L1, int L3, const float* wa, const float* ba,
-    const float* g_fagg, const float* g_alpha, int M, int Fi, int Dd, int E,
-    int Ff, int Fd, int H, int K, float slope, float* g_feat,
-    float* g_dists, float* g_extras, float* g_w, float* partials, int nblocks,
-    float* dparams, void* stream) {
+    const float* w, const float* W, const float* bias, const float* wa,
+    const float* ba, const float* g_fagg, const float* g_alpha, int M, int Fi,
+    int Dd, int E, int Ff, int Fd, int H, int K, int L1, int L3, float slope,
+    float* g_feat, float* g_dists, float* g_extras, float* g_w, void* flags,
+    int* counts, int* list, int* count, float* act, float* gz, int cap,
+    float* slices, float* partial, int splits, float* dparams,
+    void* stream) {
   const Dims d = make_dims(M, Fi, Dd, E, Ff, Fd, H, K, L1, L3);
-  if (!takes(d)) return (int)cudaErrorInvalidValue;
+  if (!takes(d) || splits < 1 || cap < kRows || cap % kRows)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M == 0 || nblocks == 0)
-    return (int)cudaMemsetAsync(dparams, 0, sizeof(float) * d.P, s);
-  Net net;
-  for (int i = 0; i < L1 + L3; ++i) {
-    net.W[i] = static_cast<const float*>(Ws[i]);
-    net.WT[i] = static_cast<const float*>(WTs[i]);
-    net.b[i] = static_cast<const float*>(bs[i]);
+  if (M == 0) return (int)cudaMemsetAsync(dparams, 0, sizeof(float) * d.P, s);
+  dlive::Owned own{{g_feat, g_dists, g_extras, g_w},
+                   {K * Fi, K * Dd, K * E, K}};
+  cudaError_t e = dlive::build(w, g_fagg, g_alpha, d.G, K, H, own,
+                               static_cast<unsigned char*>(flags), counts,
+                               list, count, s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t sa = smem_a(d), sb = smem_b();
+  e = cudaFuncSetAttribute(fused_decode_bwd_f32_rows,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sa);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(fused_decode_bwd_f32_dw,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sb);
+  if (e != cudaSuccess) return (int)e;
+  const int cap_tiles = cap / kRows;
+  int grid = 0;
+  int err = persistent_grid((const void*)fused_decode_bwd_f32_rows, sa,
+                            cap_tiles, &grid);
+  if (err) return err;
+  const int max_tiles = (M + kRows - 1) / kRows;
+  const dim3 gb(dw_blocks(d), splits);
+  for (int b = 0; b * cap_tiles < max_tiles; ++b) {
+    const int t0 = b * cap_tiles;
+    fused_decode_bwd_f32_rows<<<grid, kThreads, sa, s>>>(
+        feat, dists, extras, w, W, bias, wa, ba, g_fagg, g_alpha, d, slope,
+        list, count, t0, t0 + cap_tiles, cap, g_feat, g_dists, g_extras, g_w,
+        act, gz, slices);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    fused_decode_bwd_f32_dw<<<gb, kThreads, sb, s>>>(act, gz, d, count, t0,
+                                                     cap, b == 0, partial);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  int e = set_smem(d);
-  if (e) return e;
-  fused_decode_bwd_kernel<<<nblocks, kThreads, smem_bytes(d), s>>>(
-      feat, dists, extras, w, net, wa, ba, g_fagg, g_alpha, d, slope,
-      g_feat, g_dists, g_extras, g_w, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_decode_bwd_reduce<<<(d.P + 255) / 256, 256, 0, s>>>(
-      partials, nblocks, d.P, d.Ps, dparams);
+  fused_decode_bwd_f32_reduce<<<(d.P + 31) / 32, dim3(32, 8), 0, s>>>(
+      partial, splits, slices, count, d, dparams);
   return (int)cudaGetLastError();
 }

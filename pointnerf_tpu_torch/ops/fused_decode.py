@@ -27,10 +27,17 @@ inside the custom VJP. Both versions here round at the same places.
 Two routes on the card, picked by `spec.bf16`. bf16 (the main paths) runs
 the tensor-core kernels `csrc/fused_decode_tc.cu` (K3) and
 `csrc/fused_decode_bwd_tc.cu` (K4), which take the block weights packed by
-`pack_tc_weights`; f32 runs `csrc/fused_decode.cu` and
-`csrc/fused_decode_bwd.cu` on CUDA cores (tensor cores would add a TF32
-rounding point there). A spec past a route's limits (`kernel_takes`) raises;
-it never runs on the other route.
+`pack_tc_weights` and skip tiles without weight. f32 runs
+`csrc/fused_decode.cu` and `csrc/fused_decode_bwd.cu` on the CUDA cores
+(exact f32 FMAs; tensor cores would add a TF32 rounding point), with the
+block weights packed by `pack_f32_weights`. Both f32 kernels first build,
+on the device, the list of live shading groups (`csrc/decode_live.cuh`;
+`live_groups_plain` is its plain version) and decode only those: the dense
+decode of a scene lays its rows out [R, SR, K], and ~1% of them carry a
+weight, scattered over every ray. K4 f32 takes dW as a split-K product over
+scratch rows written by its first phase, in batches of F32_CAP_ROWS live
+rows. A spec past a route's limits (`kernel_takes`) raises; it never runs
+on the other route.
 """
 from __future__ import annotations
 
@@ -42,10 +49,20 @@ import torch
 from . import _build
 from .pe import positional_encoding
 
-TILE_ROWS = 64          # rows per CTA in csrc/fused_decode.cu
-TILE_ROWS_BWD = 32      # rows per tile in csrc/fused_decode_bwd.cu
 MAX_LAYERS = 8          # L1 + L3 the kernels' parameter blocks hold
 SMEM_BYTES = 232448     # per-block shared memory the H100 grants
+# the f32 kernels (csrc/decode_f32.cuh, decode_live.cuh and their two users)
+F32_ROWS = 64           # rows per tile (whole K-groups in K3)
+F32_LDS = F32_ROWS + 4  # row stride of the transposed tiles in shared memory
+F32_PAD = 16            # forward weight rows (layer inputs) pad to it
+F32_RING = (16, 2)      # K3's weight ring: rows per chunk, stages
+F32_RING_BWD = (8, 3)   # K4 phase A's
+F32_BN = 256            # columns of a ring stage
+F32_KB = 32             # K4 phase B: scratch rows per staged chunk
+F32_BI = 64             # K4 phase B: dW rows per CTA
+F32_SPLITS = 16         # K4 phase B: row splits of dW, summed in order
+F32_CAP_ROWS = 131072   # K4: live rows per batch of the scratch
+LIVE_GROUPS = 1024      # groups per block of the live-list pass
 # the tensor-core kernels (csrc/decode_tc.cuh and its two users)
 TC_ROWS = 64            # rows per CTA of K3 (fused_decode_tc.cu)
 TC_ROWS_BWD = 64        # rows per tile of K4's phase A (fused_decode_bwd_tc.cu)
@@ -229,15 +246,20 @@ def _argtypes(f, types):
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _lib():
-    return _argtypes(_build.load("fused_decode").fused_decode_launch,
-                     [_VP] * 6 + [_CI, _CI, _VP, _VP] + [_CI] * 8
-                     + [_CF, _VP, _VP, _VP])
+_F32_ARGS = {
+    "fused_decode_launch": [_VP] * 8 + [_CI] * 10 + [_CF] + [_VP] * 7,
+    "fused_decode_live": [_VP] * 3 + [_CI] * 3 + [_VP] * 5,
+    "fused_decode_smem": [_CI] * 9,
+    "fused_decode_bwd_launch": [_VP] * 10 + [_CI] * 10 + [_CF] + [_VP] * 10
+    + [_CI] + [_VP] * 2 + [_CI] + [_VP] * 2,
+    "fused_decode_bwd_smem": [_CI] * 9 + [ctypes.POINTER(_CI)] * 2,
+}
 
 
-def smem_bytes(spec: DecodeSpec) -> int:
-    width = max(spec.x1, spec.H + spec.E) + 1
-    return 2 * TILE_ROWS * width * 4
+def _f32_lib(name: str):
+    lib = "fused_decode_bwd" if name.startswith("fused_decode_bwd") \
+        else "fused_decode"
+    return _argtypes(getattr(_build.load(lib), name), _F32_ARGS[name])
 
 
 def layer_inputs(spec: DecodeSpec) -> List[int]:
@@ -250,15 +272,51 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def bwd_smem_bytes(spec: DecodeSpec) -> int:
-    """Shared memory of one K4 tile (`smem_bytes` in fused_decode_bwd.cu):
-    every layer's input (widths padded to a multiple of 4), the last hidden
-    layer, the input-gradient buffer, the z-sign bitmasks and two per-row
-    scalars, for TILE_ROWS_BWD rows."""
-    ins = [_pad4(n) for n in layer_inputs(spec)]
-    return 4 * (TILE_ROWS_BWD * (sum(ins) + spec.H + max(ins))
-                + len(ins) * TILE_ROWS_BWD * (spec.H // 32)
-                + 2 * TILE_ROWS_BWD)
+def f32_pads(spec: DecodeSpec) -> Tuple[List[int], List[int]]:
+    """Each layer's input width padded to F32_PAD (`kp`: the rows of the
+    forward weight stream and of the products) and to 4 (`kq`: the columns
+    of W^T and the scratch row of K4), as `make_dims` in
+    csrc/decode_f32.cuh."""
+    ins = layer_inputs(spec)
+    return ([-(-n // F32_PAD) * F32_PAD for n in ins],
+            [_pad4(n) for n in ins])
+
+
+def smem_bytes(spec: DecodeSpec) -> int:
+    """Shared memory of one K3 f32 CTA (`smem_bytes` in fused_decode.cu): the
+    tile's transposed activations, the weight ring and three per-row
+    words."""
+    kmax = max(f32_pads(spec)[0])
+    return 4 * (kmax * F32_LDS + F32_RING[0] * F32_RING[1] * F32_BN
+                + 3 * F32_ROWS)
+
+
+def bwd_smem_bytes(spec: DecodeSpec) -> Tuple[int, int]:
+    """Shared memory of one CTA of K4 f32's phase A and of its phase B
+    (`smem_a` and `smem_b` in fused_decode_bwd.cu). Phase A: the transposed
+    activations (then g_h), a layer's g_z, the z-sign bits of every layer,
+    the weight ring and three per-row words. Phase B: two stages of 32
+    scratch rows of 64 layer inputs and of 256 g_z columns."""
+    kmax = max(f32_pads(spec)[0])
+    L = spec.L1 + spec.L3
+    a = 4 * ((kmax + spec.H) * F32_LDS + L * F32_ROWS * (spec.H // 32)
+             + F32_RING_BWD[0] * F32_RING_BWD[1] * F32_BN + 3 * F32_ROWS)
+    b = 4 * 2 * F32_KB * (F32_BI + F32_BN)
+    return a, b
+
+
+def pack_f32_weights(Ws: List[torch.Tensor], spec: DecodeSpec,
+                     backward: bool = False) -> torch.Tensor:
+    """The block weights as the f32 kernels stream them, one f32 buffer: the
+    forward stream (each W_l [in_l, H] zero-padded to [kp_l, H], layer after
+    layer), then with `backward` the backward stream (each W_l^T as
+    [H, kq_l], zero columns past in_l)."""
+    kp, kq = f32_pads(spec)
+    fwd = [torch.nn.functional.pad(W, (0, 0, 0, p - W.shape[0])).reshape(-1)
+           for W, p in zip(Ws, kp)]
+    bwd = [torch.nn.functional.pad(W.t(), (0, q - W.shape[0])).reshape(-1)
+           for W, q in zip(Ws, kq)] if backward else []
+    return torch.cat(fwd + bwd).contiguous()
 
 
 def tc_pads(spec: DecodeSpec) -> List[int]:
@@ -312,23 +370,23 @@ def pack_tc_weights(Ws: List[torch.Tensor], spec: DecodeSpec) -> torch.Tensor:
 def kernel_takes(spec: DecodeSpec, backward: bool = False) -> bool:
     """True when the route of this spec can run it on the card, the forward
     (and, with `backward`, the backward too). Both routes: H a multiple of
-    32 up to 256, 1 to MAX_LAYERS block layers, whole K-groups per tile.
-    f32 (csrc/fused_decode.cu, fused_decode_bwd.cu): 64 % K == 0 and the
-    tiles within the shared memory of one block. bf16 (the tensor-core
-    kernels): 64 % K == 0 (the tiles of both), H >= 32, every
-    padded layer input at most TC_MAX_IN, and each kernel's shared memory
-    within one block's."""
-    common = not (spec.H % 32 or spec.H > 256 or spec.L1 < 1 or spec.L3 < 1
-                  or spec.L1 + spec.L3 > MAX_LAYERS or TILE_ROWS % spec.K)
+    32 from 32 to 256, 1 to MAX_LAYERS block layers, whole K-groups per
+    64-row tile (64 % K == 0). f32 (csrc/fused_decode.cu,
+    fused_decode_bwd.cu): each kernel's shared memory within one block's.
+    bf16 (the tensor-core kernels): every padded layer input at most
+    TC_MAX_IN, and each kernel's shared memory within one block's."""
+    common = not (spec.H % 32 or spec.H < 32 or spec.H > 256 or spec.L1 < 1
+                  or spec.L3 < 1 or spec.L1 + spec.L3 > MAX_LAYERS
+                  or F32_ROWS % spec.K)
     if not common:
         return False
     if spec.bf16:
-        if spec.H < 32 or max(tc_pads(spec)) > TC_MAX_IN \
+        if max(tc_pads(spec)) > TC_MAX_IN \
                 or tc_smem_bytes(spec) > SMEM_BYTES:
             return False
         return not backward or max(tc_bwd_smem_bytes(spec)) <= SMEM_BYTES
     fwd = smem_bytes(spec) <= SMEM_BYTES
-    return fwd and (not backward or bwd_smem_bytes(spec) <= SMEM_BYTES)
+    return fwd and (not backward or max(bwd_smem_bytes(spec)) <= SMEM_BYTES)
 
 
 def _check(feat, dists, extras, w, spec: DecodeSpec):
@@ -361,7 +419,7 @@ def _refuse(spec: DecodeSpec, backward: bool):
             f"{SMEM_BYTES} bytes of shared memory)")
     raise ValueError(
         f"fused_decode: the CUDA kernel{s} not take {spec} (f32 route; "
-        f"needs 64 % K == 0, H % 32 == 0, H <= 256, L1, L3 >= 1, "
+        f"needs 64 % K == 0, H % 32 == 0, 32 <= H <= 256, L1, L3 >= 1, "
         f"L1 + L3 <= {MAX_LAYERS}, tiles within {SMEM_BYTES} bytes of "
         f"shared memory)")
 
@@ -375,9 +433,47 @@ def _device_weights(params: Dict, spec: DecodeSpec, dev):
     return Ws, bs, wa, ba
 
 
-def _ptrs(ts):
-    arr = (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    return ctypes.cast(arr, ctypes.c_void_p), arr
+def _live_scratch(G: int, dev):
+    """The live-group list's buffers: flags (a byte per group), the live
+    count of each block of the list pass, the list and its length."""
+    return (torch.empty(max(G, 1), dtype=torch.uint8, device=dev),
+            torch.empty(max(-(-G // LIVE_GROUPS), 1), dtype=torch.int32,
+                        device=dev),
+            torch.empty(max(G, 1), dtype=torch.int32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev))
+
+
+def live_groups_plain(w, K: int, g_fagg=None, g_alpha=None) -> torch.Tensor:
+    """Plain version of the f32 kernels' live-group list: the ascending ids
+    of the groups (rows g*K .. g*K + K - 1 of w [M, 1]) with a nonzero
+    weight (K3's rule), or, given the upstream gradients g_fagg [M/K, H]
+    and g_alpha [M/K, 1], also those with a nonzero upstream gradient
+    (K4's rule). int32."""
+    live = (w.reshape(-1, K) != 0).any(1)
+    if g_fagg is not None:
+        live = live | (g_fagg != 0).any(1) | (g_alpha.reshape(-1) != 0)
+    return torch.nonzero(live).reshape(-1).to(torch.int32)
+
+
+def live_groups(w, K: int, g_fagg=None, g_alpha=None) -> torch.Tensor:
+    """The live-group list as K3 and K4 build it (see `live_groups_plain`):
+    for CUDA tensors the list pass of csrc/decode_live.cuh alone, then a
+    read of its length (a host synchronisation: this is a check of the
+    pass, which the decode kernels run inside their own launch); the plain
+    version for CPU tensors."""
+    if w.device.type == "cpu":
+        return live_groups_plain(w, K, g_fagg, g_alpha)
+    G = w.shape[0] // K
+    H = 0 if g_fagg is None else g_fagg.shape[1]
+    flags, counts, lst, count = _live_scratch(G, w.device)
+    p = _build.ptr
+    none = ctypes.c_void_p(0)
+    err = _f32_lib("fused_decode_live")(
+        p(w), none if g_fagg is None else p(g_fagg),
+        none if g_alpha is None else p(g_alpha), G, K, H, p(flags),
+        p(counts), p(lst), p(count), _build.stream_handle(w.device))
+    _build.check(err, "fused_decode (live list)")
+    return lst[:int(count.item())]
 
 
 def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
@@ -400,13 +496,12 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
             _build.stream_handle(dev))
         _build.check(err, "fused_decode (tensor cores)")
     else:
-        wp, _keep_w = _ptrs(Ws)
-        bp, _keep_b = _ptrs(bs)
-        err = _lib()(p(feat), p(dists), p(extras), p(w), wp, bp, spec.L1,
-                     spec.L3, p(wa), p(ba), M, spec.Fi, spec.Dd, spec.E,
-                     spec.Ff, spec.Fd, spec.H, spec.K, float(spec.neg_slope),
-                     p(fagg), p(alpha),
-                     _build.stream_handle(dev))
+        Wp, bias = pack_f32_weights(Ws, spec), torch.cat(bs)
+        live = _live_scratch(M // spec.K, dev)
+        err = _f32_lib("fused_decode_launch")(
+            p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
+            M, *_dims(spec), float(spec.neg_slope), *[p(t) for t in live],
+            p(fagg), p(alpha), _build.stream_handle(dev))
         _build.check(err, "fused_decode")
     _count(fused_decode, spec)
     return fagg, alpha
@@ -463,6 +558,17 @@ def tc_smem_bytes_built(spec: DecodeSpec) -> Tuple[int, int, int]:
     return k3, a.value, b.value
 
 
+def f32_smem_bytes_built(spec: DecodeSpec) -> Tuple[int, int, int]:
+    """(K3, K4 phase A, K4 phase B) shared memory of the f32 kernels as the
+    built kernels compute it (0 where they refuse the spec): the card's
+    check of `smem_bytes` and `bwd_smem_bytes`."""
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    k3 = _f32_lib("fused_decode_smem")(*_dims(spec))
+    _f32_lib("fused_decode_bwd_smem")(*_dims(spec), ctypes.byref(a),
+                                      ctypes.byref(b))
+    return k3, a.value, b.value
+
+
 class _FusedDecode(torch.autograd.Function):
     """fused_decode with K4 as its backward; the weights enter flat
     (`_flatten`) so that each gets its own f32 gradient."""
@@ -507,14 +613,6 @@ fused_decode.launches = 0
 fused_decode.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
 
 
-def _bwd_lib(name):
-    f = getattr(_build.load("fused_decode_bwd"), name)
-    if name == "fused_decode_bwd_blocks":
-        return _argtypes(f, [_CI] * 10 + [ctypes.POINTER(_CI)])
-    return _argtypes(f, [_VP] * 7 + [_CI, _CI] + [_VP] * 4 + [_CI] * 8
-                     + [_CF] + [_VP] * 5 + [_CI, _VP, _VP])
-
-
 def param_count(spec: DecodeSpec) -> int:
     """Floats of all dW, db, dwa, dba together (K4's workspace slice)."""
     return sum(n * spec.H + spec.H for n in layer_inputs(spec)) + spec.H + 1
@@ -536,47 +634,11 @@ def fused_decode_bwd(feat, dists, extras, w, params: Dict, spec: DecodeSpec,
         return fused_decode_bwd_plain(feat, dists, extras, w, params, spec,
                                       g_fagg, g_alpha)
     _refuse(spec, backward=True)
-    M = feat.shape[0]
-    dev = feat.device
-    Ws, bs, wa, ba = _device_weights(params, spec, dev)
-    if spec.bf16:
-        dparams, rows = _bwd_tc(feat, dists, extras, w, Ws, bs, wa, ba,
-                                spec, g_fagg, g_alpha)
-        _count(fused_decode_bwd, spec)
-        return (*rows, _split_params(dparams, params, spec))
-    # input rows zero-padded to a multiple of 4, as the kernel reads them
-    Ws = [torch.nn.functional.pad(t, (0, 0, 0, _pad4(t.shape[0]) - t.shape[0]))
-          for t in Ws]
-    WTs = [t.t().contiguous() for t in Ws]
-    # the kernel reads the biases as float4
-    bs = [t if t.data_ptr() % 16 == 0 else t.clone() for t in bs]
-    dims = (M, spec.Fi, spec.Dd, spec.E, spec.Ff, spec.Fd, spec.H, spec.K,
-            spec.L1, spec.L3)
-    nb = ctypes.c_int(0)
-    _build.check(_bwd_lib("fused_decode_bwd_blocks")(*dims, ctypes.byref(nb)),
-                 "fused_decode_bwd")
-    P = param_count(spec)
-    # one slice per CTA, each starting 16-byte aligned for float4 access
-    partials = torch.empty((max(nb.value, 1), _pad4(P)), dtype=torch.float32,
-                           device=dev)
-    dparams = torch.empty(P, dtype=torch.float32, device=dev)
-    g_feat = torch.empty_like(feat)
-    g_dists = torch.empty_like(dists)
-    g_extras = torch.empty_like(extras)
-    g_w = torch.empty_like(w)
-    p = _build.ptr
-    wp, _kw = _ptrs(Ws)
-    wtp, _kwt = _ptrs(WTs)
-    bp, _kb = _ptrs(bs)
-    err = _bwd_lib("fused_decode_bwd_launch")(
-        p(feat), p(dists), p(extras), p(w), wp, wtp, bp, spec.L1, spec.L3,
-        p(wa), p(ba), p(g_fagg), p(g_alpha), *dims[:8], float(spec.neg_slope),
-        p(g_feat), p(g_dists), p(g_extras), p(g_w),
-        p(partials), nb.value, p(dparams), _build.stream_handle(dev))
-    _build.check(err, "fused_decode_bwd")
+    Ws, bs, wa, ba = _device_weights(params, spec, feat.device)
+    dparams, rows = (_bwd_tc if spec.bf16 else _bwd_f32)(
+        feat, dists, extras, w, Ws, bs, wa, ba, spec, g_fagg, g_alpha)
     _count(fused_decode_bwd, spec)
-    return g_feat, g_dists, g_extras, g_w, _split_params(dparams, params,
-                                                         spec)
+    return (*rows, _split_params(dparams, params, spec))
 
 
 def _split_params(dparams, params: Dict, spec: DecodeSpec) -> Dict:
@@ -617,6 +679,44 @@ def _bwd_tc(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
         *[p(t) for t in out], p(act), p(gz), p(flags), p(slices), p(partial),
         TC_SPLITS, p(dparams), _build.stream_handle(dev))
     _build.check(err, "fused_decode_bwd (tensor cores)")
+    return dparams, out
+
+
+def bwd_f32_cap(M: int) -> int:
+    """Rows of K4 f32's scratch for M rows: every tile's, at most
+    F32_CAP_ROWS (the batch the phases take at a time)."""
+    return min(F32_CAP_ROWS, max(-(-M // F32_ROWS), 1) * F32_ROWS)
+
+
+def _bwd_f32(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
+             g_fagg, g_alpha):
+    """K4 on the CUDA cores (csrc/fused_decode_bwd.cu): its scratch buffers,
+    then one call that builds the live list and launches its phases.
+    Returns (dparams, (g_feat, g_dists, g_extras, g_w))."""
+    M, H, L = feat.shape[0], spec.H, spec.L1 + spec.L3
+    dev = feat.device
+    cap = bwd_f32_cap(M)
+    P = param_count(spec)
+    live = _live_scratch(M // spec.K, dev)
+    act = torch.empty(cap * sum(f32_pads(spec)[1]), dtype=torch.float32,
+                      device=dev)
+    gz = torch.empty(L * cap * H, dtype=torch.float32, device=dev)
+    slices = torch.empty(max(-(-M // F32_ROWS), 1) * (L * H + H + 1),
+                         dtype=torch.float32, device=dev)
+    partial = torch.empty(F32_SPLITS * _pad4(P), dtype=torch.float32,
+                          device=dev)
+    dparams = torch.empty(P, dtype=torch.float32, device=dev)
+    out = (torch.empty_like(feat), torch.empty_like(dists),
+           torch.empty_like(extras), torch.empty_like(w))
+    Wp, bias = pack_f32_weights(Ws, spec, backward=True), torch.cat(bs)
+    p = _build.ptr
+    err = _f32_lib("fused_decode_bwd_launch")(
+        p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
+        p(g_fagg), p(g_alpha), M, *_dims(spec), float(spec.neg_slope),
+        *[p(t) for t in out], *[p(t) for t in live], p(act), p(gz), cap,
+        p(slices), p(partial), F32_SPLITS, p(dparams),
+        _build.stream_handle(dev))
+    _build.check(err, "fused_decode_bwd")
     return dparams, out
 
 

@@ -52,11 +52,15 @@ N_PROFILED_CHUNKS = 4
 SECTIONS = ("main", "dataset")   # main: serving, training and the probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
-# fused_decode_tc_fwd (bf16) or fused_decode_kernel (f32), K4 the three
-# fused_decode_bwd_tc_* launches (bf16) or fused_decode_bwd_kernel + reduce
+# fused_decode_tc_fwd (bf16) or its live-list pass (live_*<false>) and
+# fused_decode_f32 (f32), K4 the three fused_decode_bwd_tc_* launches (bf16)
+# or its live-list pass (live_*<true>) and fused_decode_bwd_f32_* (f32)
 PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel"),
-                "K3": ("fused_decode_tc_fwd", "fused_decode_kernel"),
-                "K4": ("fused_decode_bwd",), "K2": ("fused_march_kernel",)}
+                "K3": ("fused_decode_tc_fwd", "fused_decode_f32",
+                       "live_flags<false>", "live_compact<false>"),
+                "K4": ("fused_decode_bwd", "live_flags<true>",
+                       "live_compact<true>"),
+                "K2": ("fused_march_kernel",)}
 
 
 def profiled(fn):

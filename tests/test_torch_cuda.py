@@ -530,3 +530,226 @@ def test_fused_decode_dense_probe_rows_match_plain(dev, bf16):
     dead = ~torch.from_numpy(row_live.reshape(-1, K).any(1)).to(dev)
     assert bool((fk[dead] == 0).all()) and bool((ak[dead] == 0).all())
     assert bool((fk[~dead] != 0).any())
+
+
+# the f32 route: the CUDA-core kernels (csrc/fused_decode.cu,
+# csrc/fused_decode_bwd.cu) decode only the live groups of
+# csrc/decode_live.cuh. Inputs in the dense layout [R, SR, K] of the
+# dataset path, random features on every row (a dead group's outputs must
+# be 0 whatever its rows hold).
+F32_CASES = ("none", "all", "last_group", "one_per_ray", "sparse")
+
+
+def _f32_inputs(dev, case, R=24, SR=80, K=8, H=256, L1=2, L3=2, seed=8,
+                grad_only=0):
+    """(ins, params, spec, g_fagg, g_alpha, live [G] bool). Live groups get
+    weights (a few rows of each zero) and upstream gradients; `grad_only`
+    dead groups get an upstream gradient without weight."""
+    from pointnerf_tpu_torch.ops.fused_decode import DecodeSpec, layer_inputs
+    spec = DecodeSpec(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=H, K=K, L1=L1, L3=L3,
+                      neg_slope=0.01, bf16=False)
+    rng = np.random.RandomState(seed)
+    G = R * SR
+    M = G * K
+    live = np.zeros(G, bool)
+    if case == "all":
+        live[:] = True
+    elif case == "last_group":
+        live[-1] = True
+    elif case == "one_per_ray":
+        live[np.arange(R) * SR + rng.randint(0, SR, R)] = True
+    elif case == "sparse":
+        live[rng.rand(G) < 0.02] = True
+    w = rng.rand(M, 1).astype(np.float32) + 0.05
+    w *= (rng.rand(M, 1) > 0.3)
+    w.reshape(G, K)[:, 0] += 0.1          # a live group has a weight
+    w.reshape(G, K)[~live] = 0.0
+    gf = rng.normal(0, 1, (G, H)).astype(np.float32)
+    ga = rng.normal(0, 1, (G, 1)).astype(np.float32)
+    with_grad = live.copy()
+    if grad_only:
+        with_grad[rng.choice(np.flatnonzero(~live), grad_only,
+                             replace=False)] = True
+    gf[~with_grad] = 0.0
+    ga[~with_grad] = 0.0
+    ins = [rng.normal(0, s, (M, n)).astype(np.float32)
+           for s, n in ((0.5, 32), (0.05, 6), (0.5, 7))] + [w]
+    g = torch.Generator().manual_seed(seed)
+
+    def dense(n_in):
+        return {"w": (torch.randn((n_in, H), generator=g)
+                      * (2.0 / n_in) ** 0.5).to(dev),
+                "b": (torch.randn((H,), generator=g) * 0.1).to(dev)}
+    dims = layer_inputs(spec)
+    params = {"block1": [dense(n) for n in dims[:L1]],
+              "block3": [dense(n) for n in dims[L1:]],
+              "alpha": [{"w": (torch.randn((H, 1), generator=g)
+                               * 0.1).to(dev),
+                         "b": torch.zeros((1,)).to(dev)}]}
+    return ([torch.from_numpy(a).to(dev) for a in ins], params, spec,
+            torch.from_numpy(gf).to(dev), torch.from_numpy(ga).to(dev),
+            torch.from_numpy(with_grad).to(dev))
+
+
+def _hold_f32(ins, params, spec, gf, ga):
+    """K3 and K4 on the CUDA-core route against their plain versions at
+    chip_smoke.py's f32 bars (2e-4 of each output's or gradient's scale;
+    exactly 0 where the plain one is all zero); returns the kernels'
+    outputs."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    n3 = dict(fd.fused_decode.launches_by_route)
+    n4 = dict(fd.fused_decode_bwd.launches_by_route)
+    fk = fd.fused_decode(*ins, params, spec)
+    gk = fd.fused_decode_bwd(*ins, params, spec, gf, ga)
+    assert fd.fused_decode.launches_by_route["cuda_core"] == \
+        n3["cuda_core"] + 1
+    assert fd.fused_decode_bwd.launches_by_route["cuda_core"] == \
+        n4["cuda_core"] + 1
+    assert fd.fused_decode.launches_by_route["tensor_core"] == \
+        n3["tensor_core"]
+    fp = fd.fused_decode_plain(*ins, params, spec)
+    gp = fd.fused_decode_bwd_plain(*ins, params, spec, gf, ga)
+    torch.cuda.synchronize()
+    for a, b in list(zip(fk, fp)) + list(zip(tree_leaves(gk),
+                                              tree_leaves(gp))):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+    return fk, gk
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_decode_dead_groups_are_zero(dev, case):
+    """Every output a dead group owns is exactly 0 (its rows hold random
+    features); the live groups match the plain version."""
+    ins, params, spec, gf, ga, live = _f32_inputs(dev, case)
+    (fagg, alpha), (g_feat, g_dists, g_extras, g_w, _gp) = _hold_f32(
+        ins, params, spec, gf, ga)
+    dead = ~live
+    assert not bool(fagg[dead].any()) and not bool(alpha[dead].any())
+    for t in (g_feat, g_dists, g_extras, g_w):
+        assert not bool(t.view(dead.shape[0], spec.K, -1)[dead].any())
+    if bool(live.any()):
+        assert bool(fagg[live].any()) and bool(g_w.view(-1, spec.K)[live]
+                                               .any())
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_live_list_matches_plain(dev, case):
+    """The list pass of both kernels alone, K3's rule and K4's, equals
+    live_groups_plain bit for bit (ascending group ids)."""
+    from pointnerf_tpu_torch.ops.fused_decode import (live_groups,
+                                                      live_groups_plain)
+    ins, _p, spec, gf, ga, _live = _f32_inputs(dev, case, grad_only=5
+                                               if case != "all" else 0)
+    w = ins[3]
+    got = live_groups(w, spec.K)
+    assert torch.equal(got.cpu(), live_groups_plain(w.cpu(), spec.K))
+    got4 = live_groups(w, spec.K, gf, ga)
+    assert torch.equal(got4.cpu(), live_groups_plain(w.cpu(), spec.K,
+                                                     gf.cpu(), ga.cpu()))
+
+
+def test_f32_decode_bwd_live_gradient_without_weight(dev):
+    """Groups whose rows all have w == 0 but whose upstream gradient is
+    nonzero are computed: g_w there matches the plain version and is not
+    zero, the other row gradients are zero."""
+    ins, params, spec, gf, ga, with_grad = _f32_inputs(dev, "sparse",
+                                                       grad_only=12)
+    _f, (g_feat, _d, g_extras, g_w, _gp) = _hold_f32(ins, params, spec, gf,
+                                                     ga)
+    K = spec.K
+    only = with_grad & ~(ins[3].view(-1, K) != 0).any(1)
+    assert int(only.sum()) == 12
+    assert bool((g_w.view(-1, K)[only] != 0).all())
+    assert not bool(g_extras.view(-1, K, spec.E)[only].any())
+    assert not bool(g_feat.view(-1, K, spec.Fi)[only].any())
+
+
+@pytest.mark.parametrize("case", ["sparse", "all"])
+def test_f32_decode_bwd_bit_identical(dev, case):
+    """dW, db and every row gradient are the same bits in two calls (fixed
+    summation orders, no atomics), and so is the forward."""
+    from pointnerf_tpu_torch.ops.fused_decode import (fused_decode,
+                                                      fused_decode_bwd)
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    ins, params, spec, gf, ga, _l = _f32_inputs(dev, case, R=12)
+    for a, b in zip(tree_leaves(fused_decode_bwd(*ins, params, spec, gf, ga)),
+                    tree_leaves(fused_decode_bwd(*ins, params, spec, gf,
+                                                 ga))):
+        assert torch.equal(a, b)
+    for a, b in zip(fused_decode(*ins, params, spec),
+                    fused_decode(*ins, params, spec)):
+        assert torch.equal(a, b)
+
+
+def test_f32_decode_bwd_in_batches(dev, monkeypatch):
+    """With the scratch cut to 3 tiles, K4 takes its live rows in many
+    batches (phase B adding to its partials): the same function, the same
+    bits in two calls."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    monkeypatch.setattr(fd, "F32_CAP_ROWS", 3 * fd.F32_ROWS)
+    ins, params, spec, gf, ga, live = _f32_inputs(dev, "all", R=6)
+    assert int(live.sum()) * spec.K > 5 * fd.bwd_f32_cap(ins[0].shape[0])
+    _f, gk = _hold_f32(ins, params, spec, gf, ga)
+    again = fd.fused_decode_bwd(*ins, params, spec, gf, ga)
+    for a, b in zip(tree_leaves(gk), tree_leaves(again)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(H=128, L1=1, L3=1, K=4),
+                                dict(K=16, L1=1, L3=3),
+                                dict(L1=4, L3=4, R=6),
+                                dict(K=64, R=4)])
+def test_f32_decode_other_shapes(dev, kw):
+    """Another width, depths from 2 to 8 layers, K from 4 to 64 (a tile of
+    one group)."""
+    ins, params, spec, gf, ga, live = _f32_inputs(dev, "sparse", **kw)
+    (fagg, _a), _g = _hold_f32(ins, params, spec, gf, ga)
+    assert not bool(fagg[~live].any())
+
+
+def test_f32_decode_eval_chunk_size(dev):
+    """K3 on 5,898,240 rows (an 800 x 800 frame's eval chunk of 9,216 rays
+    x 80 slots x 8 neighbors), ~2% of the groups live: the plain
+    version's bar, dead groups exactly 0."""
+    from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec,
+                                                      fused_decode,
+                                                      fused_decode_plain)
+    spec = DecodeSpec(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+                      neg_slope=0.01, bf16=False)
+    G = 9216 * 80
+    M = G * 8
+    g = torch.Generator(device=dev).manual_seed(1)
+    live = torch.rand(G, generator=g, device=dev) < 0.02
+    feat = torch.randn((M, 32), generator=g, device=dev) * 0.5
+    dists = torch.randn((M, 6), generator=g, device=dev) * 0.05
+    extras = torch.randn((M, 7), generator=g, device=dev) * 0.5
+    w = torch.rand((M, 1), generator=g, device=dev) \
+        * live.repeat_interleave(8)[:, None]
+    _i, params, _s, _gf, _ga, _l = _f32_inputs(dev, "none", R=1)
+    fk, ak = fused_decode(feat, dists, extras, w, params, spec)
+    fp, ap = fused_decode_plain(feat, dists, extras, w, params, spec)
+    torch.cuda.synchronize()
+    for a, b in ((fk, fp), (ak, ap)):
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max())
+        assert not bool(a[~live].any())
+
+
+@pytest.mark.parametrize("kw", [{}, dict(H=128, L1=1, L3=1),
+                                dict(Fi=120, H=256, L1=1, L3=1, E=20),
+                                dict(H=512)])
+def test_f32_smem_formulas_match_the_kernels(dev, kw):
+    from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec,
+                                                      bwd_smem_bytes,
+                                                      f32_smem_bytes_built,
+                                                      smem_bytes)
+    d = dict(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+             neg_slope=0.01, bf16=False)
+    d.update(kw)
+    spec = DecodeSpec(**d)
+    want = (smem_bytes(spec), *bwd_smem_bytes(spec))
+    if spec.H > 256:
+        want = (0, 0, 0)           # the kernels refuse it
+    assert f32_smem_bytes_built(spec) == want
