@@ -120,11 +120,60 @@ Phases:
      K4 bf16 are held against their plain versions on the first train
      step's recorded inputs (921,600 rows), and K1, K3 and K2 on the first
      request's, at the bars of phases 3-5;
- 14. the kernels JSON line (one row per kernel source; K3 and K4 have a
+ 14. the hybrid path: the recorded hybrid configuration
+     (runs/quality_cluster_hole_nerf_r5/opt.json, loaded as it is:
+     nerf_importance 8 from 64 coarse field samples, a 128-wide 4-layer
+     field, bf16, compacted at 0.4, both fused flags off) on the cluster
+     with prims 1 and 4 left out of a 200,000-point cloud (coverage holes),
+     random weights (the field's too): a 512-ray request card vs CPU (CPU
+     with the flags set; its merged march is the plain march) — masks and
+     neighbor ids equal, the merge order idx_s equal to the CPU's merge of
+     the card's samples (it differs from the CPU's own only where a field
+     sample lies within its card-vs-CPU difference of a point sample: the
+     field's f32 sums differ by ~1e-6), the merged colors of the
+     rays that hit within HYBRID_COLOR_BF16_TOL, the field's coarse color
+     within the f32 bar; 3 + 10 train steps of 3,600 rays (K1, K3, K4 once
+     each, K2 never) and 2 requests (K1, K3 once, K2 twice: the points
+     alone, then the z-merged sequence of 80 + 8 samples), train rays/s
+     and rays/s; the request again from the trained state within
+     HYBRID_COLOR_TRAINED_BF16_TOL, and a 512-ray train step's loss and
+     gradients (the field's in the MLP group) card vs CPU with the same
+     draws, under phase 8's bars;
+ 15. the fine pass: the same configuration with fine_sample_num 80 and
+     fine_raycolor in the color loss (as the reference registers it): the
+     same checks — fine_raycolor too, and fine_neighbor_pidx equal on every
+     fine shading point that is bit-equal card vs CPU (the points come from
+     the coarse blend weights, which carry the bf16 decode) —, 1 + 3 train
+     steps (K1, K3, K4 twice each) and 1 request (K1, K3 twice, K2 three
+     times: the coarse 80, the fine 160, the merged 88);
+ 16. NeRF-driven creation: train_scene at the recorded creation
+     configuration (runs/quality_cluster_hole_create_r5/opt.json) with the
+     schedule cut to 24 steps, one probe of one 800 x 800 frame at step 16
+     and prob_thresh CREATE_PROB_THRESH (the field is at its random init),
+     an eval and a checkpoint at 24, then a resume to step 26: every train
+     step launches K1, K3, K4 once, every probe or eval chunk K1, K3 once
+     and K2 twice; the grow adds exactly the candidates the host derives
+     from the probe maps, with points created on missed rays at the field's
+     expected location; the grid is rebuilt with them; the resumed state
+     (params["nerf"] included) equals the saved one bit for bit;
+ 17. each kernel at the new shapes, on the inputs the first request and
+     train step of phases 14 and 15 gave it: K2 on the merged sequence and
+     on the fine one (within K2_TOL), K1 on the fine pass (bit-equal), K3
+     bf16 on the fine pass and K4 bf16 on the fine pass's decode of a step
+     (their bars), with times and bounds;
+ 18. the loaders: the cluster (its 200,000-point cloud) written as an NSVF
+     scene (tt_ft: 5 + 1 views of 96 x 96, RGBA PNGs, a 4x4 intrinsics
+     file, a bbox) and as a waymo_ft bundle through the port's
+     frames_to_npz (the cloud voxel-downsampled per frame on the card);
+     train_dataset_scene for 4 steps on each at scene_config() (K3 and K4
+     f32 once a step, K1 never) with one 9,216-ray eval chunk (K3 f32
+     once, K2 once) and a checkpoint;
+ 19. the kernels JSON line (one row per kernel source; K3 and K4 have a
      tensor-core row and a CUDA-core row, counted by route; launches per
-     path: serve, train, maintenance, dataset, flags_off; each kernel's
-     numbers on the maintenance path's probe and eval chunks and on the
-     flags-off path's train step and request), the card line, and the
+     path: serve, train, maintenance, dataset, flags_off, hybrid (phases
+     14-16), loaders; each kernel's numbers on the maintenance path's probe
+     and eval chunks, on the flags-off path's train step and request, and
+     at the hybrid's and the fine pass's shapes), the card line, and the
      final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
@@ -133,8 +182,10 @@ so a kernel that skipped a bf16 rounding point would fail. K3 and K4 in
 bf16 are held there on the mean error (mean |kernel - plain| / mean
 |plain|): any change of summation order moves a few elements by a bf16 step,
 so the largest error of a sound kernel is of the control's order. Their
-largest error is held apart, tensor by tensor, against that of the plain
-version summed in f64 (hold_max), which catches a fault in a few rows.
+largest error is held apart, tensor by tensor, which catches a fault in a
+few rows: K3's at fixed bars set from readings over many chunks, with a
+control (a live tile zeroed) above them (hold_k3_max), K4's against that
+of the plain version summed in f64 (hold_max).
 
 Any failure exits non-zero before the status line. Without a CUDA device,
 or without the pointnerf_tpu_torch package beside it, it exits 1.
@@ -170,14 +221,37 @@ COLOR_BF16_TOL = 1e-5  # card vs CPU colors of the rays that hit, bf16 decode
 # HBM3 at 700 W (PERF.md §6): 5.7e-05 to 1.06e-04, control 5.2e-04 to
 # 6.1e-04
 COLOR_TRAINED_BF16_TOL = 2.5e-4
+# card vs CPU colors of a hybrid request (the merged march of the
+# bf16-decoded points and the f32 field, and the fine pass's colors) on the
+# rays that hit, held on mean |card - CPU| / mean |CPU| as K3 is: their
+# largest error reads up to 1.0x the control's in the trained state (a bf16
+# rounding at a tie moves a ray by the control's order), so the points-only
+# largest-error bars do not fit. Readings on an H100 80GB HBM3 at 700 W
+# (PERF.md §6), merged / fine: random weights up to 1.6e-06 / 3.7e-07
+# (control from 2.0e-05 / 5.5e-06), trained up to 4.2e-05 / 1.4e-06
+# (control from 3.2e-04 / 6.0e-05)
+HYBRID_COLOR_BF16_TOL = {"coarse_raycolor": 5e-6, "fine_raycolor": 1.5e-6}
+HYBRID_COLOR_TRAINED_BF16_TOL = {"coarse_raycolor": 1e-4,
+                                 "fine_raycolor": 1.5e-5}
 K4_F32_TOL = 2e-4      # decode backward in f32, per gradient, of max|plain|
 K4_BF16_TOL = 5e-3     # decode backward in bf16, mean relative error
-# K3 and K4 in bf16 are also held on their largest error, output by output
-# and gradient by gradient (hold_max): at most MAX_FACTOR times the largest
-# distance of the f64-summed plain version from the f32 one, plus the f32
-# route's bar for a sum in another order. A fault confined to a few rows (a
-# live tile taken for dead, or left out of dW) shows there, not in the mean.
+# K4 in bf16 is also held on its largest error, gradient by gradient
+# (hold_max): at most MAX_FACTOR times the largest distance of the
+# f64-summed plain version from the f32 one, plus the f32 route's bar for a
+# sum in another order. A fault confined to a few rows (a live tile taken
+# for dead, or left out of dW) shows there, not in the mean.
 MAX_FACTOR = 2.0
+# K3 bf16's largest error, output by output, of max|plain| (hold_k3_max).
+# Read by scripts/hold_max_survey.py on 52 probe and eval chunks of the
+# maintenance path, both probes, two chip runs (H100 80GB HBM3, 700 W;
+# PERF.md §6): fagg up to 7.403e-03, alpha up to 8.230e-04 (an earlier
+# run once read 8.442e-04); the control — a live 64-row tile zeroed, the
+# median tile — at least 0.915. Where a reading passes MAX_FACTOR x the
+# f64-summed plain version's, one bf16 rounding at a tie, taken the other
+# way, gives the kernel's output exactly; so K3 is held to fixed bars from
+# the readings, above the highest and more than 3x under the least
+# control.
+K3_BF16_MAX_TOL = {"fagg": 3e-2, "alpha": 1e-2}
 # card vs CPU probe outputs of the maintenance path's probe window. The
 # outputs read at the argmax sample from the neighbor weights and payloads,
 # which no decode touches: max |card - CPU| / max |CPU| on the rays
@@ -209,7 +283,18 @@ MAX_TIE_SHARE = 0.25
 # control with room above the readings; these sit >= 2.3x over the highest
 # reading and >= 3x under the least control.
 LOSS_BF16_TOL = 1e-4
+# the hybrid's loss: its field term (f32 on both sides) and the missed rays
+# dilute the decode's share, so the control sits lower too (hybrid path,
+# step 13: read 1.9e-06 to 5.3e-06, control 7.5e-05 to 1.5e-04; PERF.md §6)
+HYBRID_LOSS_BF16_TOL = 2e-5
 GRAD_BF16_TOL = {"mlp": 1e-2, "points": 2.5e-3}
+# the hybrid paths (PERF.md §6; readings / controls at the trained state):
+# the field's gradients ("nerf") carry the bf16 decode only through the
+# merged march's transmission, so readings (up to 2.7e-04) and controls
+# (from 5.7e-04) sit close: the bar between them is thin; with the fine
+# pass the aggregator's ("mlp") control falls to 9.9e-03 (read 2.8e-04)
+HYBRID_GRAD_BF16_TOL = {"mlp": 1e-2, "points": 2.5e-3, "nerf": 4e-4}
+FINE_GRAD_BF16_TOL = {"mlp": 3e-3, "points": 2.5e-3, "nerf": 4e-4}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_BF16 = 989e12             # dense bf16 tensor-core rate
 PEAK_F32 = 67e12               # f32 outside the tensor cores
@@ -332,6 +417,53 @@ def hold_max(what: str, names, kern, plain, ref, f32_tol: float) -> None:
         fail(f"{what}: the largest error of {bad} is beyond its bar")
 
 
+def k3_max_readings(out, plain, ref, w, K: int):
+    """K3 bf16's largest error per output (fagg, alpha), relative to
+    max|plain|: {name: (kernel's, the f64-summed plain version's, control)}.
+    The control models a live tile taken for dead: the kernel's output with
+    one live TC_ROWS-row tile zeroed, read for every live tile and taken at
+    the median (a typical live tile; its groups' largest |plain|). None
+    when the plain output is all zero (no row carries weight)."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import TC_ROWS
+    gpt = TC_ROWS // K                       # groups per tile
+    row_live = (w.reshape(-1) != 0)
+    pad = -row_live.numel() % TC_ROWS
+    tile_live = torch.nn.functional.pad(row_live, (0, pad)).view(
+        -1, TC_ROWS).any(1)
+    res = {}
+    for name, k, p, r in zip(("fagg", "alpha"), out, plain, ref):
+        s = float(p.abs().max())
+        if not s > 0:
+            return None                       # nothing decoded: no reading
+        gmax = p.abs().amax(-1)
+        gmax = torch.nn.functional.pad(gmax, (0, -gmax.numel() % gpt))
+        tiles = gmax.view(-1, gpt).amax(1)[:tile_live.numel()]
+        live = tiles[tile_live[:tiles.numel()]]
+        ctl = float(live.median()) / s if live.numel() else 0.0
+        res[name] = (float((k - p).abs().max()) / s,
+                     float((r - p).abs().max()) / s, ctl)
+    return res
+
+
+def hold_k3_max(what: str, out, plain, ref, w, K: int) -> None:
+    """Fail unless each K3 bf16 output's largest |kernel - plain| /
+    max|plain| is within K3_BF16_MAX_TOL and its control (a live tile
+    zeroed, `k3_max_readings`) lies above that bar."""
+    rd = k3_max_readings(out, plain, ref, w, K)
+    if rd is None:
+        fail(f"{what}: the plain decode is all zero")
+    log(f"{what}: largest |err| / max|plain| per output [bar], beside the "
+        f"f64-summed plain version's and the control (a live tile zeroed): "
+        + ", ".join(f"{n} {a:.3e} [{K3_BF16_MAX_TOL[n]:.1e}] (f64 {b:.3e}, "
+                    f"control {c:.3e})" for n, (a, b, c) in rd.items()))
+    for n, (a, _b, c) in rd.items():
+        if not a <= K3_BF16_MAX_TOL[n]:
+            fail(f"{what}: the largest error of {n} is beyond its bar")
+        if not c > K3_BF16_MAX_TOL[n]:
+            fail(f"{what}: the bar of {n} does not tell the control apart")
+
+
 def live_tiles(row_live, rows: int) -> str:
     """'n of N' tiles of `rows` rows that hold a live row."""
     import torch
@@ -398,16 +530,18 @@ RENDER_KERNELS = ("knn_select", "fused_decode", "fused_march")
 def recording_kernels():
     """Recording wrappers around the three kernel entry points as the
     render path calls them; yields {name: (args, kwargs)} of each one's
-    last call."""
+    last call, and under "all" {name: [(args, kwargs), ...]} of every call
+    in order."""
     from pointnerf_tpu_torch.models import aggregator, renderer
     from pointnerf_tpu_torch.ops import query
-    seen = {}
+    seen = {"all": {}}
     spots = [(query, "knn_select"), (aggregator, "fused_decode"),
              (renderer, "fused_march")]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr in spots]
     for mod, attr, real in originals:
         def rec(*a, _name=attr, _real=real, **k):
             seen[_name] = (a, k)
+            seen["all"].setdefault(_name, []).append((a, k))
             return _real(*a, **k)
         setattr(mod, attr, rec)
     try:
@@ -580,11 +714,11 @@ def check_k3(captured, what: str = "request"):
                     f"output), max abs err {err:.3e}")
                 # the order-independent reference: the plain version with
                 # its sums in f64, the same rounding points
-                hold_max(f"K3 bf16, {what} {i}", ("fagg", "alpha"), out,
-                         plain[label],
-                         fused_decode_plain(feat, dists, extras, w, params,
-                                            sp, dtype=torch.float64),
-                         K3_F32_TOL)
+                hold_k3_max(f"K3 bf16, {what} {i}", out, plain[label],
+                            fused_decode_plain(feat, dists, extras, w,
+                                               params, sp,
+                                               dtype=torch.float64),
+                            w, sp.K)
                 rel = max(rel, m)
                 control = min(control, worst_mean(plain["f32"],
                                                   plain["bf16"]))
@@ -762,8 +896,8 @@ def cpu_parity(params, pc, st, grid, cfg, cfg_cpu=None, b_card=None,
     mv = lambda t: t.to(cpu)  # noqa: E731
     pc_c = type(pc)(*[mv(t) for t in pc])
     st_c = type(st)(*[mv(t) for t in st])
-    params_c = {k: [{n: mv(t) for n, t in layer.items()} for layer in v]
-                for k, v in params.items()}
+    from pointnerf_tpu_torch.train.optim import tree_map
+    params_c = tree_map(mv, params)
     q = dataclasses.replace(cfg.query, max_d=grid.nbr_pid.shape[0])
     grid_c = build_grid(pc_c.xyz, st_c.num_active, q)
     for f in ("vox_dslot", "nbr_pid", "nbr_xyz", "vox_occ"):
@@ -816,18 +950,21 @@ def capture_k4_inputs(state, st, grid, batch, cfg):
 def recording_decode():
     """Recording wrappers around K3's entry point (as the aggregator calls
     it) and K4's (as the autograd Function's backward calls it); yields
-    {"fused_decode": args, "fused_decode_bwd": args} of the last calls."""
+    {"fused_decode": args, "fused_decode_bwd": args} of the last calls,
+    and under "all" {name: [args, ...]} of every call in order."""
     from pointnerf_tpu_torch.models import aggregator
     from pointnerf_tpu_torch.ops import fused_decode as fd
-    seen = {}
+    seen = {"all": {}}
     real_fwd, real_bwd = aggregator.fused_decode, fd.fused_decode_bwd
 
     def fwd(*a, **k):
         seen["fused_decode"] = a
+        seen["all"].setdefault("fused_decode", []).append(a)
         return real_fwd(*a, **k)
 
     def bwd(*a, **k):
         seen["fused_decode_bwd"] = a
+        seen["all"].setdefault("fused_decode_bwd", []).append(a)
         fd.fused_decode_bwd = real_bwd  # the wrapper counts on its own name
         try:
             return real_bwd(*a, **k)
@@ -1044,12 +1181,16 @@ def named_leaves(tree, name=""):
     return [(name, tree)]
 
 
-def train_grads(state, st, grid, cfg, seed0: int = 11):
+def train_grads(state, st, grid, cfg, seed0: int = 11, b_card=None,
+                draws=None):
     """The loss and gradients of one 512-ray training step from `state` on
-    the card and on the CPU (plain versions), with the same jitter draw, and
-    the control: the CPU with an f32 decode. Fails unless the card and the
-    CPU agree on every integer. Returns {"card" | "cpu" | "control": (loss,
-    grads)}."""
+    the card and on the CPU (plain versions), with the same jitter draw (and
+    the same fine / hybrid `draws`, CPU tensors, when given), and the
+    control: the CPU with an f32 decode. `b_card` (default a ring view's
+    512 rays) is the batch. Fails unless the card and the CPU agree on
+    every integer. The CPU runs with the fused flags set (the kernels'
+    plain versions, which the card's kernels follow whatever the flags
+    say). Returns {"card" | "cpu" | "control": (loss, grads)}."""
     import torch
     from pointnerf_tpu_torch.models.renderer import render_rays
     from pointnerf_tpu_torch.train.optim import tree_map
@@ -1059,42 +1200,69 @@ def train_grads(state, st, grid, cfg, seed0: int = 11):
     st_c = type(st)(*[t.to(cpu) for t in st])
     grid_c = type(grid)(*[None if t is None else t.to(cpu) for t in grid])
     dev = state.step.device
-    b_card = batches(cfg, 512, 1, dev, seed0=seed0)[0]
+    flags = cfg.replace(
+        agg=dataclasses.replace(cfg.agg, fused_decode=True),
+        render=dataclasses.replace(cfg.render, fused_march=True))
+    if b_card is None:
+        b_card = batches(cfg, 512, 1, dev, seed0=seed0)[0]
     b_cpu = type(b_card)(*[None if t is None else t.to(cpu) for t in b_card])
-    u = torch.rand((512, cfg.query.z_depth_dim),
+    R = b_card.raydir.shape[0]
+    u = torch.rand((R, cfg.query.z_depth_dim),
                    generator=torch.Generator().manual_seed(3))
+    d_cpu = draws
+    d_card = None if draws is None else {k: v.to(dev)
+                                         for k, v in draws.items()}
     with torch.no_grad():
         o_card = render_rays(state.params["mlp"], state.params["points"], st,
-                             grid, b_card, cfg, train=True, u=u.to(dev))
+                             grid, b_card, cfg, train=True, u=u.to(dev),
+                             draws=d_card)
         o_cpu = render_rays(params_c["mlp"], params_c["points"], st_c, grid_c,
-                            b_cpu, cfg, train=True, u=u)
+                            b_cpu, flags, train=True, u=u, draws=d_cpu)
     same_integers(o_card, o_cpu)
     t_card, i_card, g_card = loss_and_grads(state.params, st, grid, b_card,
-                                            cfg, u=u.to(dev))
-    t_cpu, i_cpu, g_cpu = loss_and_grads(params_c, st_c, grid_c, b_cpu, cfg,
-                                         u=u)
-    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                  compute_dtype="f32"))
+                                            cfg, u=u.to(dev), draws=d_card)
+    t_cpu, i_cpu, g_cpu = loss_and_grads(params_c, st_c, grid_c, b_cpu,
+                                         flags, u=u, draws=d_cpu)
+    cfg32 = flags.replace(train=dataclasses.replace(flags.train,
+                                                    compute_dtype="f32"))
     t_ctl, _i, g_ctl = loss_and_grads(params_c, st_c, grid_c, b_cpu, cfg32,
-                                      u=u)
+                                      u=u, draws=d_cpu)
     for k in ("n_miss", "n_decode_dropped"):
         if int(i_card[k]) != int(i_cpu[k]):
             fail(f"train step: {k} differs between the card and the CPU")
-    log(f"card vs CPU train step, 512 rays (batch seed {seed0}): integers "
-        f"equal, {int(o_cpu.ray_mask.sum())} rays hit, loss "
-        f"{float(t_cpu):.6f}")
+    dcol = (o_card.coarse_raycolor.cpu() - o_cpu.coarse_raycolor).abs().amax(-1)
+    r = int(dcol.argmax())
+    log(f"card vs CPU train render (printed): largest color difference "
+        f"{float(dcol[r]):.3e} on ray {r} (hit {bool(o_cpu.ray_mask[r])}); "
+        + ", ".join(f"{k} {float(i_card[k]):.6e} vs {float(i_cpu[k]):.6e}"
+                    for k in i_cpu if k.startswith("loss_")))
+    log(f"card vs CPU train step, {R} rays: integers equal, "
+        f"{int(o_cpu.ray_mask.sum())} rays hit, loss {float(t_cpu):.6f}")
     return {"card": (t_card, g_card), "cpu": (t_cpu, g_cpu),
             "control": (t_ctl, g_ctl)}
 
 
+def grad_groups(grads):
+    """The gradient groups held apart: the aggregator's MLPs ("mlp"), the
+    point payloads ("points") and, with the hybrid, the radiance field
+    ("nerf", which shares the "mlp" optimizer group)."""
+    mlp = grads["mlp"]
+    out = {"mlp": {k: v for k, v in mlp.items() if k != "nerf"},
+           "points": grads["points"]}
+    if "nerf" in mlp:
+        out["nerf"] = mlp["nerf"]
+    return out
+
+
 def grad_readings(grads, ref):
-    """Per group of a gradient tree (mlp, points) against `ref`'s: the
+    """Per group of a gradient tree (`grad_groups`) against `ref`'s: the
     group's sum |g - ref| / sum |ref| over all its leaves, and its worst
     leaf's mean |g - ref| / mean |ref| and max |g - ref| / max |ref|, each
     as (value, leaf name)."""
     from pointnerf_tpu_torch.train.optim import tree_leaves
     out = {}
-    for grp in ("mlp", "points"):
+    grads, ref = grad_groups(grads), grad_groups(ref)
+    for grp in ref:
         num = den = 0.0
         worst_mean, worst_max = (0.0, ""), (0.0, "")
         for a, (name, b) in zip(tree_leaves(grads[grp]),
@@ -1115,27 +1283,33 @@ def grad_readings(grads, ref):
     return out
 
 
-def train_cpu_parity(state, st, grid, cfg):
+def train_cpu_parity(state, st, grid, cfg, b_card=None, draws=None,
+                     loss_bar=LOSS_BF16_TOL, grad_bars=None):
     """The loss and gradients of one 512-ray training step on the card
     against the CPU's, each beside its control (the CPU with an f32
-    decode)."""
-    r = train_grads(state, st, grid, cfg)
+    decode); `b_card` and `draws` as for `train_grads`, the loss within
+    `loss_bar`, each gradient group within `grad_bars` (default
+    GRAD_BF16_TOL)."""
+    grad_bars = grad_bars or GRAD_BF16_TOL
+    r = train_grads(state, st, grid, cfg, b_card=b_card, draws=draws)
     (t_card, g_card), (t_cpu, g_cpu), (t_ctl, g_ctl) = (
         r["card"], r["cpu"], r["control"])
     hold_bf16("card vs CPU train loss, relative",
               abs(float(t_card) - float(t_cpu)) / abs(float(t_cpu)),
               abs(float(t_ctl) - float(t_cpu)) / abs(float(t_cpu)),
-              LOSS_BF16_TOL)
+              loss_bar)
     card, ctl = grad_readings(g_card, g_cpu), grad_readings(g_ctl, g_cpu)
-    for grp in ("mlp", "points"):
+    for grp in card:
         (l1, (m, m_leaf), (mx, mx_leaf)), (c_l1, (cm, _), (cmx, _)) = (
             card[grp], ctl[grp])
-        log(f"card vs CPU {grp} gradients (printed only): worst leaf's mean "
-            f"|err| / mean |CPU| {m:.3e} ({m_leaf}; control {cm:.3e}), "
-            f"worst leaf's max |err| / max|CPU| {mx:.3e} ({mx_leaf}; control "
-            f"{cmx:.3e})")
+        log(f"card vs CPU {grp} gradients (printed only): sum |err| / sum "
+            f"|CPU| {l1:.3e} (control {c_l1:.3e}), worst leaf's mean |err| / "
+            f"mean |CPU| {m:.3e} ({m_leaf}; control {cm:.3e}), worst leaf's "
+            f"max |err| / max|CPU| {mx:.3e} ({mx_leaf}; control {cmx:.3e})")
+    for grp in card:
         hold_bf16(f"card vs CPU {grp} gradients, sum |err| / sum |CPU| over "
-                  f"the group's leaves", l1, c_l1, GRAD_BF16_TOL[grp])
+                  f"the group's leaves", card[grp][0], ctl[grp][0],
+                  grad_bars[grp])
 
 
 # ---- the maintenance path: train_scene with prune, grow, split, eval and
@@ -1204,13 +1378,17 @@ class MaintRecorder:
     eval chunk."""
 
     def __init__(self, cfg, kernels, train_kernels=TRAIN_KERNELS,
-                 render_kernels=RENDER_KERNELS, record_step=None):
+                 render_kernels=RENDER_KERNELS, record_step=None,
+                 chunk_launches=None):
         import torch
         from pointnerf_tpu_torch.train import driver as td, grow as tg
         self.torch, self.td, self.tg = torch, td, tg
         self.cfg, self.kernels = cfg, kernels
         # the kernels each train step and each rendered chunk launch once
         self.train_kernels, self.render_kernels = train_kernels, render_kernels
+        # the launches each rendered chunk makes per kernel (default once)
+        self.chunk_launches = dict(dict.fromkeys(render_kernels, 1),
+                                   **(chunk_launches or {}))
         # the train step (1-based) whose K3 and K4 inputs are recorded
         self.record_step = record_step
         self.step_inputs = None   # {"fused_decode": args, "fused_decode_bwd": args}
@@ -1220,6 +1398,7 @@ class MaintRecorder:
                                       "train_step")}
         self.log = []            # (event, detail) in order
         self.maps = None         # the first probe frame's maps
+        self.last_maps = None    # the latest probe frame's maps
         self.probe_item = None
         self.first_probe = None  # (params, st, grid) the first probe saw
         # {"probe_chunk" | "eval_chunk": {kernel: (args, kwargs)}}
@@ -1301,6 +1480,7 @@ class MaintRecorder:
                 f"truth is the sphere; peak opacity of the hit rays: max "
                 f"{float(peak.max()):.4f}, median "
                 f"{float(np.median(peak)):.4f}")
+            self.last_maps = maps
             if self.maps is None:
                 self.maps, self.probe_item = maps, item
                 if not miss.any():
@@ -1318,8 +1498,9 @@ class MaintRecorder:
         return run
 
     def chunk(self, real):
-        """Every rendered chunk (probe or eval) launches K1, K3 and K2 once
-        each; the middle chunk of the first probe frame and of the first
+        """Every rendered chunk (probe or eval) launches K1, K3 and K2 as
+        often as `chunk_launches` says (once each by default); the middle
+        chunk of the first probe frame and of the first
         eval frame records the three kernels' inputs."""
         def run(params, st, grid, batch, cfg, prob=False):
             kind = "probe_chunk" if prob else "eval_chunk"
@@ -1335,10 +1516,11 @@ class MaintRecorder:
                                                    self.render_kernels)
             self._chunk += 1
             for n in self.render_kernels:
-                if self.kernels[n].launches != before[n] + 1:
+                want = self.chunk_launches[n]
+                if self.kernels[n].launches != before[n] + want:
                     fail(f"a {'probe' if prob else 'eval'} chunk launched {n} "
                          f"{self.kernels[n].launches - before[n]} times, not "
-                         f"once")
+                         f"{want}")
             return out
         return run
 
@@ -2219,6 +2401,660 @@ def flags_off_path(kernels, device="cuda"):
                             "flags_off_request": request}
 
 
+# ---- the hybrid paths: the proposal-NeRF hybrid, the fine pass and
+# NeRF-driven point creation at the recorded hole-scene configurations ----
+HYBRID_OPT = "runs/quality_cluster_hole_nerf_r5/opt.json"
+CREATE_OPT = "runs/quality_cluster_hole_create_r5/opt.json"
+HOLE_PRIMS = (1, 4)          # left out of the cloud (quality_bench --drop-prims)
+HYBRID_WARMUP, HYBRID_STEPS, HYBRID_REQUESTS = 3, 10, 2
+FINE_SAMPLES = 80            # as many fine samples as the coarse pass's SR
+FINE_WARMUP, FINE_STEPS, FINE_REQUESTS = 1, 3, 1
+CREATE_STEPS, CREATE_PROBE_AT, CREATE_RESUME_TO = 24, 16, 26
+# the field is at its random init after CREATE_PROBE_AT steps: a fresh
+# field's blend mass over a ray is ~1 - exp(-softplus(-3) x depth) ~ 0.08,
+# so the recorded 0.7 would create nothing; at this threshold the probe
+# creates points, and the same count is derived from its maps
+CREATE_PROB_THRESH = 0.05
+# the launches each path makes per train step and per request or chunk
+HYBRID_STEP = {"knn_select": 1, "fused_decode": 1, "fused_decode_bwd": 1,
+               "fused_march": 0}
+HYBRID_REQUEST = {"knn_select": 1, "fused_decode": 1, "fused_march": 2}
+FINE_STEP = {"knn_select": 2, "fused_decode": 2, "fused_decode_bwd": 2,
+             "fused_march": 0}
+FINE_REQUEST = {"knn_select": 2, "fused_decode": 2, "fused_march": 3}
+
+
+def opt_config(rel: str):
+    """A recorded configuration of the JAX package, loaded as it is."""
+    from pointnerf_tpu_torch.config import PointNeRFConfig
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           rel)) as f:
+        return PointNeRFConfig.from_json(f.read())
+
+
+def fine_config(cfg):
+    """The hybrid configuration with the fine pass (FINE_SAMPLES), its
+    color supervised as the reference registers it when fine_sample_num >
+    0 (else no gradient reaches the fine decode)."""
+    return cfg.replace(
+        render=dataclasses.replace(cfg.render, fine_sample_num=FINE_SAMPLES),
+        loss=dataclasses.replace(
+            cfg.loss,
+            color_loss_items=tuple(cfg.loss.color_loss_items)
+            + ("fine_raycolor",),
+            color_loss_weights=tuple(cfg.loss.color_loss_weights) + (1.0,)))
+
+
+def hole_scene(cfg, device):
+    """The procedural cluster with prims HOLE_PRIMS left out of a
+    QUALITY_POINTS-point cloud (their geometry stays in the ground truth:
+    coverage holes), random weights from a seed (the field's under "nerf"),
+    its grid, and the 8 sphere views of the flags-off path. Returns (prims,
+    pc, st, params, grid, views)."""
+    import torch
+    from pointnerf_tpu_torch.data.procedural import (SCENES, sample_cloud,
+                                                      sphere_cameras)
+    from pointnerf_tpu_torch.models.points import make_point_cloud
+    from pointnerf_tpu_torch.train.driver import init_mlp_params
+    from pointnerf_tpu_torch.train.step import refresh_grid
+    prims = SCENES[DS_SCAN]()
+    cloud = [p for i, p in enumerate(prims) if i not in HOLE_PRIMS]
+    xyz, color, normals = sample_cloud(cloud, QUALITY_POINTS, seed=0)
+    pc, st = make_point_cloud(xyz, torch.Generator().manual_seed(0),
+                              cfg.points, cfg.agg.point_features_dim,
+                              color=color, dirs=normals, device=device)
+    params = init_mlp_params(torch.Generator().manual_seed(1), cfg,
+                             device=device)
+    grid, _ = refresh_grid(pc, st, cfg)
+    views = sphere_cameras(8, radius=2.4, focal=875.0, wh=DS_WH, seed=0)
+    return prims, pc, st, params, grid, views
+
+
+@contextlib.contextmanager
+def recording_merge():
+    """A recording wrapper around the hybrid's z-merge; yields a list of
+    (t_pts, idx_s, z_i) per call."""
+    from pointnerf_tpu_torch.models import renderer
+    seen, real = [], renderer.merge_samples
+
+    def rec(t_pts, valid, feats_p, z_i, feats_n):
+        res = real(t_pts, valid, feats_p, z_i, feats_n)
+        seen.append((t_pts, res[1], z_i))
+        return res
+    renderer.merge_samples = rec
+    try:
+        yield seen
+    finally:
+        renderer.merge_samples = real
+
+
+def hybrid_draws(cfg, R: int, seed: int):
+    """CPU draws of a training render's fine pass and hybrid, shared by the
+    card and the CPU run of a parity step."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    r = cfg.render
+    d = {}
+    if r.fine_sample_num > 0:
+        d["fine"] = torch.rand((R, r.fine_sample_num + 1), generator=g)
+    if r.nerf_importance > 0:
+        d["nerf_march"] = torch.rand((R, r.nerf_coarse_samples), generator=g)
+        d["nerf_importance"] = torch.rand((R, r.nerf_importance), generator=g)
+    return d
+
+
+def hybrid_parity(params, pc, st, grid, cfg, b_card, bars=None):
+    """One request of the hybrid (and fine pass, when configured) on the
+    card and on the CPU with the fused flags set (the kernels' plain
+    versions; the CPU's merged march is the plain march, as in JAX), and
+    the control: the CPU with an f32 decode. Integers equal — masks,
+    neighbor ids (the fine pass's too) and the merge order idx_s; the
+    merged colors and the fine colors of the rays that hit within `bars`
+    (by output; default HYBRID_COLOR_BF16_TOL) on their mean error, with
+    the control above it; the field's coarse color within the f32 bar; the
+    creation signals printed."""
+    bars = bars or HYBRID_COLOR_BF16_TOL
+    import torch
+    from pointnerf_tpu_torch.ops.grid import build_grid
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from pointnerf_tpu_torch.train.step import eval_step
+    cpu = torch.device("cpu")
+    flags = cfg.replace(
+        agg=dataclasses.replace(cfg.agg, fused_decode=True),
+        render=dataclasses.replace(cfg.render, fused_march=True))
+    mv = lambda t: t.to(cpu)  # noqa: E731
+    pc_c, st_c = type(pc)(*[mv(t) for t in pc]), type(st)(*[mv(t) for t in st])
+    params_c = tree_map(mv, params)
+    q = dataclasses.replace(cfg.query, max_d=grid.nbr_pid.shape[0])
+    grid_c = build_grid(pc_c.xyz, st_c.num_active, q)
+    b_cpu = type(b_card)(*[None if t is None else mv(t) for t in b_card])
+    with recording_merge() as m_card, recording_kernels() as k_card:
+        o_card = eval_step({"mlp": params, "points": pc}, st, grid, b_card,
+                           cfg)
+    with recording_merge() as m_cpu, recording_kernels() as k_cpu:
+        o_cpu = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c,
+                          b_cpu, flags)
+    same_integers(o_card, o_cpu)
+    # the merge order: equal, except where a field sample lies within its
+    # card-vs-CPU difference (the field's f32 sums) of a point sample;
+    # everywhere the card's order must be the CPU's merge of the card's
+    # own samples
+    (tk, ik, zk), (tc, ic, zc) = [[t.cpu() for t in m[0]] for m in (m_card,
+                                                                     m_cpu)]
+    bad = (ik != ic).any(-1)
+    own = torch.sort(torch.cat([tk, zk], -1), dim=-1, stable=True).indices
+    unexplained = (own != ik).any(-1)
+    zerr = float(((zk - zc).abs() / zc.abs()).max())
+    terr = float(((tk - tc).abs() / tc.abs()).max())
+    log(f"hybrid card vs CPU, {b_card.raydir.shape[0]} rays: the field's "
+        f"importance z within {zerr:.3e}, the points' t within {terr:.3e} "
+        f"(relative); merge order idx_s differs on {int(bad.sum())} rays (a "
+        f"field sample within that of a point sample); the card's order is "
+        f"not the CPU merge of the card's samples on "
+        f"{int(unexplained.sum())} rays (must be 0)")
+    if bool(unexplained.any()):
+        r = int(unexplained.nonzero()[0, 0])
+        fail(f"the hybrid's merge differs between the card and the CPU "
+             f"(ray {r}: card {ik[r].tolist()}, CPU {own[r].tolist()})")
+    if cfg.render.fine_sample_num > 0:
+        # the fine pass's shading points come from the coarse blend
+        # weights, which carry the bf16 decode's roundings: its KNN must
+        # agree wherever its inputs (the points, K1's centers) agree
+        fk, fc = o_card.fine_neighbor_pidx.cpu(), o_cpu.fine_neighbor_pidx
+        ck = k_card["all"]["knn_select"][-1][0][3].cpu()
+        cc = k_cpu["all"]["knn_select"][-1][0][3]
+        same = (ck == cc).all(-1)
+        bad = (fk != fc).any(-1)
+        moved = float((ck - cc).abs().max())
+        log(f"fine pass card vs CPU: {int(same.sum())} of {same.numel()} "
+            f"fine shading points bit-equal (the others within {moved:.3e}); "
+            f"neighbor ids differ on {int(bad.sum())} slots, of which on "
+            f"bit-equal points {int((bad & same).sum())} (must be 0)")
+        if bool((bad & same).any()):
+            fail("the fine pass's neighbor ids differ between the card and "
+                 "the CPU on the same shading points")
+    cfg32 = flags.replace(train=dataclasses.replace(flags.train,
+                                                    compute_dtype="f32"))
+    o_ctl = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
+                      cfg32)
+    hit = o_cpu.ray_mask
+    if not bool(hit.any()):
+        fail("no ray of the hybrid parity request hits the cloud")
+    fields = ["coarse_raycolor"] + (["fine_raycolor"]
+                                    if cfg.render.fine_sample_num > 0 else [])
+    for f in fields:
+        col = mv(getattr(o_card, f))[hit]
+        ref, ctl = getattr(o_cpu, f)[hit], getattr(o_ctl, f)[hit]
+        log(f"hybrid card vs CPU {f} of the rays that hit, largest |err| "
+            f"(printed) {float((col - ref).abs().max()):.3e} (control "
+            f"{float((col - ctl).abs().max()):.3e})")
+        hold_bf16(f"hybrid card vs CPU {f} of the {int(hit.sum())} rays that "
+                  f"hit, mean |err| / mean |CPU|", mean_rel(col, ref),
+                  mean_rel(col, ctl), bars[f])
+    nc = o_cpu.nerf_coarse_raycolor
+    err = float((mv(o_card.nerf_coarse_raycolor) - nc).abs().max())
+    log(f"hybrid card vs CPU nerf_coarse_raycolor (the f32 field alone): max "
+        f"abs err {err:.3e} (tolerance {K3_F32_TOL} x scale "
+        f"{float(nc.abs().max()):.3e})")
+    if not err <= K3_F32_TOL * float(nc.abs().max()):
+        fail("the field's coarse color differs between the card and the CPU")
+    sig = o_cpu.nerf_mass[:, 0] > 1e-2
+    errs = {f: float((mv(getattr(o_card, f)) - getattr(o_cpu, f))[sig].abs()
+                     .max()) for f in ("nerf_mass", "nerf_loc_w", "nerf_color")}
+    log("hybrid card vs CPU creation signals (printed): max abs err "
+        + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+        + f" over the {int(sig.sum())} rays with field mass > 1e-2; the "
+          f"field mass {float(o_cpu.nerf_mass.min()):.4f} to "
+          f"{float(o_cpu.nerf_mass.max()):.4f}, misses "
+          f"{int((~hit).sum())}")
+
+
+def hybrid_run(cfg, kernels, name, warmup, steps, n_requests, step_launch,
+               request_launch, device="cuda"):
+    """A hybrid configuration on the hole scene: a 512-ray request card vs
+    CPU at random weights; `warmup` + `steps` train steps of 3,600 rays on
+    one batch (each launching `step_launch`; the first and, for the fine
+    pass, a middle one record K3/K4's inputs) and `n_requests` requests of
+    3,600 rays (each launching `request_launch`; the first records the
+    kernels' inputs), with the train rays/s and rays/s; then the same
+    request card vs CPU from the trained state, and a 512-ray train step's
+    loss and gradients (the field's included) card vs CPU with the same
+    draws. Returns (launch counts, routes, recorded step and request
+    inputs, rates)."""
+    import torch
+    from pointnerf_tpu_torch.data.procedural import view_item
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, train_step)
+    dev = torch.device(device)
+    prims, pc, st, params, grid, views = hole_scene(cfg, dev)
+    items = [view_item(prims, *v, DS_WH, n_rays=N_RAYS, seed=i, view_id=i)
+             for i, v in enumerate(views)]
+    # the parity request: 512 rays of view 5 that hit the cloud (the hole
+    # scene fills a few percent of a frame: the decode's share of the
+    # colors, the loss and the gradients would be a few rays' otherwise)
+    pool = ray_batch_from_numpy(view_item(prims, *views[5], DS_WH,
+                                          n_rays=16384, seed=7, view_id=5),
+                                cfg, device=dev)
+    hit = eval_step({"mlp": params, "points": pc}, st, grid, pool,
+                    cfg).ray_mask.nonzero()[:512, 0]
+    if hit.numel() < 512:
+        fail(f"{name}: only {hit.numel()} of 16,384 rays of view 5 hit")
+    parity_batch = pool._replace(raydir=pool.raydir[hit],
+                                 pixel_idx=pool.pixel_idx[hit],
+                                 gt_image=pool.gt_image[hit])
+    hybrid_parity(params, pc, st, grid, cfg, parity_batch)
+    state = create_train_state(torch.Generator(device=dev).manual_seed(2),
+                               params, pc, cfg)
+    tbatch = ray_batch_from_numpy(items[0], cfg, device=dev)
+    reset_counts(kernels)
+    losses, step_inputs = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = {n: k.launches for n, k in kernels.items()}
+        if i == 0:
+            with recording_decode() as step_inputs:
+                state, it = train_step(state, st, grid, tbatch, cfg)
+        else:
+            state, it = train_step(state, st, grid, tbatch, cfg)
+        for n, want in step_launch.items():
+            if kernels[n].launches != before[n] + want:
+                fail(f"{name} train step {i}: {n} launched "
+                     f"{kernels[n].launches - before[n]} times, not {want}")
+        losses.append(it["loss_total"])
+    torch.cuda.synchronize()
+    dt_train = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"a {name} training loss is not finite: {losses.tolist()}")
+    t1 = time.perf_counter()
+    request_inputs = None
+    for i in range(n_requests):
+        before = {n: k.launches for n, k in kernels.items()}
+        b = ray_batch_from_numpy(items[1 + i], cfg, device=dev)
+        if i == 0:
+            with recording_kernels() as request_inputs:
+                out = eval_step(state.params, st, grid, b, cfg)
+        else:
+            out = eval_step(state.params, st, grid, b, cfg)
+        for n, want in request_launch.items():
+            if kernels[n].launches != before[n] + want:
+                fail(f"{name} request {i}: {n} launched "
+                     f"{kernels[n].launches - before[n]} times, not {want}")
+        for f in ("coarse_raycolor", "nerf_coarse_raycolor", "fine_raycolor"):
+            v = getattr(out, f)
+            if v is not None and not bool(torch.isfinite(v).all()):
+                fail(f"{name} request {i}: {f} not finite")
+    torch.cuda.synchronize()
+    dt_serve = time.perf_counter() - t1
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = kernel_routes(kernels, name)
+    rates = {"train_rays_per_s": steps * N_RAYS / dt_train,
+             "rays_per_s": n_requests * N_RAYS / dt_serve}
+    log(f"{name} path: {steps} steps x {N_RAYS} rays after {warmup} warm-up "
+        f"steps, {rates['train_rays_per_s']:.1f} train rays/s; "
+        f"{n_requests} requests x {N_RAYS} rays in {dt_serve:.4f} s, "
+        f"{rates['rays_per_s']:.1f} rays/s (host clock, synchronized); losses "
+        f"{[round(float(v), 6) for v in losses]}; launches {counts}, routes "
+        f"{routes}")
+    hybrid_parity(state.params["mlp"], state.params["points"], st, grid, cfg,
+                  parity_batch, bars=HYBRID_COLOR_TRAINED_BF16_TOL)
+    train_cpu_parity(state, st, grid, cfg, b_card=parity_batch._replace(
+        gt_image=torch.rand((512, 3), generator=torch.Generator().manual_seed(
+            5)).to(dev)), draws=hybrid_draws(cfg, 512, seed=6),
+        loss_bar=HYBRID_LOSS_BF16_TOL,
+        grad_bars=(FINE_GRAD_BF16_TOL if cfg.render.fine_sample_num
+                   else HYBRID_GRAD_BF16_TOL))
+    del state
+    return counts, routes, step_inputs, request_inputs, rates
+
+
+def hybrid_kernel_checks(name, step_inputs, request_inputs, fine: bool):
+    """Each kernel against its plain version at the shapes the path gave
+    it: K2 on the request's merged sequence (and, with the fine pass, on
+    the fine sequence); K1 and K3 bf16 on the request's last pass (the fine
+    one with the fine pass); K4 bf16 on the recorded step's largest decode
+    (the fine pass's). Returns {kernel: numbers}."""
+    import torch
+    all_recorded(request_inputs, f"the recorded {name} request")
+    marches = request_inputs["all"]["fused_march"]
+    out = {}
+    with torch.no_grad():
+        log(f"{name} request: K2 on the merged sequence")
+        out["fused_march"] = check_k2(*marches[-1])
+        if fine:
+            log(f"{name} request: K2 on the fine sequence")
+            out["fused_march_fine"] = check_k2(*marches[1])
+        out["knn_select"] = check_k1(*request_inputs["knn_select"])
+        out["fused_decode"] = check_k3([request_inputs["fused_decode"]],
+                                       what=f"{name} request")["bf16"]
+        bwd = step_inputs["all"].get("fused_decode_bwd", [])
+        if not bwd:
+            fail(f"the recorded {name} train step ran no decode backward")
+        out["fused_decode_bwd"] = check_k4(
+            max(bwd, key=lambda a: a[0].shape[0]))["bf16"]
+    return out
+
+
+class CreateRecorder(MaintRecorder):
+    """MaintRecorder for NeRF-driven creation: the hybrid's chunks launch K2
+    twice; a grow is checked against the probe maps instead of the sphere:
+    its count equals the candidates the host derives from the maps (hit rays
+    next to a miss above prob_thresh, and missed rays whose field mass is
+    above it), and the created points sit at the field's expected location
+    on those missed rays."""
+
+    def apply_grow(self, real):
+        def run(state, st, cand, cfg):
+            import numpy as np
+            import torch
+            from pointnerf_tpu_torch.train.grow import _dilate3
+            n = int(st.num_active)
+            state, st, added = self._timed("grow", real, state, st, cand, cfg)
+            self.log.append(("grow", (n, added)))
+            maps, item = self.last_maps, self.probe_item
+            W, H = DS_WH
+            gt = np.zeros((H, W, 3), np.float32)
+            pix = np.asarray(item["pixel_idx"], np.int64)
+            gt[pix[:, 1], pix[:, 0]] = item["gt_image"]
+            bg = np.asarray(cfg.render.bg_color, np.float32)
+            hit = maps["ray_mask"][..., 0] > 0
+            miss = ~hit & (np.linalg.norm(gt - bg, axis=-1) > 0.002)
+            thr = cfg.train.prob_thresh
+            n_hole = int((hit & _dilate3(miss)
+                          & (maps["ray_max_shading_opacity"][..., 0] > thr))
+                         .sum())
+            seln = miss & (maps["nerf_mass"][..., 0] > thr)
+            n_field = int(seln.sum())
+            made = state.params["points"].xyz[n + n_hole:n + added].cpu()
+            want = torch.from_numpy(maps["nerf_loc_w"][seln])
+            log(f"creation: the probe frame has {int(miss.sum())} missed rays "
+                f"on the scene, {n_field} with field mass > {thr}; the host "
+                f"derives {n_hole} hole + {n_field} field candidates from the "
+                f"maps; the grow added {added}")
+            if not n_field:
+                fail("NeRF-driven creation found no missed ray with field "
+                     "mass above prob_thresh")
+            if added != n_hole + n_field:
+                fail(f"the grow added {added} points, the maps give "
+                     f"{n_hole + n_field}")
+            if not torch.equal(made, want):
+                fail("the created points are not at the field's expected "
+                     "locations")
+            return state, st, added
+        return run
+
+
+def creation_path(kernels, device="cuda"):
+    """train_scene at the recorded creation configuration (the hybrid with
+    nerf_create_points) on the hole scene, the schedule cut to
+    CREATE_STEPS steps with one probe of one 800 x 800 frame at
+    CREATE_PROBE_AT and prob_thresh CREATE_PROB_THRESH, an eval and a
+    checkpoint at the end; then a resume to CREATE_RESUME_TO. Checks the
+    launches per step (K1, K3, K4 once) and per chunk (K1, K3 once, K2
+    twice), the creation against the probe maps (CreateRecorder), the grid
+    rebuild after the grow, and the resumed state bit for bit. Returns
+    (launch counts, routes)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.data.procedural import (SCENES, sample_cloud,
+                                                      sphere_cameras,
+                                                      view_item)
+    from pointnerf_tpu_torch.train import driver as td
+    cfg = opt_config(CREATE_OPT)
+    if not cfg.train.nerf_create_points or cfg.render.nerf_importance <= 0:
+        fail("the creation configuration does not create points with the "
+             "hybrid")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=CREATE_STEPS, prob_freq=CREATE_PROBE_AT,
+        prob_thresh=CREATE_PROB_THRESH, test_freq=CREATE_STEPS,
+        save_iter_freq=CREATE_STEPS, print_freq=6))
+    prims = SCENES[DS_SCAN]()
+    cloud = [p for i, p in enumerate(prims) if i not in HOLE_PRIMS]
+    pts = sample_cloud(cloud, QUALITY_POINTS, seed=0)
+    views = sphere_cameras(8, radius=2.4, focal=875.0, wh=DS_WH, seed=0)
+
+    def train_item(step):
+        v = step % 6
+        return view_item(prims, *views[v], DS_WH, n_rays=N_RAYS, seed=step,
+                         view_id=v)
+    probe = [view_item(prims, *views[6], DS_WH, view_id=6)]
+    test = [view_item(prims, *views[7], DS_WH, view_id=7)]
+    rec = CreateRecorder(cfg, kernels,
+                         chunk_launches={"fused_march": 2})
+    reset_counts(kernels)
+    rec.install()
+    try:
+        build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as run_dir:
+            t0 = time.perf_counter()
+            _s, _st, hist = td.train_scene(cfg, pts, train_item, test, probe,
+                                           DS_WH, run_dir=run_dir,
+                                           device=device)
+            s2, _st2, _h2 = td.train_scene(
+                cfg, pts, train_item, test, probe, DS_WH, run_dir=run_dir,
+                max_steps=CREATE_RESUME_TO, resume=True, device=device)
+            dt = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = kernel_routes(kernels, "creation")
+    if int(s2.step) != CREATE_RESUME_TO:
+        fail(f"the resumed creation run ended at step {int(s2.step)}")
+    if "nerf" not in s2.params["mlp"]:
+        fail("the resumed creation run has no field parameters")
+    kinds = {}
+    pending = None
+    for ev, detail in rec.log:
+        kinds[ev] = kinds.get(ev, 0) + 1
+        if ev == "grow" and detail[1]:
+            pending = detail[0] + detail[1]
+        elif ev == "grid" and pending is not None:
+            if detail[2] != pending:
+                fail(f"the grid after the grow holds {detail[2]} points, not "
+                     f"{pending}")
+            pending = None
+    if pending is not None:
+        fail("the grow was not followed by a grid rebuild")
+    for ev in ("probe", "grow", "save", "load"):
+        if not kinds.get(ev):
+            fail(f"the creation path never ran a {ev}")
+    losses = torch.stack(rec.losses).cpu()
+    psnrs = [m["psnr"] for m in hist["eval"]]
+    if not bool(torch.isfinite(losses).all()) or not psnrs \
+            or not np.all(np.isfinite(psnrs)):
+        fail(f"creation path: losses or PSNR not finite: {psnrs}")
+    secs = {k: round(sum(v) / len(v), 4) for k, v in rec.times.items() if v}
+    log(f"creation path: {CREATE_STEPS} steps, a resume to "
+        f"{CREATE_RESUME_TO} in {dt:.2f} s; events "
+        f"{[e for e in rec.log if e[0] != 'grid']}; eval PSNR {psnrs}; "
+        f"seconds per event {secs}; launches {counts}, routes {routes}")
+    return counts, routes
+
+
+# ---- the loaders: tt_ft (NSVF layout) and waymo_ft on generated scenes ----
+LOADER_WH = (96, 96)          # one 9,216-ray eval chunk per test frame
+LOADER_TRAIN_VIEWS = 5
+LOADER_STEPS = 4
+
+
+def write_loader_scenes(root: str):
+    """The procedural cluster (its whole DS_POINTS-point cloud) as an NSVF
+    scene under root/tt/cluster (LOADER_TRAIN_VIEWS train views and one test
+    view of LOADER_WH, RGBA PNGs of the analytic ground truth with an
+    all-opaque alpha, 4x4 intrinsics, bbox.txt) and as a waymo_ft bundle
+    root/waymo/cluster.npz through the port's frames_to_npz (frame 0 is the
+    test frame; the cloud split over the others, voxel-downsampled per frame
+    on the card at the points config's vox_res)."""
+    import numpy as np
+    from pointnerf_tpu_torch.data.ply import save_ply
+    from pointnerf_tpu_torch.data.procedural import (SCENES, gt_render,
+                                                      sample_cloud,
+                                                      sphere_cameras)
+    from pointnerf_tpu_torch.data.waymo_export import frames_to_npz
+    from pointnerf_tpu_torch.utils.visualizer import to8b, write_png
+    prims = SCENES[DS_SCAN]()
+    xyz, color, _n = sample_cloud(prims, DS_POINTS, seed=0)
+    W, H = LOADER_WH
+    n = LOADER_TRAIN_VIEWS + 1
+    views = sphere_cameras(n, radius=2.4, focal=105.0, wh=LOADER_WH, seed=1)
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    from pointnerf_tpu_torch.camera import get_dtu_raydir
+    tt = os.path.join(root, "tt", DS_SCAN)
+    for d in ("rgb", "pose"):
+        os.makedirs(os.path.join(tt, d), exist_ok=True)
+    frames = []
+    for i, (campos, rot, K) in enumerate(views):
+        rd = get_dtu_raydir(pix, K, rot).astype(np.float32)
+        img = gt_render(prims, campos.astype(np.float32), rd).reshape(H, W, 3)
+        stem = (f"2_{0:04d}" if i == 0 else f"0_{i - 1:04d}")
+        rgba = np.concatenate([to8b(img), np.full((H, W, 1), 255, np.uint8)],
+                              -1)
+        write_png(os.path.join(tt, "rgb", stem + ".png"), rgba)
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = rot, campos
+        np.savetxt(os.path.join(tt, "pose", stem + ".txt"), c2w)
+        # frames_to_npz remaps columns to [-y, z, -x]: hand it the camera
+        # whose remap is this one; full resolution is twice the bundle's
+        big = np.repeat(np.repeat(img, 2, 0), 2, 1)
+        pre = np.stack([-c2w[:, 2], -c2w[:, 0], c2w[:, 1], c2w[:, 3]], 1)
+        k_full = K.copy()
+        k_full[:2] *= 2.0
+        part = None if i == 0 else xyz[(i - 1)::LOADER_TRAIN_VIEWS]
+        frames.append({"image": big, "c2w": pre.astype(np.float32),
+                       "K": k_full.astype(np.float32), "points_world": part})
+    K4 = np.eye(4)
+    K4[:3, :3] = views[0][2]
+    np.savetxt(os.path.join(tt, "intrinsics.txt"), K4)
+    with open(os.path.join(tt, "bbox.txt"), "w") as f:
+        f.write(" ".join(f"{v:.4f}" for v in
+                         list(xyz.min(0)) + list(xyz.max(0))) + " 0.01\n")
+    save_ply(os.path.join(tt, "points.ply"), xyz, color)
+    os.makedirs(os.path.join(root, "waymo"), exist_ok=True)
+    from pointnerf_tpu_torch.config import PointsConfig
+    frames_to_npz(frames, os.path.join(root, "waymo", DS_SCAN + ".npz"),
+                  step=10, scale_factor=4.0, target_upscale=2,
+                  vox_res=PointsConfig().vox_res, device="cuda")
+
+
+def loaders_path(kernels, root: str, device="cuda"):
+    """train_dataset_scene for LOADER_STEPS steps on each generated scene
+    (tt_ft, waymo_ft) at scene_config() of its cloud (dense f32 decode:
+    K3 and K4 f32 once a step, K1 never) with an eval of one 9,216-ray chunk
+    (K3 f32 once, K2 once) and a checkpoint at the end. Returns (launch
+    counts, routes) summed over both."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig, scene_config
+    from pointnerf_tpu_torch.data import find_dataset_class_by_name
+    from pointnerf_tpu_torch.train import driver as td
+    total, routes_all = {}, {}
+    for name, scan_root in (("tt_ft", os.path.join(root, "tt")),
+                            ("waymo_ft", os.path.join(root, "waymo"))):
+        ds = find_dataset_class_by_name(name)(DataConfig(
+            dataset_name=name, data_root=scan_root, scan=DS_SCAN),
+            split="train")
+        xyz = ds.load_init_points()["xyz"]
+        cfg = scene_config(xyz, near=float(ds.near), far=float(ds.far))
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, maximum_step=LOADER_STEPS, prune_iter=0, prob_freq=0,
+            test_freq=LOADER_STEPS, save_iter_freq=LOADER_STEPS,
+            print_freq=LOADER_STEPS, random_sample_size=60))
+        rec = MaintRecorder(cfg, kernels,
+                            train_kernels=("fused_decode", "fused_decode_bwd"),
+                            render_kernels=("fused_decode", "fused_march"))
+        reset_counts(kernels)
+        rec.install()
+        try:
+            import tempfile
+            with tempfile.TemporaryDirectory(
+                    dir=os.path.join(os.path.dirname(root))) as run_dir:
+                t0 = time.perf_counter()
+                state, st, hist = td.train_dataset_scene(
+                    name, scan_root, DS_SCAN, run_dir=run_dir,
+                    max_steps=LOADER_STEPS, cfg=cfg, resume=False,
+                    device=device)
+                dt = time.perf_counter() - t0
+        finally:
+            rec.restore()
+        counts = {n: k.launches for n, k in kernels.items()}
+        from pointnerf_tpu_torch.ops.fused_decode import (fused_decode,
+                                                          fused_decode_bwd)
+        routes = {"fused_decode": dict(fused_decode.launches_by_route),
+                  "fused_decode_bwd": dict(fused_decode_bwd.launches_by_route)}
+        if counts["knn_select"]:
+            fail(f"{name}: K1 ran on the bucket query")
+        for n in ("fused_decode", "fused_decode_bwd"):
+            if routes[n]["cuda_core"] != counts[n]:
+                fail(f"{name}: {n} launches left the CUDA-core (f32) route: "
+                     f"{routes[n]}")
+        losses = torch.stack(rec.losses).cpu()
+        psnrs = [m["psnr"] for m in hist["eval"]]
+        if int(state.step) != LOADER_STEPS or len(rec.losses) != LOADER_STEPS \
+                or not bool(torch.isfinite(losses).all()) or len(psnrs) != 1 \
+                or not np.isfinite(psnrs[0]):
+            fail(f"{name}: {len(rec.losses)} steps, losses "
+                 f"{losses.tolist()}, eval PSNR {psnrs}")
+        log(f"loader {name}: {ds.width} x {ds.height} views ({len(ds)} train), "
+            f"{xyz.shape[0]} points, near {ds.near:.4f} far {ds.far:.4f}; "
+            f"{LOADER_STEPS} steps and one eval chunk in {dt:.2f} s, losses "
+            f"{[round(float(v), 6) for v in losses]}, eval PSNR "
+            f"{psnrs[0]:.3f}; launches {counts}, routes {routes}")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        for n, r in routes.items():
+            for k, v in r.items():
+                routes_all.setdefault(n, {}).setdefault(k, 0)
+                routes_all[n][k] += v
+        del state, st
+    return total, routes_all
+
+
+def hybrid_paths(kernels):
+    """The hybrid (phase 1), the fine pass (phase 2), NeRF-driven creation
+    (phase 3) and each kernel at the shapes the first two gave it (phase 4).
+    Returns (launch counts, routes, kernel checks, rates)."""
+    cfg = opt_config(HYBRID_OPT)
+    if cfg.render.nerf_importance <= 0 or cfg.render.fine_sample_num:
+        fail("the hybrid configuration is not the hybrid without the fine "
+             "pass")
+    if cfg.agg.fused_decode or cfg.render.fused_march:
+        fail("the hybrid configuration has a fused flag on")
+    counts, routes, rates, checks = {}, {}, {}, {}
+
+    def add(c, r):
+        for n, v in c.items():
+            counts[n] = counts.get(n, 0) + v
+        for n, rr in r.items():
+            for k, v in rr.items():
+                routes.setdefault(n, {}).setdefault(k, 0)
+                routes[n][k] += v
+    c, r, si, ri, rates["hybrid"] = hybrid_run(
+        cfg, kernels, "hybrid", HYBRID_WARMUP, HYBRID_STEPS, HYBRID_REQUESTS,
+        HYBRID_STEP, HYBRID_REQUEST)
+    add(c, r)
+    checks["hybrid"] = hybrid_kernel_checks("hybrid", si, ri, fine=False)
+    del si, ri
+    fcfg = fine_config(cfg)
+    c, r, si, ri, rates["fine"] = hybrid_run(
+        fcfg, kernels, "fine", FINE_WARMUP, FINE_STEPS, FINE_REQUESTS,
+        FINE_STEP, FINE_REQUEST)
+    add(c, r)
+    checks["fine"] = hybrid_kernel_checks("fine", si, ri, fine=True)
+    del si, ri
+    c, r = creation_path(kernels)
+    add(c, r)
+    return counts, routes, checks, rates
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -2319,6 +3155,15 @@ def main() -> None:
     query_branches(data_root, ds_cfg)
     voxel_parity()
     fo_counts, fo_routes, fo_checks = flags_off_path(kernel_wrappers())
+    hy_counts, hy_routes, hy_checks, _hy_rates = hybrid_paths(
+        kernel_wrappers())
+    loader_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "loaders")
+    t0 = time.perf_counter()
+    write_loader_scenes(loader_root)
+    log(f"loader scenes written under {loader_root} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ld_counts, ld_routes = loaders_path(kernel_wrappers(), loader_root)
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
@@ -2357,13 +3202,15 @@ def main() -> None:
              "train": (train_counts, train_routes),
              "maintenance": (maint_counts, maint_routes),
              "dataset": (ds_counts, ds_routes),
-             "flags_off": (fo_counts, fo_routes)}
+             "flags_off": (fo_counts, fo_routes),
+             "hybrid": (hy_counts, hy_routes),
+             "loaders": (ld_counts, ld_routes)}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]
         # launches over the main paths' runs, of this source's route
-        by_path = {p: (c[wrapper] if route_name is None
-                       else rts[wrapper][route_name])
+        by_path = {p: (c.get(wrapper, 0) if route_name is None
+                       else rts.get(wrapper, {}).get(route_name, 0))
                    for p, (c, rts) in paths.items()}
         row = {"name": row_name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
@@ -2377,13 +3224,22 @@ def main() -> None:
             if k in r:
                 row[k] = r[k]
         # the same comparison and timing on the maintenance path's dense
-        # probe chunk and its eval chunk, and on the flags-off path's train
-        # step and request
+        # probe chunk and its eval chunk, on the flags-off path's train
+        # step and request, and at the hybrid's and the fine pass's shapes
+        # (K2 on the merged sequence, and on the fine one)
+        hy = {}
+        for p, res in hy_checks.items():
+            for n, v in res.items():
+                kind = (p + ("_step" if n == "fused_decode_bwd"
+                             else "_request")
+                        + ("_fine_sequence" if n == "fused_march_fine"
+                           else ""))
+                hy.setdefault(kind, {})[n.replace("_fine", "")] = v
         for kind, res in ({"maintenance_" + k: v for k, v in chunks.items()}
-                          | fo_checks).items():
+                          | fo_checks | hy).items():
             if row_name in res:
                 row[kind] = {k: v for k, v in res[row_name].items()
-                             if k != "gemm_chain_ms"}
+                             if k not in ("gemm_chain_ms", "run_stats")}
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)

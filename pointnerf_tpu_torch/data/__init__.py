@@ -7,8 +7,7 @@ from .. import not_ported
 
 DATASET_REGISTRY = {}
 # registered by the JAX package, not ported yet (ROADMAP Queue 1, datasets)
-NOT_PORTED = ("dtu", "dtu_ft", "llff_ft", "tt_ft", "nsvf", "scannet_ft",
-              "waymo_ft")
+NOT_PORTED = ("dtu", "dtu_ft", "llff_ft", "scannet_ft")
 
 
 def register_dataset(name):
@@ -20,7 +19,7 @@ def register_dataset(name):
 
 def find_dataset_class_by_name(name: str):
     """The loader class registered as `name`."""
-    from . import nerf_synth  # noqa: F401  (registers its names)
+    from . import nerf_synth, nsvf, waymo  # noqa: F401  (register names)
     if name in DATASET_REGISTRY:
         return DATASET_REGISTRY[name]
     if name in NOT_PORTED:

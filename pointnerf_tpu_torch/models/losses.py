@@ -32,11 +32,16 @@ def compute_losses(out: RenderOutput, gt_image: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (total_loss, per-item dict). gt_image [R, 3]; gt_depth
     (optional) [R] or [R, 1] for depth_loss_items; bg_color (optional) [3]
-    for bg_loss_items. The port renders the coarse pass only, so the colour
-    items read `coarse_raycolor`."""
+    for bg_loss_items. The colour items read `coarse_raycolor`, and, when
+    the render has them, `fine_raycolor` and `nerf_coarse_raycolor`."""
     total = torch.zeros((), device=gt_image.device)
     items: Dict[str, torch.Tensor] = {}
     output = {"coarse_raycolor": out.coarse_raycolor}
+
+    if out.fine_raycolor is not None:
+        output["fine_raycolor"] = out.fine_raycolor
+    if out.nerf_coarse_raycolor is not None:
+        output["nerf_coarse_raycolor"] = out.nerf_coarse_raycolor
 
     for name, wgt in zip(cfg.color_loss_items, cfg.color_loss_weights):
         if name.startswith("ray_masked_"):

@@ -4,14 +4,18 @@ Counterpart of `pointnerf_tpu/models/renderer.py`: `RayBatch`,
 `RenderOutput`, `compute_ray_dist`, `_finalize`, `shade` (the dense decode,
 with the prob-mode probe outputs), `decode_slots`, `compact_select`,
 `expand_compact_many`, `conf_coeff_fill`, `decode_compacted`,
-`shade_compacted`, `_shade_at` and `render_rays` — the coarse render, with
-the static-capacity compacted decode or the dense one (decode_capacity=0,
-and every prob-mode probe), for inference and for training (jittered
-samples, gradients). The kernels of this path: K1 (KNN select) inside
-`knn_query`, K3 (fused decode) and its backward K4 inside `aggregate`, K2
-(fused march) inside `_finalize` when not training; on the card they run
-wherever they compute the function, whatever the fused flags say
-(`aggregator.decode_takes_kernel`, `march_takes_kernel`).
+`shade_compacted`, `_shade_at`, `render_rays`, the fine pass
+(`_fine_pass`) and the proposal-NeRF hybrid (`_hybrid_march`) — the coarse
+render with the static-capacity compacted decode or the dense one
+(decode_capacity=0, and every prob-mode probe), for inference and for
+training (jittered samples, gradients), then the importance-resampled fine
+pass and the z-merged march with the radiance field. The kernels of this
+path: K1 (KNN select) inside `knn_query`, K3 (fused decode) and its
+backward K4 inside `aggregate` (coarse and fine), K2 (fused march) for
+every serving march — `_finalize` of both passes and the hybrid's merged
+sequence; on the card they run wherever they compute the function,
+whatever the fused flags say (`aggregator.decode_takes_kernel`,
+`march_takes_kernel`).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from ..config import (PointNeRFConfig, effective_ray_generator,
                       generator_kwargs)
 from ..ops.fused_march import MAX_C, fused_march
 from ..ops.grid import PointGrid
-from ..ops.query import generate_shading_points, knn_query, query_points
+from ..ops.query import (_xla_cumprod, generate_shading_points, knn_query,
+                         query_points, refine_ray_generation)
 from .aggregator import aggregate, decode_takes_kernel
 from .points import PointCloud, PointCloudStatic, gather_points
 from .ray_march import (BLEND_FUNCS, RENDER_FUNCS, TONEMAP_FUNCS,
@@ -66,6 +71,20 @@ class RenderOutput(NamedTuple):
     shading_avg_dir: Optional[torch.Tensor] = None          # [R, 3]
     shading_avg_conf: Optional[torch.Tensor] = None         # [R, 1]
     shading_avg_embedding: Optional[torch.Tensor] = None    # [R, F]
+    # the fine pass (fine_sample_num > 0): a second decode at shading
+    # points importance-resampled from the coarse blend weights
+    fine_raycolor: Optional[torch.Tensor] = None            # [R, C]
+    fine_neighbor_pidx: Optional[torch.Tensor] = None       # as neighbor_pidx
+    # decoded point features [R, SR, 1 + C], kept for the hybrid's z-merge
+    # (nerf_importance > 0) and dropped once it has marched them
+    sample_features: Optional[torch.Tensor] = None
+    # the hybrid: the coarse field pass's color, and the creation signals —
+    # the blend mass the field samples carry in the merged march, their
+    # expected world location and color
+    nerf_coarse_raycolor: Optional[torch.Tensor] = None     # [R, C]
+    nerf_mass: Optional[torch.Tensor] = None                # [R, 1]
+    nerf_loc_w: Optional[torch.Tensor] = None               # [R, 3]
+    nerf_color: Optional[torch.Tensor] = None               # [R, <=3]
 
 
 def ray_batch_from_numpy(item: Dict, cfg: PointNeRFConfig,
@@ -111,17 +130,21 @@ def march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
     return kernel_func
 
 
+def merged_march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
+                              train: bool) -> bool:
+    """Whether the hybrid's z-merged march is K2: on CUDA by the card's rule
+    (`march_takes_kernel`: every serving radiance/alpha march); on the CPU
+    never, whatever the flag — the JAX package marches the merged sequence
+    with its plain march."""
+    return device.type == "cuda" and march_takes_kernel(cfg, device, train)
+
+
 def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                    train: bool = False) -> None:
-    """Raise for what the port does not implement yet, before any work: the
-    fine pass and the hybrid, and on CUDA a config inside the fused
-    envelope but past the port kernels' limits (`decode_takes_kernel`,
-    `march_takes_kernel`)."""
-    if cfg.render.fine_sample_num > 0:
-        raise not_ported("the fine pass", "Queue 1, fine pass and hybrid")
-    if cfg.render.nerf_importance > 0:
-        raise not_ported("the proposal-NeRF hybrid",
-                         "Queue 1, fine pass and hybrid")
+    """Raise before any work for a config the port does not implement: on
+    CUDA one inside the fused envelope but past the port kernels' limits
+    (`decode_takes_kernel`, `march_takes_kernel`; the fine pass and the
+    hybrid's merged march take the same kernels)."""
     decode_takes_kernel(cfg.agg, cfg.query.K,
                         cfg.train.compute_dtype == "bf16", device,
                         backward=train)
@@ -179,7 +202,9 @@ def _finalize(cfg: PointNeRFConfig, features, ray_valid, weight, conf_coeff,
         coarse_depth=depth, coarse_point_opacity=opacity,
         queried_shading=queried_shading, ray_mask=ray_mask, weight=weight,
         conf_coefficient=conf_coeff, ray_valid=ray_valid,
-        sample_loc_w=sample_loc_w, decode_dropped=decode_dropped)
+        sample_loc_w=sample_loc_w, decode_dropped=decode_dropped,
+        sample_features=(features if cfg.render.nerf_importance > 0
+                         else None))
 
 
 def shade(params: Dict, cfg: PointNeRFConfig, sp, sample_loc, sample_loc_w,
@@ -373,14 +398,24 @@ def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
                 train: bool = False, prob: bool = False,
                 compute_dtype=torch.float32,
                 generator: Optional[torch.Generator] = None,
-                u: Optional[torch.Tensor] = None) -> RenderOutput:
-    """Render a batch of rays against the neural point cloud (coarse pass):
-    the compacted decode when decode_capacity > 0 and not probing, else the
-    dense one (`query_points` + `shade`; a probe needs every [R, SR, K]
-    lane for its argmax). With `train`, the ray samples are jittered by
-    `cfg.render.train_jitter` from `u` [R, D] if given, else from
-    `generator` (JAX: the `k_coarse` draw)."""
+                u: Optional[torch.Tensor] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> RenderOutput:
+    """Render a batch of rays against the neural point cloud: the coarse
+    pass (the compacted decode when decode_capacity > 0 and not probing,
+    else the dense one — a probe needs every [R, SR, K] lane for its
+    argmax), then the fine pass when fine_sample_num > 0 and the hybrid
+    when nerf_importance > 0 and params hold "nerf".
+
+    With `train` the draws are random: the coarse jitter
+    (`cfg.render.train_jitter`) from `u` [R, D] if given, the fine pass's
+    from draws["fine"] [R, fine_sample_num + 1], the hybrid's coarse field
+    samples from draws["nerf_march"] [R, nerf_coarse_samples] and its
+    importance samples from draws["nerf_importance"] [R, nerf_importance];
+    each one missing is drawn from `generator` (in that order), or, without
+    a generator, the pass is deterministic (JAX: no key)."""
     check_envelope(cfg, batch.raydir.device, train=train)
+    draws = draws or {}
     near, far = float(cfg.render.near_plane), float(cfg.render.far_plane)
     jitter = cfg.render.train_jitter if train else 0.0
     if cfg.query.decode_capacity > 0 and not prob:
@@ -389,16 +424,147 @@ def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
             jitter=jitter, generator=generator, u=u,
             gen_name=effective_ray_generator(cfg),
             gen_kwargs=generator_kwargs(cfg))
-        return _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
-                         sample_mask, prob=prob, compute_dtype=compute_dtype,
-                         train=train)
-    q = query_points(pc.xyz, grid, batch.campos, batch.raydir, near, far,
-                     cfg.query, jitter=jitter, generator=generator, u=u,
-                     gen_name=effective_ray_generator(cfg),
-                     gen_kwargs=generator_kwargs(cfg))
-    sp, sample_loc, dirs = _dense_inputs(pc, batch, q.sample_pidx,
-                                         q.sample_loc_w, q.sample_mask,
-                                         cfg.query.gather_bwd)
-    out = shade(params, cfg, sp, sample_loc, q.sample_loc_w, dirs, st.Rw2c,
-                prob=prob, compute_dtype=compute_dtype, train=train)
-    return out._replace(neighbor_pidx=q.sample_pidx)
+        out = _shade_at(params, pc, st, grid, batch, cfg, sample_loc_w,
+                        sample_mask, prob=prob, compute_dtype=compute_dtype,
+                        train=train)
+    else:
+        q = query_points(pc.xyz, grid, batch.campos, batch.raydir, near, far,
+                         cfg.query, jitter=jitter, generator=generator, u=u,
+                         gen_name=effective_ray_generator(cfg),
+                         gen_kwargs=generator_kwargs(cfg))
+        sp, sample_loc, dirs = _dense_inputs(pc, batch, q.sample_pidx,
+                                             q.sample_loc_w, q.sample_mask,
+                                             cfg.query.gather_bwd)
+        out = shade(params, cfg, sp, sample_loc, q.sample_loc_w, dirs,
+                    st.Rw2c, prob=prob, compute_dtype=compute_dtype,
+                    train=train)
+        out = out._replace(neighbor_pidx=q.sample_pidx)
+    gen = generator if train else None
+    if cfg.render.fine_sample_num > 0:
+        out = _fine_pass(params, pc, st, grid, batch, cfg, out, train,
+                         compute_dtype, gen, draws.get("fine"))
+    if cfg.render.nerf_importance > 0 and "nerf" in params:
+        out = _hybrid_march(params, out, batch, cfg, train=train,
+                            generator=gen, draws=draws,
+                            compute_dtype=compute_dtype)
+    return out
+
+
+def _ray_t(out: RenderOutput, batch: RayBatch, fill: float) -> torch.Tensor:
+    """Each shading point's ray parameter t [R, SR] (its depth along the
+    unnormalized ray direction), `fill` where the slot is not valid."""
+    rd2 = (batch.raydir * batch.raydir).sum(-1, keepdim=True)
+    t = ((out.sample_loc_w - batch.campos[None, None, :])
+         * batch.raydir[:, None, :]).sum(-1) / rd2
+    return torch.where(out.ray_valid, t, torch.full_like(t, fill))
+
+
+def _fine_pass(params, pc, st, grid, batch, cfg: PointNeRFConfig,
+               out: RenderOutput, train: bool, compute_dtype, generator,
+               u) -> RenderOutput:
+    """The hierarchical fine pass: importance-resample fine_sample_num
+    shading points (+ the coarse ones) from the coarse blend weights —
+    recomputed from the coarse opacities with the configured blend — and
+    shade them like the coarse pass (K1, K3, and K2 when serving, at
+    SR' = fine_sample_num + SR). Adds fine_raycolor and
+    fine_neighbor_pidx."""
+    t = _ray_t(out, batch, float(cfg.render.far_plane))
+    alpha = out.coarse_point_opacity
+    acc = _xla_cumprod(1.0 - alpha + 1e-10)
+    acc = torch.cat([torch.ones_like(acc[:, :1]), acc[:, :-1]], -1)
+    blend = BLEND_FUNCS[cfg.render.which_blend_func]
+    w = torch.where(out.ray_valid, blend(alpha, acc), torch.zeros_like(alpha))
+    fine_pos, _seg, mid = refine_ray_generation(
+        batch.campos, batch.raydir, cfg.render.fine_sample_num, t.detach(),
+        w.detach(), jitter=cfg.render.train_jitter if train else 0.0,
+        generator=generator, u=u)
+    fine_mask = out.ray_mask[:, None].expand(mid.shape)
+    fine = _shade_at(params, pc, st, grid, batch, cfg, fine_pos, fine_mask,
+                     prob=False, compute_dtype=compute_dtype, train=train)
+    return out._replace(fine_raycolor=fine.coarse_raycolor,
+                        fine_neighbor_pidx=fine.neighbor_pidx)
+
+
+def merge_samples(t_pts, valid, feats_p, z_i, feats_n):
+    """The hybrid's z-merge: point samples (t_pts, valid [R, SR], features
+    [R, SR, 1 + C], zeroed where not valid) and field samples (z_i
+    [R, Ni], features [R, Ni, 1 + C]) in one stable sort by z, ties in
+    input order (points first). Returns (z_s, idx_s — each merged slot's
+    input index, >= SR for a field sample —, feats_s, valid_s)."""
+    feats_p = torch.where(valid[..., None], feats_p,
+                          torch.zeros((), device=feats_p.device))
+    z_all = torch.cat([t_pts, z_i], -1)
+    feats_all = torch.cat([feats_p, feats_n], -2)
+    valid_all = torch.cat([valid, torch.ones(z_i.shape, dtype=torch.bool,
+                                             device=valid.device)], -1)
+    z_s, idx_s = torch.sort(z_all, dim=-1, stable=True)
+    feats_s = feats_all.gather(
+        1, idx_s[..., None].expand(-1, -1, feats_all.shape[-1]))
+    return z_s, idx_s, feats_s, valid_all.gather(1, idx_s)
+
+
+def _hybrid_march(params: Dict, out: RenderOutput, batch: RayBatch,
+                  cfg: PointNeRFConfig, train: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None,
+                  compute_dtype=torch.float32) -> RenderOutput:
+    """The proposal-NeRF hybrid: a coarse field pass gives a proposal
+    distribution, `nerf_importance` z's are drawn from it and decoded by
+    the field, merged in z with the point samples (a stable sort of
+    [R, SR + Ni]; invalid point samples sit at far + 1, behind every
+    field sample) and the merged sequence is marched once. Replaces
+    coarse_raycolor and coarse_is_background; the points-only march stays
+    in the other outputs. On CUDA a serving march is K2, its blend weights
+    recomputed from K2's opacity with the exclusive cumprod; training and
+    the CPU take the plain march, as the JAX package does."""
+    from .nerf_branch import coarse_ray_march, importance_z, nerf_eval
+    r = cfg.render
+    draws = draws or {}
+    dev = batch.raydir.device
+    t_pts = _ray_t(out, batch, float(r.far_plane) + 1.0)
+    z_c, w_c, rgb_c = coarse_ray_march(
+        params["nerf"], batch.campos, batch.raydir, cfg, train=train,
+        generator=generator, u=draws.get("nerf_march"),
+        compute_dtype=compute_dtype)
+    z_i = importance_z(z_c, w_c.detach(), r.nerf_importance, det=not train,
+                       generator=generator, u=draws.get("nerf_importance"))
+    pts = batch.campos[None, None, :] + z_i[..., None] * batch.raydir[:, None]
+    feats_n = nerf_eval(params["nerf"], pts,
+                        batch.raydir[:, None, :].expand(pts.shape), cfg,
+                        compute_dtype)                           # [R, Ni, 1+C]
+    z_s, idx_s, feats_s, valid_s = merge_samples(
+        t_pts, out.ray_valid, out.sample_features, z_i, feats_n)
+    vz = cfg.query.vsize[2]
+    dists = torch.cat([z_s[:, 1:] - z_s[:, :-1],
+                       torch.full_like(z_s[:, :1], vz)], -1)
+    # a gap ending at an invalid sample (the block at far + 1) is clamped to
+    # one voxel: the last valid sample would otherwise absorb it
+    nxt_invalid = torch.cat([~valid_s[:, 1:],
+                             torch.ones_like(valid_s[:, :1])], -1)
+    dists = torch.where(nxt_invalid, torch.full_like(dists, vz), dists)
+    tonemap = TONEMAP_FUNCS[r.which_tonemap_func]
+    bg = torch.tensor(r.bg_color, dtype=torch.float32, device=dev)
+    if cfg.agg.shading_color_channel_num != 3:
+        bg = torch.zeros(cfg.agg.shading_color_channel_num, device=dev)
+    if merged_march_takes_kernel(cfg, dev, train):
+        ray_color, opacity, bg_trans = fused_march(
+            dists.contiguous(), valid_s.contiguous(), feats_s.contiguous(), bg)
+        bw = opacity * exclusive_transmission(opacity)
+    else:
+        (ray_color, _pc, _op, _acc, bw, bg_trans, _bgw) = ray_march(
+            dists, valid_s, feats_s, RENDER_FUNCS[r.which_render_func],
+            BLEND_FUNCS[r.which_blend_func], bg)
+        bw = bw[..., 0]
+    # the creation signals: the blend mass of the field samples (sorted
+    # index >= SR), their expected location and color
+    SR = out.ray_valid.shape[-1]
+    w_n = torch.where(idx_s >= SR, bw, torch.zeros_like(bw))     # [R, SR+Ni]
+    mass = w_n.sum(-1, keepdim=True)
+    zbar = (w_n * z_s).sum(-1, keepdim=True) / (mass + 1e-8)
+    loc_w = batch.campos[None, :] + zbar * batch.raydir
+    col_n = (w_n[..., None] * feats_s[..., 1:4]).sum(-2) / (mass + 1e-8)
+    return out._replace(coarse_raycolor=tonemap(ray_color),
+                        coarse_is_background=bg_trans,
+                        nerf_coarse_raycolor=tonemap(rgb_c),
+                        sample_features=None, nerf_mass=mass,
+                        nerf_loc_w=loc_w, nerf_color=col_n)

@@ -1,7 +1,9 @@
 """Ray sampling, shading-point selection and the K-nearest-neighbor query.
 
 Counterpart of `pointnerf_tpu/ops/query.py`: the five ray generators of
-`RAY_GENERATORS`, `select_shading_points`, `generate_shading_points`,
+`RAY_GENERATORS`, `sample_pdf` and `refine_ray_generation` (the fine
+pass's importance resampling), `select_shading_points`,
+`generate_shading_points`,
 `knn_query` with every branch of `_knn_chunk` (prebuilt tables or bucket
 rows; K nearest, the shell-layered cut or the NN=0 random subset; the
 table path's plain K nearest is kernel K1, `ops/knn_select.py`) and the
@@ -47,24 +49,78 @@ def _linear_depths(D: int, near: float, far: float):
     return seg, (f32(0.5) * (end[:-1] + end[1:])).astype(f32)
 
 
-def _xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
-    """Inclusive float32 cumsum along the last axis of x [R, N], summed in
-    the order the compiled JAX package sums it on the CPU: XLA rewrites a
-    long cumsum into blocks of `base` (summed in order inside a block), a
-    cumsum of the block totals (the same way, recursively) and one add of
-    the exclusive carry. The same adds on every device, so the card and the
-    CPU agree bit for bit."""
+def _xla_scan(x: torch.Tensor, mul: bool, base: int = 16) -> torch.Tensor:
+    """Inclusive float32 cumsum (or cumprod with `mul`) along the last axis
+    of x [R, N], combined in the order the compiled JAX package combines it
+    on the CPU: XLA rewrites a long scan into blocks of `base` (combined in
+    order inside a block), a scan of the block totals (the same way,
+    recursively) and one combine with the exclusive carry. The same
+    operations on every device, so the card and the CPU agree bit for bit.
+    Out of place, so autograd can run through it."""
+    op = torch.mul if mul else torch.add
     R, N = x.shape
-    n = N if N <= base else -(-N // base) * base
-    out = torch.zeros((R, n), dtype=x.dtype, device=x.device)
-    out[:, :N] = x
-    blocks = out.view(R, n // base, base) if N > base else out.view(R, 1, n)
-    for j in range(1, blocks.shape[-1]):
-        blocks[..., j] += blocks[..., j - 1]
-    if N > base:
-        carry = _xla_cumsum(blocks[..., -1], base)
-        blocks[:, 1:] += carry[:, :-1, None]
-    return out[:, :N]
+    if N <= base:
+        cols = [x[:, 0]]
+        for j in range(1, N):
+            cols.append(op(cols[-1], x[:, j]))
+        return torch.stack(cols, -1)
+    n = -(-N // base) * base
+    ident = 1.0 if mul else 0.0
+    xp = torch.cat([x, x.new_full((R, n - N), ident)], -1).view(R, n // base,
+                                                                 base)
+    cols = [xp[..., 0]]
+    for j in range(1, base):
+        cols.append(op(cols[-1], xp[..., j]))
+    blocks = torch.stack(cols, -1)                       # [R, n/base, base]
+    carry = _xla_scan(blocks[..., -1], mul, base)
+    excl = torch.cat([x.new_full((R, 1), ident), carry[:, :-1]], -1)
+    return op(blocks, excl[..., None]).reshape(R, n)[:, :N]
+
+
+def _xla_cumsum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """jnp.cumsum along the last axis of x [R, N], as compiled on the CPU."""
+    return _xla_scan(x, mul=False, base=base)
+
+
+def _xla_cumprod(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """jnp.cumprod along the last axis of x [R, N], as compiled on the
+    CPU."""
+    return _xla_scan(x, mul=True, base=base)
+
+
+def _xla_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """jnp.sum(x, -1, keepdims=True) of x [R, N] float32, as compiled on the
+    CPU: a row longer than `window` is zero-padded to a multiple of it
+    (half the padding in front), each window summed in order, and the
+    window sums reduced the same way."""
+    R, N = x.shape
+    if N <= window:
+        acc = x[:, :1]
+        for j in range(1, N):
+            acc = acc + x[:, j:j + 1]
+        return acc
+    n = -(-N // window) * window
+    lo = (n - N) // 2
+    xp = torch.cat([x.new_zeros((R, lo)), x, x.new_zeros((R, n - N - lo))],
+                   -1).view(R, n // window, window)
+    acc = xp[..., 0]
+    for j in range(1, window):
+        acc = acc + xp[..., j]
+    return _xla_sum(acc, window)
+
+
+def linspace_f32(start: float, stop: float, n: int) -> np.ndarray:
+    """jnp.linspace(start, stop, n, dtype=float32) as compiled: with
+    t = i * float32(1 / (n - 1)), start * (1 - t) + i * float32(stop / (n -
+    1)) in float32 (XLA folds stop into the reciprocal), the last entry
+    exactly stop."""
+    f32 = np.float32
+    if n == 1:
+        return np.array([start], f32)
+    i = np.arange(n - 1, dtype=f32)
+    r = f32(1.0) / f32(n - 1)
+    out = f32(start) * (f32(1.0) - i * r) + i * (f32(stop) * r)
+    return np.append(out, f32(stop)).astype(f32)
 
 
 def _lin_t(n: int, dev) -> torch.Tensor:
@@ -250,6 +306,63 @@ RAY_GENERATORS = {
     "nerf_near_far_disparity_linear":
         nerf_near_far_disparity_linear_ray_generation,
 }
+
+
+def _inverse_cdf(bins, weights, u):
+    """Inverse-CDF draw at u [R, n] from the blend weights [R, S] over the
+    bin midpoints [R, S-1] (the dense comparison-count searchsorted of the
+    JAX package). Returns (samples [R, n], bin index [R, n] of the draw)."""
+    w = weights[:, 1:-1] + 1e-5                              # [R, S-2]
+    pdf = w / _xla_sum(w)
+    cdf = _xla_cumsum(pdf)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)  # [R, S-1]
+    inds = (cdf[:, None, :] <= u[:, :, None]).sum(-1)        # [R, n]
+    below = (inds - 1).clamp(min=0)
+    above = inds.clamp(max=cdf.shape[-1] - 1)
+    cdf_b, cdf_a = cdf.gather(1, below), cdf.gather(1, above)
+    bin_b, bin_a = bins.gather(1, below), bins.gather(1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    frac = (u - cdf_b) / denom
+    return _fma(frac, bin_a - bin_b, bin_b), inds
+
+
+def sample_pdf(ts, weights, n_samples: int, det: bool = True,
+               generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None):
+    """Inverse-CDF importance sampling of new bin edges, merged and sorted
+    with the old ones. ts [R, S] previous sample parameters; weights [R, S]
+    blend weights. Returns [R, n_samples + S] sorted ts. With `det` (or no
+    draw) u = linspace(0, 1, n_samples); else `u` [R, n_samples] if given,
+    else drawn from `generator`."""
+    R = ts.shape[0]
+    bins = 0.5 * (ts[:, 1:] + ts[:, :-1])
+    if det or (u is None and generator is None):
+        u = _lin_t(n_samples, ts.device)[None, :].expand(R, n_samples)
+    else:
+        u = _draw(u, generator, (R, n_samples), ts.device)
+    samples, _ = _inverse_cdf(bins, weights, u)
+    merged = torch.cat([samples, ts.detach()], -1)
+    return torch.sort(merged, dim=-1).values
+
+
+def refine_ray_generation(campos, raydir, point_count: int, prev_ts,
+                          prev_weights, jitter: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          u: Optional[torch.Tensor] = None):
+    """Importance-refined ray samples from a previous pass's blend weights:
+    `sample_pdf` draws point_count + 1 new bin edges (deterministic unless
+    jitter > 0 and a draw `u` [R, point_count + 1] or `generator` is
+    given), the samples sit at the midpoints. Returns (raypos [R, D', 3],
+    seglen [R, D'], mid [R, D']) with D' = point_count + prev_ts.shape[1]."""
+    det = not _jittered(jitter, u, generator)
+    end = sample_pdf(prev_ts, prev_weights, point_count + 1, det=det,
+                     generator=generator, u=u).detach()
+    seg = end[:, 1:] - end[:, :-1]
+    mid = 0.5 * (end[:, :-1] + end[:, 1:])
+    raypos = campos + raydir[:, None, :] * mid[..., None]
+    seg = seg * torch.linalg.norm(raydir, dim=-1, keepdim=True)
+    return raypos, seg, mid
 
 
 def select_shading_points(raypos: torch.Tensor, grid: PointGrid,

@@ -20,6 +20,9 @@ device, `cuda` unless the caller asks for the CPU.
     python -m pointnerf_tpu_torch.train.driver --demo [--device cpu]
     python -m pointnerf_tpu_torch.train.driver --dataset nerf_synth360_ft \
         --data-root DIR --scan NAME [--test] [--device cpu]
+
+(`--dataset` also takes tt_ft / nsvf — an NSVF scene directory — and
+waymo_ft — a `<scan>.npz` bundle of `data/waymo_export.frames_to_npz`.)
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from ..config import (DataConfig, PointNeRFConfig, hits_tracked,
 from ..data import find_dataset_class_by_name
 from ..data.synthetic import ring_cameras, sphere_scene, view_ray_batch
 from ..models.aggregator import init_aggregator_params
+from ..models.nerf_branch import init_nerf_params
 from ..models.points import make_point_cloud
 from ..models.renderer import ray_batch_from_numpy
 from ..ops.voxel import construct_vox_points_closest
@@ -96,11 +100,15 @@ class ItemPrefetcher:
 def init_mlp_params(generator: torch.Generator, cfg: PointNeRFConfig,
                     device: DeviceLike = None):
     """The MLP parameter tree of a run (every entry point that builds or
-    restores one uses this)."""
+    restores one uses this, so hybrid checkpoints round-trip): the
+    aggregator's, and the radiance field's under "nerf" when
+    nerf_importance > 0 (drawn after the aggregator's from the same
+    generator). The field sits in the "mlp" group: it shares the
+    aggregator's Adam and learning rate, as in JAX."""
+    params = init_aggregator_params(cfg.agg, generator, device=device)
     if cfg.render.nerf_importance > 0:
-        raise not_ported("the proposal-NeRF field's parameters",
-                         "Queue 1, fine pass and hybrid")
-    return init_aggregator_params(cfg.agg, generator, device=device)
+        params["nerf"] = init_nerf_params(generator, cfg, device=device)
+    return params
 
 
 def evaluate(params, st, grid, cfg: PointNeRFConfig, items: List[Dict], wh,
@@ -434,7 +442,8 @@ def main():
                     help="a small end-to-end run on the synthetic sphere")
     ap.add_argument("--dataset", default=None,
                     help="per-scene training on a dataset on disk: its "
-                         "registered name (nerf_synth360_ft)")
+                         "registered name (nerf_synth360_ft, "
+                         "nerf_synth_ft, tt_ft, nsvf, waymo_ft)")
     ap.add_argument("--data-root", default="")
     ap.add_argument("--scan", default="lego")
     ap.add_argument("--test", action="store_true",

@@ -10,8 +10,10 @@ Counterpart of `pointnerf_tpu/train/grow.py`: `ProbeCandidates`,
 - grow: render probe frames with the prob outputs, find rays that miss the
   cloud where the ground truth is not background, dilate that miss mask by
   one pixel, and add points at the neighboring hit rays' max-opacity sample
-  locations with weight-averaged payloads; grown slots start with zero
-  moments, and the capacity moves to the next 4096-multiple when needed;
+  locations with weight-averaged payloads (with nerf_create_points, also
+  at the radiance field's expected location on missed rays where its blend
+  mass is confident); grown slots start with zero moments, and the
+  capacity moves to the next 4096-multiple when needed;
 - split: clone the points whose payload-gradient EMA is large relative to
   how often they are sampled, a tangential step away.
 
@@ -25,7 +27,6 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..config import PointNeRFConfig
 from ..models.points import (DEAD_XYZ, PointCloud, PointCloudStatic, grow,
                              prune, round_capacity)
@@ -37,6 +38,8 @@ PROBE_KEYS = ("coarse_raycolor", "ray_mask", "ray_max_sample_loc_w",
               "ray_max_far_dist", "ray_max_shading_opacity",
               "shading_avg_color", "shading_avg_dir", "shading_avg_conf",
               "shading_avg_embedding")
+# the hybrid's creation signals, probed when nerf_importance > 0
+NERF_PROBE_KEYS = ("nerf_mass", "nerf_loc_w", "nerf_color")
 
 
 class ProbeCandidates(NamedTuple):
@@ -60,6 +63,8 @@ def render_full_frame(params, st: PointCloudStatic, grid,
     raydir = np.asarray(item["raydir"], np.float32)
     pix = np.asarray(item["pixel_idx"], np.int64)
     keys = PROBE_KEYS if prob else ("coarse_raycolor", "ray_mask")
+    if prob and cfg.render.nerf_importance > 0:
+        keys = keys + NERF_PROBE_KEYS
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=dev)
@@ -101,7 +106,8 @@ def accumulate_probe_candidates(adds: Dict, maps: Dict, item: Dict,
                                 bg: np.ndarray):
     """One probe frame's grow candidates: hit rays next to a missed ray
     whose ground truth is not background, where the peak opacity exceeds
-    prob_thresh."""
+    prob_thresh; with nerf_create_points also the missed rays whose field
+    mass exceeds it."""
     W, H = wh
     gt = np.zeros((H, W, 3), np.float32)
     pix = np.asarray(item["pixel_idx"], np.int64)
@@ -118,6 +124,30 @@ def accumulate_probe_candidates(adds: Dict, maps: Dict, item: Dict,
         adds["dirs"].append(maps["shading_avg_dir"][sel])
         adds["conf"].append(maps["shading_avg_conf"][sel]
                             * cfg.train.prob_mul)
+    # NeRF-driven creation: missed rays where the radiance field carries
+    # blend mass above prob_thresh get a point at the field's expected
+    # location — where no point geometry is near at all
+    if (cfg.train.nerf_create_points and "nerf_mass" in maps
+            and maps.get("nerf_color") is not None
+            and maps["nerf_color"].shape[-1] == 3):
+        seln = miss & (maps["nerf_mass"][..., 0] > cfg.train.prob_thresh)
+        if seln.any():
+            n = int(seln.sum())
+            adds["xyz"].append(maps["nerf_loc_w"][seln])
+            # the field has no embedding to give: small noise, drawn as the
+            # JAX package draws it
+            rng = np.random.RandomState(n)
+            F = cfg.agg.point_features_dim
+            adds["embedding"].append(
+                rng.randn(n, F).astype(np.float32) * 0.01)
+            adds["color"].append(maps["nerf_color"][seln])
+            # facing the camera: -raydir at those pixels
+            rd = np.zeros((H, W, 3), np.float32)
+            rd[pix[:, 1], pix[:, 0]] = np.asarray(item["raydir"], np.float32)
+            d = -rd[seln]
+            d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-8)
+            adds["dirs"].append(d)
+            adds["conf"].append(maps["nerf_mass"][seln] * cfg.train.prob_mul)
 
 
 def finalize_probe_candidates(adds: Dict, cfg: PointNeRFConfig
@@ -134,10 +164,8 @@ def finalize_probe_candidates(adds: Dict, cfg: PointNeRFConfig
 def probe_hole(params, st: PointCloudStatic, grid, cfg: PointNeRFConfig,
                items: List[Dict], wh: Tuple[int, int], bg_color=None,
                chunk: int = 2304) -> ProbeCandidates:
-    """Scan probe frames for holes; returns the grow candidates."""
-    if cfg.train.nerf_create_points:
-        raise not_ported("NeRF-driven point creation (nerf_create_points)",
-                         "Queue 1, fine pass and hybrid")
+    """Scan probe frames for holes (and, with nerf_create_points, for the
+    field's confident mass on missed rays); returns the grow candidates."""
     bg = np.asarray(bg_color if bg_color is not None else cfg.render.bg_color,
                     np.float32)
     adds = {k: [] for k in ("xyz", "embedding", "color", "dirs", "conf")}

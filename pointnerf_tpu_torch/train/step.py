@@ -49,13 +49,18 @@ def create_train_state(generator: torch.Generator, agg_params,
 def loss_fn(params, st: PointCloudStatic, grid: PointGrid, batch: RayBatch,
             cfg: PointNeRFConfig, generator: Optional[torch.Generator] = None,
             u: Optional[torch.Tensor] = None,
-            compute_dtype=torch.float32) -> Tuple[torch.Tensor, Dict]:
+            compute_dtype=torch.float32,
+            draws: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Training render + losses. Returns (total, items); items carry
     psnr, psnr_masked, n_miss, n_decode_dropped, per_ray_err and, when
-    `hits_tracked(cfg)`, the per-point neighbor-hit increment hit_inc."""
+    `hits_tracked(cfg)`, the per-point neighbor-hit increment hit_inc (the
+    coarse and the fine pass's neighbors). `u` and `draws` are
+    `render_rays`'."""
     pc = freeze_points(params["points"], cfg.points)
     out = render_rays(params["mlp"], pc, st, grid, batch, cfg, train=True,
-                      compute_dtype=compute_dtype, generator=generator, u=u)
+                      compute_dtype=compute_dtype, generator=generator, u=u,
+                      draws=draws)
     gt = batch.gt_image
     total, items = compute_losses(out, gt, cfg.loss)
     zero = torch.zeros((), device=gt.device)
@@ -74,7 +79,9 @@ def loss_fn(params, st: PointCloudStatic, grid: PointGrid, batch: RayBatch,
     items["per_ray_err"] = ((out.coarse_raycolor - gt) ** 2).mean(-1).detach()
     if hits_tracked(cfg):
         cap = params["points"].capacity
-        flat = out.neighbor_pidx.reshape(-1).long()
+        flat = torch.cat([p.reshape(-1) for p in (out.neighbor_pidx,
+                                                  out.fine_neighbor_pidx)
+                          if p is not None]).long()
         flat = flat[flat >= 0]
         items["hit_inc"] = torch.zeros(cap, device=gt.device).index_add_(
             0, flat, torch.ones(flat.shape, device=gt.device))
@@ -84,7 +91,8 @@ def loss_fn(params, st: PointCloudStatic, grid: PointGrid, batch: RayBatch,
 def loss_and_grads(params, st: PointCloudStatic, grid: PointGrid,
                    batch: RayBatch, cfg: PointNeRFConfig,
                    generator: Optional[torch.Generator] = None,
-                   u: Optional[torch.Tensor] = None):
+                   u: Optional[torch.Tensor] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None):
     """(total, items, grads): `loss_fn` and the gradient of its total with
     respect to every parameter (zeros where none flows), in the layout of
     `params`, before the grad flags."""
@@ -94,7 +102,7 @@ def loss_and_grads(params, st: PointCloudStatic, grid: PointGrid,
     params = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         total, items = loss_fn(params, st, grid, batch, cfg,
-                               generator=generator, u=u)
+                               generator=generator, u=u, draws=draws)
         leaves = tree_leaves(params)
         gl = torch.autograd.grad(total, leaves, allow_unused=True)
     it = iter([torch.zeros_like(p) if g is None else g
@@ -106,15 +114,18 @@ def loss_and_grads(params, st: PointCloudStatic, grid: PointGrid,
 
 def train_step(state: TrainState, st: PointCloudStatic, grid: PointGrid,
                batch: RayBatch, cfg: PointNeRFConfig,
-               u: Optional[torch.Tensor] = None
+               u: Optional[torch.Tensor] = None,
+               draws: Optional[Dict[str, torch.Tensor]] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step on a batch of rays: render, losses, gradients
     of every parameter (flags applied), the two-group Adam update (with the
-    alternation and the hit boost), the hit counters. The jitter is drawn
-    from `state.key` unless `u` [R, D] is given (parity tests pass JAX's
-    draw). Must not run under `torch.inference_mode`."""
+    alternation and the hit boost), the hit counters. The random draws come
+    from `state.key` unless given: `u` [R, D] the coarse jitter, `draws`
+    the fine pass's and the hybrid's (`render_rays`; parity tests pass
+    JAX's). Must not run under `torch.inference_mode`."""
     _total, items, grads = loss_and_grads(state.params, st, grid, batch, cfg,
-                                          generator=state.key, u=u)
+                                          generator=state.key, u=u,
+                                          draws=draws)
     grads["points"] = apply_grad_flags(grads["points"], cfg.points)
 
     with torch.no_grad():

@@ -34,7 +34,19 @@ warm-up steps, and N_PROFILED_CHUNKS eval chunks of 9,216 rays of the test
 view after one warm-up chunk, each broken down with K3 and K4 (f32, CUDA
 cores) and K2 named.
 
-    python3 scripts/port_profile.py [--sections main dataset]
+Hybrid: chip_smoke's hole scene (the procedural cluster, prims 1 and 4
+left out of a 200,000-point cloud) at the recorded hybrid configuration
+(runs/quality_cluster_hole_nerf_r5/opt.json), random weights: per train
+step (N_PROFILED_STEPS after three warm-up steps on one batch of 3,600
+rays) and per request (N_PROFILED_CHUNKS of 3,600 rays after one warm-up),
+with K1, K3, K4 and K2 named, for three variants on the same scene and
+weights: the points alone (nerf_importance 0), the hybrid, and the hybrid
+with the fine pass (fine_sample_num 80, fine_raycolor in the color loss,
+as chip_smoke's fine phase runs it). The hybrid's share of a step or
+request is the device time it adds to the points alone, the fine pass's
+what it adds to the hybrid.
+
+    python3 scripts/port_profile.py [--sections main dataset hybrid]
 
 Needs one CUDA card.
 """
@@ -49,7 +61,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
 N_PROFILED_CHUNKS = 4
-SECTIONS = ("main", "dataset")   # main: serving, training and the probe
+SECTIONS = ("main", "dataset", "hybrid")   # main: serving, training, probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or its live-list pass (live_*<false>) and
@@ -203,6 +215,91 @@ def dataset_section(cs) -> None:
           + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%)")
 
 
+def hybrid_section(cs) -> None:
+    """Per train step and per request of the points alone, the hybrid and
+    the hybrid with the fine pass, on the hole scene."""
+    import dataclasses
+    import torch
+    from pointnerf_tpu_torch.data.procedural import view_item
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, train_step)
+    dev = torch.device("cuda")
+    cfg_h = cs.opt_config(cs.HYBRID_OPT)
+    variants = {
+        "points alone": cfg_h.replace(
+            render=dataclasses.replace(cfg_h.render, nerf_importance=0),
+            loss=dataclasses.replace(cfg_h.loss, **dict(zip(
+                ("color_loss_items", "color_loss_weights"), zip(*[
+                    (n, w) for n, w in zip(cfg_h.loss.color_loss_items,
+                                           cfg_h.loss.color_loss_weights)
+                    if n != "nerf_coarse_raycolor"]))))),
+        "hybrid": cfg_h,
+        "hybrid + fine pass": cs.fine_config(cfg_h)}
+    prims, pc, st, params, grid, views = cs.hole_scene(cfg_h, dev)
+    items = [view_item(prims, *v, cs.DS_WH, n_rays=cs.N_RAYS, seed=i,
+                       view_id=i) for i, v in enumerate(views)]
+    step_ms, req_ms = {}, {}
+    for name, cfg in variants.items():
+        p = dict(params) if cfg.render.nerf_importance else {
+            k: v for k, v in params.items() if k != "nerf"}
+        state = create_train_state(torch.Generator(device=dev).manual_seed(2),
+                                   p, pc, cfg)
+        batch = ray_batch_from_numpy(items[0], cfg, device=dev)
+        for _ in range(3):
+            state, _it = train_step(state, st, grid, batch, cfg)
+        steps = [state]
+
+        def train():
+            for _ in range(N_PROFILED_STEPS):
+                steps[0], _it = train_step(steps[0], st, grid, batch, cfg)
+        n = N_PROFILED_STEPS
+        wall, per_kernel, busy = profiled(train)
+        total = report(f"{name}, training", n, cs.N_RAYS, wall, per_kernel,
+                       busy)
+        parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+                 for k in ("K1", "K3", "K4")}
+        rest = total - sum(parts.values())
+        print(f"{name}, per train step, device ms: " + ", ".join(
+            f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+            for k, ms in parts.items())
+            + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%); "
+            f"kernel total {total / n:.4f}")
+        step_ms[name] = (total / n, wall * 1e3 / n)
+        reqs = [ray_batch_from_numpy(it, cfg, device=dev)
+                for it in items[1:2 + N_PROFILED_CHUNKS]]
+        sp = {"mlp": steps[0].params["mlp"], "points": steps[0].params[
+            "points"]}
+        eval_step(sp, st, grid, reqs[0], cfg)
+
+        def serve():
+            for b in reqs[1:]:
+                eval_step(sp, st, grid, b, cfg)
+        n = N_PROFILED_CHUNKS
+        wall, per_kernel, busy = profiled(serve)
+        total = report(f"{name}, serving", n, cs.N_RAYS, wall, per_kernel,
+                       busy)
+        parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+                 for k in ("K1", "K3", "K2")}
+        rest = total - sum(parts.values())
+        print(f"{name}, per request, device ms: " + ", ".join(
+            f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+            for k, ms in parts.items())
+            + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%); "
+            f"kernel total {total / n:.4f}")
+        req_ms[name] = (total / n, wall * 1e3 / n)
+        del state, steps
+    for what, d in (("train step", step_ms), ("request", req_ms)):
+        (p0, h0), (p1, h1), (p2, h2) = (d[k] for k in variants)
+        print(f"per {what}, device kernel ms / host ms: points alone "
+              f"{p0:.4f} / {h0:.3f}, hybrid {p1:.4f} / {h1:.3f}, + fine "
+              f"{p2:.4f} / {h2:.3f}; the hybrid's share of the hybrid "
+              f"{what} {100 * (p1 - p0) / p1:.1f}% of device time "
+              f"({100 * (h1 - h0) / h1:.1f}% of host time), the fine pass's "
+              f"share of the hybrid + fine {what} "
+              f"{100 * (p2 - p1) / p2:.1f}% ({100 * (h2 - h1) / h2:.1f}%)")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -220,6 +317,8 @@ def main() -> None:
     print(f"card: {cs.card_line()}")
     if "dataset" in sections:
         dataset_section(cs)
+    if "hybrid" in sections:
+        hybrid_section(cs)
     if "main" not in sections:
         return
     cfg = cs.slice_config()

@@ -255,3 +255,43 @@ def test_unfused_decode_bf16_matches_jax_unfused(seed, K):
     got = _features(False, torch.bfloat16, seed, K).float().numpy()
     scale = max(1.0, float(np.abs(ref).max()))
     np.testing.assert_allclose(got, ref, rtol=0, atol=BF16_TOL * scale)
+
+
+def test_hybrid_merged_march_route(monkeypatch):
+    """The hybrid's z-merged march: on a (faked) card a serving render
+    takes K2 for it, after the points-only march (two launches), and a
+    training render never does; on the CPU it is the plain march whatever
+    the flag, as in JAX."""
+    from test_torch_hybrid import _scene, hybrid_cfg
+    cfg = hybrid_cfg()
+    tp, tpc, tst, tgrid, tb, tcfg = _scene(cfg)[1]
+    for flag in (True, False):
+        c = tcfg.replace(render=dataclasses.replace(tcfg.render,
+                                                    fused_march=flag))
+        assert tr.merged_march_takes_kernel(c, CUDA, train=False)
+        assert not tr.merged_march_takes_kernel(c, CUDA, train=True)
+        assert not tr.merged_march_takes_kernel(c, CPU, train=False)
+    calls = []
+    real_march, real_pick = tr.fused_march, tr.march_takes_kernel
+
+    def march(*a, **k):
+        calls.append(a[0].shape)
+        return real_march(*a, **k)
+    monkeypatch.setattr(tr, "fused_march", march)
+    with torch.no_grad():
+        tr.render_rays(tp, tpc, tst, tgrid, tb, tcfg)
+    assert len(calls) == 1                   # CPU: the flag's points march
+    calls.clear()
+    monkeypatch.setattr(tr, "march_takes_kernel",
+                        lambda c, _d, train: real_pick(c, CUDA, train))
+    monkeypatch.setattr(tr, "merged_march_takes_kernel",
+                        lambda c, _d, train: real_pick(c, CUDA, train))
+    with torch.no_grad():
+        tr.render_rays(tp, tpc, tst, tgrid, tb, tcfg)
+    SR, Ni = tcfg.query.SR, tcfg.render.nerf_importance
+    assert [s[1] for s in calls] == [SR, SR + Ni]
+    calls.clear()
+    with torch.no_grad():
+        tr.render_rays(tp, tpc, tst, tgrid, tb, tcfg, train=True,
+                       generator=torch.Generator().manual_seed(0))
+    assert calls == []

@@ -753,3 +753,30 @@ def test_f32_smem_formulas_match_the_kernels(dev, kw):
     if spec.H > 256:
         want = (0, 0, 0)           # the kernels refuse it
     assert f32_smem_bytes_built(spec) == want
+
+
+@pytest.mark.parametrize("SR", [88, 160])
+def test_fused_march_at_the_hybrid_and_fine_shapes(dev, SR):
+    """K2 at the hybrid's merged sequence (SR 80 + 8 field samples) and the
+    fine pass's (80 + 80), C = 3: within 1e-5 of its plain version, and the
+    hybrid's blend weights from K2's opacity (the exclusive cumprod) equal
+    to the plain march's."""
+    from pointnerf_tpu_torch.models.ray_march import (
+        alpha_blend, exclusive_transmission, radiance_render, ray_march)
+    from pointnerf_tpu_torch.ops.fused_march import (fused_march,
+                                                     fused_march_plain)
+    g = torch.Generator().manual_seed(SR)
+    R, C = 3600, 3
+    dist = torch.rand((R, SR), generator=g) * 0.02
+    valid = torch.rand((R, SR), generator=g) > 0.5
+    feats = torch.rand((R, SR, C + 1), generator=g) * 30
+    bg = torch.ones(C)
+    ins = [t.to(dev) for t in (dist, valid, feats, bg)]
+    outs = fused_march(*ins)
+    for a, b in zip(outs, fused_march_plain(*ins)):
+        assert float((a - b).abs().max()) <= 1e-5
+    bw = outs[1] * exclusive_transmission(outs[1])
+    plain = ray_march(ins[0], ins[1], ins[2], radiance_render, alpha_blend,
+                      ins[3])
+    assert torch.equal(outs[1], plain[2])
+    assert torch.equal(bw, plain[4][..., 0])

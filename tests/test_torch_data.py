@@ -242,8 +242,12 @@ def test_dataset_registry():
     from pointnerf_tpu_torch.data.nerf_synth import NerfSynthDataset
     for name in ("nerf_synth360_ft", "nerf_synth_ft"):
         assert find_dataset_class_by_name(name) is NerfSynthDataset
-    for name in ("dtu", "dtu_ft", "llff_ft", "tt_ft", "nsvf", "scannet_ft",
-                 "waymo_ft"):
+    from pointnerf_tpu_torch.data.nsvf import NsvfDataset
+    from pointnerf_tpu_torch.data.waymo import WaymoDataset
+    for name in ("tt_ft", "nsvf"):
+        assert find_dataset_class_by_name(name) is NsvfDataset
+    assert find_dataset_class_by_name("waymo_ft") is WaymoDataset
+    for name in ("dtu", "dtu_ft", "llff_ft", "scannet_ft"):
         with pytest.raises(SliceNotPorted, match="Queue 1, datasets"):
             find_dataset_class_by_name(name)
     with pytest.raises(KeyError):

@@ -199,12 +199,16 @@ def test_split_high_grad_matches_jax(base):
 
 
 def test_nerf_create_points_is_not_ported():
-    from pointnerf_tpu_torch import SliceNotPorted, config as tc
+    """NeRF-driven creation is ported now (tests/test_torch_hybrid*.py):
+    probe_hole takes nerf_create_points and, over no probe frame, returns
+    no candidate."""
+    from pointnerf_tpu_torch import config as tc
     cfg = tc.tiny_test_config()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 nerf_create_points=True))
-    with pytest.raises(SliceNotPorted, match="nerf_create_points"):
-        tg.probe_hole(None, None, None, cfg, [], WH)
+    cand = tg.probe_hole(None, None, None, cfg, [], WH)
+    assert cand.xyz.shape == (0, 3)
+    assert cand.embedding.shape == (0, cfg.agg.point_features_dim)
 
 
 def test_dilate3_matches_jax():

@@ -146,13 +146,14 @@ def test_out_of_slice_configs_raise():
     tr.check_envelope(dense, dev)
     tr.check_envelope(dense, torch.device("cuda"))
     tr.check_envelope(dense, torch.device("cuda"), train=True)
-    for bad, match in (
-            (dict(render=dataclasses.replace(cfg.render, fine_sample_num=4)),
-             "fine pass"),
-            (dict(render=dataclasses.replace(cfg.render,
-                                             nerf_importance=4)), "hybrid")):
-        with pytest.raises(NotImplementedError, match=match):
-            tr.check_envelope(cfg.replace(**bad), dev)
+    # the fine pass and the hybrid run on the kernels of the coarse pass:
+    # accepted on both devices, serving and training
+    for ext in (dict(fine_sample_num=4), dict(nerf_importance=4),
+                dict(fine_sample_num=4, nerf_importance=4)):
+        c = cfg.replace(render=dataclasses.replace(cfg.render, **ext))
+        for d in (dev, torch.device("cuda")):
+            tr.check_envelope(c, d)
+            tr.check_envelope(c, d, train=True)
     # training is accepted: on the CPU in both formulations, on the card
     # with the fused decode (the march is the plain one in training, as in
     # JAX, so fused_march may be off there)
