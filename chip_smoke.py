@@ -168,13 +168,48 @@ Phases:
      train_dataset_scene for 4 steps on each at scene_config() (K3 and K4
      f32 once a step, K1 never) with one 9,216-ray eval chunk (K3 f32
      once, K2 once) and a checkpoint;
- 19. the kernels JSON line (one row per kernel source; K3 and K4 have a
+ 19. a DTU-format scene of the cluster under build/mvs: 16 views of
+     640 x 512 on a ring around it, written once and laid out twice —
+     dtu_ft (cam files in millimetres, quarter-resolution intrinsics, the
+     finetune init pairs: 8 groups of a view and its ring neighbours) and
+     dtu (scene units, for the feed-forward loader) —, the ranked pair
+     file;
+ 20. MVS init: mvs_init_cloud on dtu_ft, 8 groups of 3 views, 64 depth
+     planes, the port's seeded weights, no confidence threshold and one
+     consistent view (random weights leave a flat depth softmax): seconds
+     per group, depth pixels before the filter and points after it, peak
+     memory; group 0 card vs CPU: MVSNet's depth, conf, prob and features
+     (TF32 off) within MVS_TOL with the TF32 forward as the control above
+     the features' bar (random weights leave the depth softmax flat: TF32
+     barely moves depth), the filter of the card's depth maps on the card and on the CPU
+     (survivors equal), the embedding within MVS_EMBED_TOL;
+ 21. dtu_ft per-scene training: train_dataset_scene with no cloud on disk
+     (it builds one with mvs_init_cloud) for 8 steps at scene_config() of
+     the cloud — a prune at step 4 (prune_thresh cut to the cloud's median
+     conf), an eval of both test views and a checkpoint at 8 —, then
+     test_dataset_scene (PSNR equal within 0.01 dB) and a resume to step
+     10: K3 f32 and K4 f32 once a step, K3 f32 and K2 once per 9,216-ray
+     eval chunk, K1 never; each loaded state equal to the saved one bit for
+     bit;
+ 22. feed-forward training: train_feedforward_dataset on the dtu layout
+     (nsrc 2, 48 planes, 1,024 rays a step, 640 x 512, the driver's own
+     scene_config), 3 + 10 steps: K3 f32 and K4 f32 once a step, K1 and K2
+     never, the loss finite, MVSNet's and the aggregator's weights moved,
+     s/step and rays/s, peak memory; one step card vs CPU from the trained
+     state at 320 x 256 (widths kept) — the loss, each group's gradients
+     and the running stats at bars from readings, each beside its control,
+     the CPU step with eval-mode BatchNorm —, and infer_cloud's num_active
+     and xyz card vs CPU; then K3 f32 and K4 f32 (the dists gradient
+     included) against their plain versions on the first timed step's
+     inputs, and K3 f32 and K2 on a recorded dtu_ft eval chunk;
+ 23. the kernels JSON line (one row per kernel source; K3 and K4 have a
      tensor-core row and a CUDA-core row, counted by route; launches per
      path: serve, train, maintenance, dataset, flags_off, hybrid (phases
-     14-16), loaders; each kernel's numbers on the maintenance path's probe
-     and eval chunks, on the flags-off path's train step and request, and
-     at the hybrid's and the fine pass's shapes), the card line, and the
-     final status line.
+     14-16), loaders, mvs (phases 21-22); each kernel's numbers on the
+     maintenance path's probe and eval chunks, on the flags-off path's
+     train step and request, at the hybrid's and the fine pass's shapes,
+     and on the feed-forward step and the dtu_ft eval chunk), the card
+     line, and the final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -3055,6 +3090,609 @@ def hybrid_paths(kernels):
     return counts, routes, checks, rates
 
 
+# ---- the MVS paths: a DTU-format scene, MVS point initialization, dtu_ft
+# per-scene training from the MVS cloud, feed-forward training -------------
+MVS_WH = (640, 512)           # DTU's rectified views at MVSNet's resolution
+MVS_VIEWS = 16                # DTU scans have 49 (cut)
+MVS_GROUPS = 8                # mvs_init_cloud's default n_groups
+MVS_RING = dict(radius=3.0, height=0.8, focal=900.0)
+MVS_NEAR, MVS_FAR = 2.0, 4.4  # the depth range the cam files give
+DTU_SCAN = "scan1"
+DTU_MM = 200.0                # dtu_ft's cam files are in millimetres (x 1/200)
+# random MVSNet weights give a flat depth softmax (conf about 4/64): the
+# filter runs with no confidence threshold and one consistent view, as the
+# JAX package's own test runs it (tests/test_dataset_driver.py)
+MVS_INIT_KW = dict(depth_conf_thresh=0.0, geo_cnsst_num=1)
+FT_STEPS = 8
+FT_RESUME_TO = 10
+FF_WARMUP, FF_STEPS = 3, 10
+FF_RAYS = 1024
+FF_DEPTHS = 48
+FF_PARITY_WH = (320, 256)     # the card-vs-CPU step's views (widths kept)
+# card vs CPU, MVSNet in f32 (TF32 off): the bars the JAX package held
+# against the reference's torch MVSNet (tests/test_mvs_import.py): depth
+# max |err| / max |depth|, conf and prob max |err|; the embedding of the
+# same points within 2e-4 of scale
+MVS_TOL = 1e-4
+MVS_EMBED_TOL = 2e-4
+# card vs CPU feed-forward step (train-mode BatchNorm, cuDNN's f32
+# convolutions against oneDNN's, conv3d's backward with atomics): the loss
+# relative, each group's gradients sum |err| / sum |CPU|, the running
+# stats' worst max |err| / max |CPU|, infer_cloud's xyz max |err| /
+# max |CPU|; control: the CPU step with the BatchNorm in eval mode (a
+# wrong mode is the fault these catch). Readings on an H100 80GB HBM3 at
+# 700 W (PERF.md §6): loss 1.1e-05 (control 0.69), mlp 3.0e-04 (1.31),
+# mvs 6.6e-03 (1.00: MVSNet's deepest gradients are f32 rounding, ROADMAP
+# Queue 3), stats 2.5e-07 (8.8e-02), xyz 1.1e-06
+FF_LOSS_TOL = 1e-4
+FF_GRAD_TOL = {"mlp": 3e-3, "mvs": 5e-2}
+FF_STATS_TOL = 1e-5
+FF_XYZ_TOL = 1e-4
+
+
+def write_dtu_scenes(root: str):
+    """The procedural cluster in DTU's layout, twice: root/dtu_ft (cam files
+    in millimetres with quarter-resolution intrinsics, as dtu_ft reads
+    them; the finetune init pairs: MVS_GROUPS groups of a view and its two
+    ring neighbours) and root/dtu (scene units, full-resolution intrinsics,
+    for the feed-forward loader), MVS_VIEWS views of MVS_WH on a ring around
+    the cluster, the ranked pair file; the PNGs written once, under dtu_ft,
+    and linked from dtu."""
+    import numpy as np
+    from pointnerf_tpu_torch.camera import get_dtu_raydir
+    from pointnerf_tpu_torch.data.procedural import SCENES, gt_render
+    from pointnerf_tpu_torch.data.synthetic import ring_cameras
+    from pointnerf_tpu_torch.utils.visualizer import to8b, write_png
+    prims = SCENES[DS_SCAN]()
+    W, H = MVS_WH
+    views = ring_cameras(n_views=MVS_VIEWS, wh=MVS_WH, **MVS_RING)
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    ft, ff = os.path.join(root, "dtu_ft"), os.path.join(root, "dtu")
+    rect = os.path.join(ft, "Rectified", f"{DTU_SCAN}_train")
+    for d in (rect, os.path.join(ft, "Cameras", "train"),
+              os.path.join(ft, "dtu_configs"),
+              os.path.join(ff, "Cameras", "train")):
+        os.makedirs(d, exist_ok=True)
+    link = os.path.join(ff, "Rectified")
+    if not os.path.lexists(link):
+        os.symlink(os.path.join("..", "dtu_ft", "Rectified"), link)
+    n_ft = 192                               # DtuFtDataset's n_depths
+    d_int_ft = (MVS_FAR - MVS_NEAR) / (n_ft - 1)
+    d_int_ff = (MVS_FAR - MVS_NEAR) / FF_DEPTHS
+
+    def cam_text(w2c, K, depth_line):
+        return ("extrinsic\n" + "\n".join(" ".join(f"{x:.9g}" for x in row)
+                                          for row in w2c)
+                + "\n\nintrinsic\n" + "\n".join(
+                    " ".join(f"{x:.9g}" for x in row) for row in K)
+                + f"\n\n{depth_line}\n")
+    for i, (campos, rot, K) in enumerate(views):
+        rd = get_dtu_raydir(pix, K, rot).astype(np.float32)
+        img = gt_render(prims, campos.astype(np.float32), rd)
+        write_png(os.path.join(rect, f"rect_{i + 1:03d}_3_r5000.png"),
+                  to8b(img.reshape(H, W, 3)))
+        w2c = np.eye(4)
+        w2c[:3, :3] = rot.T
+        w2c[:3, 3] = -rot.T @ campos
+        mm = w2c.copy()
+        mm[:3, 3] *= DTU_MM
+        Kq = K.astype(np.float64).copy()
+        Kq[:2] /= 4.0
+        with open(os.path.join(ft, "Cameras", "train", f"{i:08d}_cam.txt"),
+                  "w") as f:
+            f.write(cam_text(mm, Kq, f"{MVS_NEAR * DTU_MM:.9g} "
+                                     f"{d_int_ft * DTU_MM:.9g}"))
+        with open(os.path.join(ff, "Cameras", "train", f"{i:08d}_cam.txt"),
+                  "w") as f:
+            f.write(cam_text(w2c, K, f"{MVS_NEAR:.9g} {d_int_ff:.9g}"))
+    lines = [str(MVS_VIEWS)]
+    for i in range(MVS_VIEWS):
+        srcs = [(i + s * k) % MVS_VIEWS for k in range(1, 6) for s in (1, -1)]
+        lines += [str(i), f"{len(srcs)} " + " ".join(
+            f"{v} {100.0 - 10 * j:.1f}" for j, v in enumerate(srcs))]
+    for d in (ft, ff):
+        with open(os.path.join(d, "Cameras", "pair.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    step = MVS_VIEWS // MVS_GROUPS
+    refs = list(range(0, MVS_VIEWS, step))[:MVS_GROUPS]
+    with open(os.path.join(ft, "dtu_configs",
+                           "dtu_finetune_init_pairs.txt"), "w") as f:
+        f.write(f"{len(refs)}\n" + "".join(
+            f"{r}\n{(r - 1) % MVS_VIEWS},{(r + 1) % MVS_VIEWS}\n"
+            for r in refs))
+    return ft, ff
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| over two tensors (a on any device)."""
+    b = b.float().cpu()
+    return float((a.float().cpu() - b).abs().max()) / max(
+        float(b.abs().max()), 1e-30)
+
+
+def _sum_rel(grads, ref) -> float:
+    """sum |g - ref| / sum |ref| over every leaf of two trees."""
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    num = den = 0.0
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        num += float((a.cpu() - b.cpu()).abs().sum())
+        den += float(b.abs().sum())
+    return num / den
+
+
+def mvs_group_parity(ds, model, variables):
+    """Group 0 of the init at full size, card vs CPU: MVSNet's depth, conf
+    and prob of its reference view and the features (TF32 off) within
+    MVS_TOL, with the TF32 forward as the control on the features; the
+    filter of the card's depth maps of all
+    three reference views run on the card and on the CPU, masks equal; the
+    embedding of the card's surviving points within MVS_EMBED_TOL."""
+    import copy
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.mvs import mvsnet, points_init
+    from pointnerf_tpu_torch.mvs.filter import filter_by_masks
+    from pointnerf_tpu_torch.mvs.points_init import (gen_scene_points,
+                                                     images_nchw, mvs_apply,
+                                                     view_proj_mats)
+    g = ds.get_mvs_item(0)
+    V, H, W, _ = g["images"].shape
+    D = min(64, len(g["depth_values"]))
+    dv = np.linspace(g["depth_values"][0], g["depth_values"][-1], D,
+                     dtype=np.float32)
+    cpu = torch.device("cpu")
+    m_cpu = copy.deepcopy(model).to(cpu)
+    v_cpu = {k: {n: t.to(cpu) for n, t in v.items()}
+             for k, v in variables.items()}
+    args = (images_nchw(g["images"], cpu),
+            torch.tensor(view_proj_mats(g["Ks"], g["w2cs"], 0)),
+            torch.tensor(dv))
+    cd = torch.backends.cudnn
+    with torch.no_grad():
+        ref = mvs_apply(m_cpu, v_cpu, *args)
+        card = mvs_apply(model, variables, *[a.cuda() for a in args])
+        real_precision = mvsnet.mvs_precision
+        mvsnet.mvs_precision = lambda: cd.flags(
+            enabled=cd.enabled, benchmark=cd.benchmark,
+            deterministic=cd.deterministic, allow_tf32=True)
+        try:
+            tf32 = mvs_apply(model, variables, *[a.cuda() for a in args])
+        finally:
+            mvsnet.mvs_precision = real_precision
+    torch.cuda.synchronize()
+
+    def readings(out):
+        return (_rel(out[0], ref[0]),
+                float((out[1].cpu() - ref[1]).abs().max()),
+                float((out[3].cpu() - ref[3]).abs().max()),
+                _rel(out[2], ref[2]))
+    (d, c, p, f), (cd, cc, cp, cf) = readings(card), readings(tf32)
+    log(f"MVSNet card vs CPU, group 0's reference view ({W} x {H}, V={V}, "
+        f"D={D}, TF32 off): depth max|err|/max|depth| {d:.3e}, conf max|err| "
+        f"{c:.3e}, prob max|err| {p:.3e}, features max|err|/scale {f:.3e} "
+        f"(bars {MVS_TOL}); control, the card with TF32: {cd:.3e}, {cc:.3e}, "
+        f"{cp:.3e}, {cf:.3e}")
+    for what, err in (("depth", d), ("conf", c), ("prob", p),
+                      ("features", f)):
+        if not err <= MVS_TOL:
+            fail(f"MVSNet's {what} card vs CPU beyond its bar")
+    # random weights leave the depth softmax flat, so TF32's roundings
+    # barely move depth, conf and prob (PERF.md §6): the control is held
+    # on the features, which the embedding samples
+    if not cf > MVS_TOL:
+        fail("the TF32 control does not land above the features' bar")
+    # the filter of the group's (card) depth maps, on the card as
+    # gen_scene_points runs it and again on the CPU
+    seen = []
+
+    def filt(*a, **k):
+        seen.append((a, k))
+        return filter_by_masks(*a, **k)
+    points_init.filter_by_masks = filt
+    try:
+        out = gen_scene_points(variables["params"], model, g["images"],
+                               g["Ks"], g["w2cs"], (float(dv[0]),
+                                                    float(dv[-1])),
+                               n_depths=D,
+                               batch_stats=variables["batch_stats"],
+                               **MVS_INIT_KW)
+    finally:
+        points_init.filter_by_masks = filter_by_masks
+    (depths, confs, Kq, w2cs), kw = seen[0]
+    kw = dict(kw, device="cuda")
+    xc, cc_ = filter_by_masks(depths, confs, Kq, w2cs, **kw)
+    xp, cp_ = filter_by_masks(depths, confs, Kq, w2cs, **dict(kw,
+                                                              device="cpu"))
+    counts = [a.shape[0] for a in xc]
+    if counts != [a.shape[0] for a in xp] or not all(
+            np.array_equal(a, b) for a, b in zip(cc_, cp_)):
+        fail(f"the filter's survivors differ card vs CPU: {counts} vs "
+             f"{[a.shape[0] for a in xp]}")
+    xerr = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+               for a, b in zip(xc, xp) if len(b))
+    log(f"filter card vs CPU on the card's depth maps: survivors per view "
+        f"{counts} of {depths[0].numel()} equal, their points "
+        f"max|err|/scale {xerr:.3e}")
+    # the embedding of the card's points, card vs CPU
+    with torch.no_grad():
+        feats = mvs_apply(model, variables, images_nchw(g["images"], "cuda"),
+                          method="features_only")
+        campos = np.linalg.inv(g["w2cs"][0])[:3, 3]
+        ins = [torch.as_tensor(np.asarray(a, np.float32)) for a in (
+            out["xyz"], g["Ks"], g["w2cs"], campos, out["conf"])]
+        e_card = mvs_apply(model, variables, ins[0].cuda(),
+                           images_nchw(g["images"], "cuda"), feats,
+                           *[t.cuda() for t in ins[1:]],
+                           method="embed_points")
+        e_cpu = mvs_apply(m_cpu, v_cpu, ins[0], images_nchw(g["images"], cpu),
+                          feats.cpu(), *ins[1:], method="embed_points")
+    errs = [_rel(a, b) for a, b in zip(e_card[:3], e_cpu[:3])]
+    log(f"embedding card vs CPU on {ins[0].shape[0]} points: embedding, "
+        f"color, dirs max|err|/scale {', '.join(f'{e:.3e}' for e in errs)} "
+        f"(bar {MVS_EMBED_TOL}; scales "
+        f"{', '.join(f'{float(t.abs().max()):.3e}' for t in e_cpu[:3])})")
+    if not max(errs) <= MVS_EMBED_TOL:
+        fail("the point embedding card vs CPU beyond its bar")
+    return {"depth": d, "conf": c, "prob": p, "features": f,
+            "tf32": [cd, cc, cp, cf], "embed": max(errs)}
+
+
+def mvs_init_phase(ft_root: str):
+    """mvs_init_cloud on the dtu_ft scene (MVS_GROUPS groups of 3 views at
+    MVS_WH, 64 depth planes, the port's seeded weights), with seconds per
+    group, points before and after the filter and peak memory; then group
+    0 card vs CPU (mvs_group_parity). Returns (cloud, mvs_init_kwargs)."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig
+    from pointnerf_tpu_torch.data import find_dataset_class_by_name
+    from pointnerf_tpu_torch.mvs.points_init import (init_mvs_points,
+                                                     new_mvs_model)
+    from pointnerf_tpu_torch.train import driver as td
+    ds = find_dataset_class_by_name("dtu_ft")(DataConfig(
+        dataset_name="dtu_ft", data_root=ft_root, scan=DTU_SCAN),
+        split="train")
+    model = new_mvs_model(32, n_views=3, device="cuda")
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+    kw = dict(MVS_INIT_KW, mvs_variables=variables, n_groups=MVS_GROUPS)
+    td.mvs_init_cloud(ds, device="cuda", n_groups=1, **{
+        k: v for k, v in kw.items() if k != "n_groups"})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cloud = td.mvs_init_cloud(ds, device="cuda", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    W, H = MVS_WH
+    before = MVS_GROUPS * 3 * (H // 4) * (W // 4)
+    n = cloud["xyz"].shape[0]
+    log(f"MVS init (dtu_ft, {MVS_GROUPS} groups of 3 views of {W} x {H}, 64 "
+        f"depth planes, random weights): {dt / MVS_GROUPS:.4f} s per group "
+        f"(host clock, synchronized), {before} depth pixels before the "
+        f"filter, {n} points after; peak memory {peak:.2f} GiB")
+    if n == 0 or not all(np.isfinite(v).all() for v in cloud.values()):
+        fail(f"MVS init gave {n} points or non-finite payloads")
+    parity = mvs_group_parity(ds, model, variables)
+    return cloud, kw, {"s_per_group": dt / MVS_GROUPS, "points_before":
+                       before, "points_after": n, "peak_gib": peak,
+                       **parity}
+
+
+def dtu_ft_path(kernels, ft_root: str, cloud, mvs_kw):
+    """train_dataset_scene("dtu_ft") with no cloud on disk (it builds one
+    with mvs_init_cloud) for FT_STEPS steps at scene_config() of the MVS
+    cloud with the schedule cut (a prune at FT_STEPS / 2 with prune_thresh
+    at the cloud's median conf, an eval of the test views and a checkpoint
+    at FT_STEPS), then test_dataset_scene (the two PSNRs equal), then a
+    resume to FT_RESUME_TO: every step launches K3 and K4 f32 once, every
+    eval chunk K3 f32 and K2 once, K1 never; the loaded states equal the
+    saved ones bit for bit. Returns (recorder, counts, routes, numbers)."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig, scene_config
+    from pointnerf_tpu_torch.data.dtu_ft import DtuFtDataset
+    from pointnerf_tpu_torch.train import driver as td
+    ds = DtuFtDataset(DataConfig(dataset_name="dtu_ft", data_root=ft_root,
+                                 scan=DTU_SCAN), split="test")
+    cfg = scene_config(cloud["xyz"], near=float(ds.near), far=float(ds.far))
+    thresh = float(np.median(cloud["conf"]))
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=FT_STEPS, prune_iter=FT_STEPS // 2,
+        prune_max_iter=FT_STEPS // 2, prune_thresh=thresh, prob_freq=0, test_freq=FT_STEPS,
+        save_iter_freq=FT_STEPS, print_freq=FT_STEPS // 2))
+    rec = MaintRecorder(cfg, kernels, ("fused_decode", "fused_decode_bwd"),
+                        ("fused_decode", "fused_march"),
+                        record_step=FT_STEPS // 2)
+    reset_counts(kernels)
+    rec.install()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    try:
+        with tempfile_dir(build) as run_dir:
+            t0 = time.perf_counter()
+            state, st, hist = td.train_dataset_scene(
+                "dtu_ft", ft_root, DTU_SCAN, run_dir, max_steps=FT_STEPS,
+                cfg=cfg, resume=False, mvs_init_kwargs=mvs_kw, device="cuda")
+            t1 = time.perf_counter()
+            m = td.test_dataset_scene("dtu_ft", ft_root, DTU_SCAN, run_dir,
+                                      cfg=cfg, save_images=False,
+                                      mvs_init_kwargs=mvs_kw, device="cuda")
+            t2 = time.perf_counter()
+            state2, _st2, _h2 = td.train_dataset_scene(
+                "dtu_ft", ft_root, DTU_SCAN, run_dir, max_steps=FT_RESUME_TO,
+                cfg=cfg, resume=True, mvs_init_kwargs=mvs_kw, device="cuda")
+    finally:
+        rec.restore()
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = {n: dict(kernels[n].launches_by_route)
+              for n in ("fused_decode", "fused_decode_bwd")}
+    steps = len(rec.times["train_step"])
+    frames = len(rec.times["eval_frame"])
+    chunks = -(-MVS_WH[0] * MVS_WH[1] // 9216)
+    if int(state.step) != FT_STEPS or int(state2.step) != FT_RESUME_TO \
+            or steps != FT_RESUME_TO:
+        fail(f"the dtu_ft path took {steps} steps")
+    if frames != 2 * len(ds):
+        fail(f"the dtu_ft path rendered {frames} eval frames, not "
+             f"{2 * len(ds)}")
+    want = {"knn_select": 0, "fused_decode": steps + frames * chunks,
+            "fused_decode_bwd": steps, "fused_march": frames * chunks}
+    if counts != want:
+        fail(f"dtu_ft path launches {counts}, expected {want}")
+    for n in routes:
+        if routes[n]["tensor_core"]:
+            fail(f"the dtu_ft path launched {n} on the tensor cores")
+    kinds = [e for e, _d in rec.log if e != "grid"]
+    if kinds.count("prune") != 1 or kinds.count("load") != 2:
+        fail(f"dtu_ft path events {kinds}: expected one prune and two loads")
+    losses = torch.stack(rec.losses).cpu()
+    p_train = hist["eval"][-1]["psnr"] if hist["eval"] else float("nan")
+    if not bool(torch.isfinite(losses).all()) \
+            or not np.isfinite([p_train, m["psnr"]]).all():
+        fail(f"dtu_ft path: losses or PSNR not finite: {losses.tolist()}")
+    if not abs(p_train - m["psnr"]) <= 1e-2:
+        fail(f"test_dataset_scene PSNR {m['psnr']} differs from the training "
+             f"run's eval {p_train} by more than 0.01 dB")
+    secs = {k: (sum(v) / len(v) if v else None, len(v))
+            for k, v in rec.times.items()}
+    log(f"dtu_ft path: {cloud['xyz'].shape[0]} MVS points (prune_thresh "
+        f"{thresh:.5f}, the median conf: prune "
+        f"{[d for e, d in rec.log if e == 'prune']}), {FT_STEPS} steps of "
+        f"{cfg.train.random_sample_size ** 2} rays, an eval of "
+        f"{len(ds)} test views of {MVS_WH[0]} x {MVS_WH[1]} ({chunks} chunks "
+        f"each), a checkpoint; test_dataset_scene; a resume to "
+        f"{FT_RESUME_TO}: {t1 - t0:.2f} + {t2 - t1:.2f} s (each with its MVS "
+        f"init); eval PSNR {p_train:.4f} dB, test {m['psnr']:.4f} dB; "
+        f"losses {[round(float(v), 6) for v in losses]}; launches {counts}")
+    log("dtu_ft seconds per event (mean, count): " + ", ".join(
+        f"{k} {v:.4f} x{c}" for k, (v, c) in secs.items() if v is not None))
+    return rec, counts, routes, {"step_s": secs["train_step"][0],
+                                 "eval_frame_s": secs["eval_frame"][0],
+                                 "psnr": m["psnr"]}
+
+
+def ff_batch(g, item, cfg, device, half: bool = False):
+    """An MVSBatch from a dtu view group and a ray item; `half` takes the
+    views at half resolution (2 x 2 block means, intrinsics halved) and
+    the rays' pixels halved."""
+    import numpy as np
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train import driver as td
+    images, Ks = g["images"], g["Ks"]
+    if half:
+        V, H, W, _ = images.shape
+        images = images.reshape(V, H // 2, 2, W // 2, 2, 3).mean((2, 4))
+        Ks = Ks.copy()
+        Ks[:, :2] *= 0.5
+    return td._mvs_batch(images.astype(np.float32), Ks, g["w2cs"],
+                         g["depth_values"], ray_batch_from_numpy(
+                             item, cfg, device=device), device)
+
+
+def ff_path(kernels, ff_root: str):
+    """train_feedforward_dataset on the dtu scene (nsrc 2, FF_DEPTHS
+    planes, FF_RAYS rays a step, MVS_WH, the driver's own config) for
+    FF_WARMUP + FF_STEPS steps: each step launches K3 f32 and K4 f32 once,
+    K2 and K1 never; the loss stays finite; MVSNet's and the aggregator's
+    weights move. Records the K3/K4 inputs of the first timed step.
+    Returns (counts, routes, step inputs, the last state, cfg, model,
+    numbers)."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train import feedforward as tff
+    from pointnerf_tpu_torch.train.optim import tree_leaves, tree_map
+    real_make, real_create = tff.make_feedforward_step, tff.create_ff_state
+    got = {"times": [], "losses": [], "inputs": None}
+
+    def create(*a, **k):
+        s = real_create(*a, **k)
+        got["init"] = tree_map(lambda t: t.clone(), s.params)
+        return s
+
+    def make(cfg, model, capacity):
+        step, infer = real_make(cfg, model, capacity)
+        got.update(cfg=cfg, model=model, capacity=capacity)
+
+        def timed(state, batch, u=None):
+            i = len(got["times"])
+            before = {n: kernels[n].launches for n in kernels}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (recording_decode() if i == FF_WARMUP
+                  else contextlib.nullcontext()) as seen:
+                state, items = step(state, batch, u=u)
+            torch.cuda.synchronize()
+            got["times"].append(time.perf_counter() - t0)
+            if i == FF_WARMUP:
+                got["inputs"] = seen
+            d = {n: kernels[n].launches - before[n] for n in kernels}
+            if d != {"knn_select": 0, "fused_decode": 1,
+                     "fused_decode_bwd": 1, "fused_march": 0}:
+                fail(f"feed-forward step {i} launched {d}")
+            got["losses"].append(items["loss_total"])
+            got["state"] = state
+            return state, items
+        return timed, infer
+    reset_counts(kernels)
+    tff.make_feedforward_step, tff.create_ff_state = make, create
+    torch.cuda.reset_peak_memory_stats()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    try:
+        with tempfile_dir(build) as run_dir:
+            state, _infer = td.train_feedforward_dataset(
+                ff_root, DTU_SCAN, run_dir, max_steps=FF_WARMUP + FF_STEPS,
+                nsrc=2, n_depths=FF_DEPTHS, n_rays=FF_RAYS,
+                log_every=FF_WARMUP + FF_STEPS, device="cuda")
+    finally:
+        tff.make_feedforward_step, tff.create_ff_state = real_make, real_create
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = {n: dict(kernels[n].launches_by_route)
+              for n in ("fused_decode", "fused_decode_bwd")}
+    for n in routes:
+        if routes[n]["tensor_core"]:
+            fail(f"the feed-forward path launched {n} on the tensor cores")
+    losses = torch.stack(got["losses"]).cpu()
+    if len(losses) != FF_WARMUP + FF_STEPS \
+            or not bool(torch.isfinite(losses).all()):
+        fail(f"feed-forward losses {losses.tolist()}")
+    moved = {g: sum(int(not torch.equal(a, b)) for a, b in zip(
+        tree_leaves(state.params[g]), tree_leaves(got["init"][g])))
+        for g in ("mvs", "mlp")}
+    if not moved["mvs"] or not moved["mlp"]:
+        fail(f"feed-forward training moved no weight of a group: {moved}")
+    s = float(np.mean(got["times"][FF_WARMUP:]))
+    cfg = got["cfg"]
+    log(f"feed-forward path (dtu, nsrc 2, {FF_DEPTHS} planes, {FF_RAYS} "
+        f"rays a step, {MVS_WH[0]} x {MVS_WH[1]}, capacity "
+        f"{got['capacity']} points; agg H={cfg.agg.shading_feature_num}, "
+        f"K={cfg.query.K}, SR={cfg.query.SR}, "
+        f"{cfg.train.compute_dtype}): {FF_STEPS} steps after {FF_WARMUP}, "
+        f"{s:.4f} s/step = {FF_RAYS / s:.1f} rays/s (host clock, "
+        f"synchronized, the loader's PNG reads outside); weights moved "
+        f"{moved}; losses {[round(float(v), 6) for v in losses]}; peak "
+        f"memory {peak:.2f} GiB; launches {counts}")
+    return counts, routes, got["inputs"], got["state"], cfg, got["model"], {
+        "s_per_step": s, "rays_per_s": FF_RAYS / s, "peak_gib": peak}
+
+
+def ff_parity(state, cfg, model, ff_root: str):
+    """One feed-forward step card vs CPU from the same state at
+    FF_PARITY_WH (the dtu scene's group 0 at half resolution; widths and
+    depth planes kept): the loss, each group's gradients, the new running
+    stats, beside the control (the CPU step with eval-mode BatchNorm);
+    then infer_cloud card vs CPU: num_active equal, xyz within FF_XYZ_TOL."""
+    import copy
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig
+    from pointnerf_tpu_torch.data.dtu import DtuDataset
+    from pointnerf_tpu_torch.train import feedforward as tff
+    from pointnerf_tpu_torch.train.optim import tree_map
+    ds = DtuDataset(DataConfig(dataset_name="dtu", data_root=ff_root,
+                               scan=DTU_SCAN), split="train", nsrc=2,
+                    n_depths=FF_DEPTHS)
+    g = ds.get_mvs_item(0)
+    item = ds.get_item(0, random_sample="random", random_sample_size=32,
+                       seed=0)
+    cpu = torch.device("cpu")
+    b_card = ff_batch(g, item, cfg, "cuda", half=True)
+    b_cpu = ff_batch(g, item, cfg, cpu, half=True)
+    W, H = FF_PARITY_WH
+    cap = (W // 4) * (H // 4)
+    u = torch.rand((b_cpu.rays.raydir.shape[0], cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(3))
+    m_cpu = copy.deepcopy(model).to(cpu)
+    p_cpu = tree_map(lambda t: t.to(cpu), state.params)
+    s_cpu = {k: v.to(cpu) for k, v in state.mvs_stats.items()}
+    res = {}
+    res["card"] = tff.ff_loss_and_grads(cfg, model, cap, state.params,
+                                        state.mvs_stats, b_card, u=u.cuda())
+    res["cpu"] = tff.ff_loss_and_grads(cfg, m_cpu, cap, p_cpu, s_cpu, b_cpu,
+                                       u=u)
+    real_gen = tff.gen_cloud
+    tff.gen_cloud = lambda m, c, p, s, b, train: real_gen(m, c, p, s, b,
+                                                          False)
+    try:
+        res["control"] = tff.ff_loss_and_grads(cfg, m_cpu, cap, p_cpu, s_cpu,
+                                               b_cpu, u=u)
+    finally:
+        tff.gen_cloud = real_gen
+    t_cpu = float(res["cpu"][0])
+    out = {}
+    for k in ("card", "control"):
+        t, _i, gr, stats = res[k]
+        out[k] = {"loss": abs(float(t) - t_cpu) / abs(t_cpu),
+                  "mlp": _sum_rel(gr["mlp"], res["cpu"][2]["mlp"]),
+                  "mvs": _sum_rel(gr["mvs"], res["cpu"][2]["mvs"]),
+                  "stats": max(_rel(stats[n], res["cpu"][3][n])
+                               for n in stats)}
+    log(f"feed-forward step card vs CPU ({W} x {H} views, "
+        f"{b_cpu.rays.raydir.shape[0]} rays, capacity {cap}): " + ", ".join(
+            f"{k} {out['card'][k]:.3e} (control {out['control'][k]:.3e})"
+            for k in out["card"]))
+    hold_bf16("feed-forward loss card vs CPU, relative", out["card"]["loss"],
+              out["control"]["loss"], FF_LOSS_TOL, "eval-mode BatchNorm")
+    for grp in ("mlp", "mvs"):
+        hold_bf16(f"feed-forward {grp} gradients card vs CPU, sum |err| / "
+                  f"sum |CPU|", out["card"][grp], out["control"][grp],
+                  FF_GRAD_TOL[grp], "eval-mode BatchNorm")
+    hold_bf16("feed-forward running stats card vs CPU, worst max |err| / "
+              "max |CPU|", out["card"]["stats"], out["control"]["stats"],
+              FF_STATS_TOL, "eval-mode BatchNorm")
+    step, infer = tff.make_feedforward_step(cfg, model, cap)
+    _s, infer_cpu = tff.make_feedforward_step(cfg, m_cpu, cap)
+    pc_card, st_card = infer(state.params, state.mvs_stats, b_card)
+    pc_cpu, st_cpu = infer_cpu(p_cpu, s_cpu, b_cpu)
+    n = int(st_cpu.num_active)
+    xyz_err = _rel(pc_card.xyz[:n], pc_cpu.xyz[:n])
+    log(f"infer_cloud card vs CPU: num_active {int(st_card.num_active)} / "
+        f"{n}, xyz max|err|/scale {xyz_err:.3e} (bar {FF_XYZ_TOL})")
+    if int(st_card.num_active) != n or not xyz_err <= FF_XYZ_TOL:
+        fail("infer_cloud card vs CPU beyond its bar")
+    out["xyz"] = xyz_err
+    return out
+
+
+def mvs_paths(kernels, root: str):
+    """The MVS phases on a DTU-format cluster scene written under `root`:
+    MVS init (mvs_init_phase), dtu_ft per-scene training from its cloud
+    (dtu_ft_path), feed-forward training (ff_path) and its card-vs-CPU step
+    (ff_parity), then K3 f32 and K4 f32 on the first timed feed-forward
+    step's inputs and K3 f32 and K2 on a dtu_ft eval chunk's, against their
+    plain versions. Returns (launch counts, routes, kernel checks,
+    numbers)."""
+    t0 = time.perf_counter()
+    ft_root, ff_root = write_dtu_scenes(root)
+    log(f"DTU-format scenes written under {root}: {MVS_VIEWS} views of "
+        f"{MVS_WH[0]} x {MVS_WH[1]} in {time.perf_counter() - t0:.2f} s")
+    cloud, mvs_kw, nums = mvs_init_phase(ft_root)
+    rec, c_ft, r_ft, nums["dtu_ft"] = dtu_ft_path(kernels, ft_root, cloud,
+                                                   mvs_kw)
+    chunk = rec.captured.get("eval_chunk")
+    if chunk is None:
+        fail("no dtu_ft eval chunk's kernel inputs were recorded")
+    del rec
+    c_ff, r_ff, inputs, state, cfg, model, nums["ff"] = ff_path(kernels,
+                                                                ff_root)
+    nums["ff_parity"] = ff_parity(state, cfg, model, ff_root)
+    if inputs is None or "fused_decode_bwd" not in inputs:
+        fail("the feed-forward step's decode inputs were not recorded")
+    k3, k4 = check_f32_decode(
+        [("feed-forward step", inputs["fused_decode"]),
+         ("dtu_ft eval chunk", chunk["fused_decode"][0])],
+        inputs["fused_decode_bwd"])
+    checks = {"mvs_ff_step": {"fused_decode_f32": k3["feed-forward step"],
+                              "fused_decode_bwd_f32": k4},
+              "mvs_dtu_ft_eval_chunk": {
+                  "fused_decode_f32": k3["dtu_ft eval chunk"],
+                  "fused_march": check_k2(*chunk["fused_march"])}}
+    counts = {n: c_ft[n] + c_ff[n] for n in c_ft}
+    routes = {n: {k: r_ft[n][k] + r_ff[n][k] for k in r_ft[n]} for n in r_ft}
+    return counts, routes, checks, nums
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -3164,6 +3802,9 @@ def main() -> None:
     log(f"loader scenes written under {loader_root} in "
         f"{time.perf_counter() - t0:.2f} s")
     ld_counts, ld_routes = loaders_path(kernel_wrappers(), loader_root)
+    mv_counts, mv_routes, mv_checks, _mv_nums = mvs_paths(
+        kernel_wrappers(), os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "build", "mvs"))
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
@@ -3204,7 +3845,8 @@ def main() -> None:
              "dataset": (ds_counts, ds_routes),
              "flags_off": (fo_counts, fo_routes),
              "hybrid": (hy_counts, hy_routes),
-             "loaders": (ld_counts, ld_routes)}
+             "loaders": (ld_counts, ld_routes),
+             "mvs": (mv_counts, mv_routes)}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]
@@ -3236,7 +3878,7 @@ def main() -> None:
                            else ""))
                 hy.setdefault(kind, {})[n.replace("_fine", "")] = v
         for kind, res in ({"maintenance_" + k: v for k, v in chunks.items()}
-                          | fo_checks | hy).items():
+                          | fo_checks | hy | mv_checks).items():
             if row_name in res:
                 row[kind] = {k: v for k, v in res[row_name].items()
                              if k not in ("gemm_chain_ms", "run_stats")}

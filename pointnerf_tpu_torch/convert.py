@@ -94,3 +94,38 @@ def train_state_from_jax(state, generator: torch.Generator,
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                           device=dev),
         key=generator, hits=hits)
+
+
+def mvs_variables_from_jax(variables, device: DeviceLike = None):
+    """flax variables of `pointnerf_tpu.mvs.points_init.MvsPointsInit` (or
+    of its MVSNet alone) with numpy leaves -> the port's {"params",
+    "batch_stats"}, keyed by `mvs.points_init.MvsPointsInit` state_dict
+    names (`premlp_0` -> `premlp.0`). Conv HWIO -> OIHW; Conv3D DHWIO ->
+    OIDHW; ConvTranspose, stored by flax as (D, H, W, out, in) and flipped
+    at apply time, -> ConvTranspose3d's (in, out, D, H, W) by the same
+    transpose (4, 3, 0, 1, 2), no flip; Dense (in, out) -> Linear (out,
+    in); BatchNorm scale / bias / mean / var -> weight / bias /
+    running_mean / running_var."""
+    dev = resolve_device(device)
+    leaf_names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+
+    def walk(tree, path, out):
+        for k, v in tree.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, path + [k.replace("premlp_", "premlp.")], out)
+                continue
+            a = np.asarray(v, np.float32)
+            if k == "kernel":
+                if a.ndim == 4:
+                    a = a.transpose(3, 2, 0, 1)
+                elif a.ndim == 5:
+                    a = a.transpose(4, 3, 0, 1, 2)
+                elif a.ndim == 2:
+                    a = a.T
+            out[".".join(path + [leaf_names[k]])] = torch.tensor(
+                np.ascontiguousarray(a), device=dev)
+        return out
+    return {"params": walk(dict(variables["params"]), [], {}),
+            "batch_stats": walk(dict(variables.get("batch_stats", {})), [],
+                                {})}

@@ -6,8 +6,9 @@ from __future__ import annotations
 from .. import not_ported
 
 DATASET_REGISTRY = {}
-# registered by the JAX package, not ported yet (ROADMAP Queue 1, datasets)
-NOT_PORTED = ("dtu", "dtu_ft", "llff_ft", "scannet_ft")
+# registered by the JAX package, not ported yet (ROADMAP Queue 1, datasets:
+# JPEG)
+NOT_PORTED = ("llff_ft", "scannet_ft")
 
 
 def register_dataset(name):
@@ -19,7 +20,7 @@ def register_dataset(name):
 
 def find_dataset_class_by_name(name: str):
     """The loader class registered as `name`."""
-    from . import nerf_synth, nsvf, waymo  # noqa: F401  (register names)
+    from . import dtu, dtu_ft, nerf_synth, nsvf, waymo  # noqa: F401
     if name in DATASET_REGISTRY:
         return DATASET_REGISTRY[name]
     if name in NOT_PORTED:

@@ -1,8 +1,10 @@
 """Per-scene optimization driver.
 
 Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
-`init_mlp_params`, `evaluate`, `train_scene`, `train_dataset_scene`,
-`test_dataset_scene`, `demo` and `main` (`--demo`, `--dataset`, `--test`).
+`init_mlp_params`, `evaluate`, `train_scene`, `mvs_init_cloud`,
+`train_dataset_scene`, `test_dataset_scene`, `demo`, `ff_demo`,
+`train_feedforward_dataset` and `main` (`--demo`, `--dataset`, `--test`,
+`--ff-demo`, `--ff-dataset`).
 One process, no restart loop: prune and grow change the cloud in place
 (`train/grow.py`) and the Adam state is carried through. The schedule:
 
@@ -21,8 +23,15 @@ device, `cuda` unless the caller asks for the CPU.
     python -m pointnerf_tpu_torch.train.driver --dataset nerf_synth360_ft \
         --data-root DIR --scan NAME [--test] [--device cpu]
 
-(`--dataset` also takes tt_ft / nsvf — an NSVF scene directory — and
-waymo_ft — a `<scan>.npz` bundle of `data/waymo_export.frames_to_npz`.)
+(`--dataset` also takes tt_ft / nsvf — an NSVF scene directory —,
+waymo_ft — a `<scan>.npz` bundle of `data/waymo_export.frames_to_npz` — and
+dtu / dtu_ft, a DTU-layout directory whose cloud MVSNet builds:
+`mvs_init_cloud`.) Feed-forward (generalization) training, MVSNet and the
+aggregator end to end:
+
+    python -m pointnerf_tpu_torch.train.driver --ff-demo [--device cpu]
+    python -m pointnerf_tpu_torch.train.driver --ff-dataset \
+        --data-root DIR --scan NAME [--steps N] [--device cpu]
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import DeviceLike, not_ported, resolve_device
+from .. import DeviceLike, resolve_device
 from ..config import (DataConfig, PointNeRFConfig, hits_tracked,
                       scene_config, tiny_test_config)
 from ..data import find_dataset_class_by_name
@@ -337,13 +346,66 @@ def demo(steps: int = 300, n_pts: int = 2048, wh=(64, 64),
     return hist
 
 
+def mvs_init_cloud(ds, mvs_variables: Optional[Dict] = None,
+                   n_groups: int = 8, point_features_dim: int = 32,
+                   depth_conf_thresh: float = 0.8,
+                   geo_cnsst_num: Optional[int] = None,
+                   device: DeviceLike = None) -> Dict[str, np.ndarray]:
+    """A scene's initial cloud from MVS over the dataset's view groups (the
+    first `n_groups` of `ds.get_mvs_item`): MVSNet depth at
+    min(64, len(depth_values)) planes, the geometric filter
+    (geo_cnsst_num defaults to min(3, V - 1)), the point embedding.
+    `mvs_variables` ({"params", "batch_stats"} of an MvsPointsInit, e.g. a
+    feed-forward-trained one) default to `init_mvs_points` from seed 0.
+    Returns numpy xyz, feature, color, normal, conf."""
+    from ..mvs.points_init import gen_scene_points, init_mvs_points, \
+        new_mvs_model
+    dev = resolve_device(device)
+    g0 = ds.get_mvs_item(0)
+    V = g0["images"].shape[0]
+    model = new_mvs_model(point_features_dim, n_views=V, device=dev)
+    if mvs_variables is None:
+        mvs_variables = init_mvs_points(model,
+                                        torch.Generator().manual_seed(0))
+    outs = []
+    for gi in range(min(n_groups, len(ds))):
+        g = ds.get_mvs_item(gi)
+        gc = geo_cnsst_num if geo_cnsst_num is not None else \
+            min(3, g["images"].shape[0] - 1)
+        outs.append(gen_scene_points(
+            mvs_variables["params"], model, g["images"], g["Ks"], g["w2cs"],
+            (float(g["depth_values"][0]), float(g["depth_values"][-1])),
+            n_depths=min(64, len(g["depth_values"])),
+            depth_conf_thresh=depth_conf_thresh, geo_cnsst_num=gc,
+            batch_stats=mvs_variables.get("batch_stats")))
+    return {"xyz": np.concatenate([o["xyz"] for o in outs]),
+            "feature": np.concatenate([o["embedding"] for o in outs]),
+            "color": np.concatenate([o["color"] for o in outs]),
+            "normal": np.concatenate([o["dirs"] for o in outs]),
+            "conf": np.concatenate([o["conf"] for o in outs])}
+
+
+def _init_cloud(ds, mvs_init_kwargs: Optional[Dict], device):
+    """The dataset's init cloud on disk, or, for a dataset of MVS view
+    groups without one, `mvs_init_cloud(**mvs_init_kwargs)`."""
+    try:
+        return ds.load_init_points()
+    except (FileNotFoundError, AttributeError):
+        if not hasattr(ds, "get_mvs_item"):
+            raise
+        return mvs_init_cloud(ds, device=device, **(mvs_init_kwargs or {}))
+
+
 def train_dataset_scene(dataset_name: str, data_root: str, scan: str,
                         run_dir: str, max_steps: Optional[int] = None,
                         cfg: Optional[PointNeRFConfig] = None,
-                        resume: bool = True, device: DeviceLike = None):
-    """Per-scene optimization on a dataset on disk: load the init cloud,
-    size the config from its AABB (`scene_config`) unless one is given,
-    voxel-downsample a cloud above 2M points, sample
+                        resume: bool = True,
+                        mvs_init_kwargs: Optional[Dict] = None,
+                        device: DeviceLike = None):
+    """Per-scene optimization on a dataset on disk: load the init cloud
+    (or build it with `mvs_init_cloud` and `mvs_init_kwargs` where the
+    dataset has none), size the config from its AABB (`scene_config`)
+    unless one is given, voxel-downsample a cloud above 2M points, sample
     `random_sample_size`^2 rays of a random training view per step, and
     evaluate on every eighth test view. Returns train_scene's
     (state, st, history)."""
@@ -353,13 +415,7 @@ def train_dataset_scene(dataset_name: str, data_root: str, scan: str,
     cls = find_dataset_class_by_name(dataset_name)
     train_ds = cls(dcfg, split="train")
     test_ds = cls(dcfg, split="test")
-    try:
-        cloud = train_ds.load_init_points()
-    except (FileNotFoundError, AttributeError):
-        if not hasattr(train_ds, "get_mvs_item"):
-            raise
-        raise not_ported("MVS point initialization (mvs_init_cloud)",
-                         "Queue 1, MVS stack")
+    cloud = _init_cloud(train_ds, mvs_init_kwargs, dev)
     xyz = cloud["xyz"]
     if cfg is None:
         cfg = scene_config(xyz, near=float(train_ds.near),
@@ -392,17 +448,20 @@ def train_dataset_scene(dataset_name: str, data_root: str, scan: str,
 def test_dataset_scene(dataset_name: str, data_root: str, scan: str,
                        run_dir: str, cfg: Optional[PointNeRFConfig] = None,
                        save_images: bool = True,
+                       mvs_init_kwargs: Optional[Dict] = None,
                        device: DeviceLike = None) -> Dict[str, float]:
     """Evaluate the latest checkpoint under `run_dir` on the whole test
     split: PSNR / SSIM / RMSE, and the rendered frames under
-    `run_dir/images` with `save_images`."""
+    `run_dir/images` with `save_images`. The init cloud (for the config
+    and the template the checkpoint fills) comes as in
+    `train_dataset_scene`, MVS included."""
     dev = resolve_device(device)
     dcfg = DataConfig(dataset_name=dataset_name, data_root=data_root,
                       scan=scan)
     cls = find_dataset_class_by_name(dataset_name)
     train_ds = cls(dcfg, split="train")
     test_ds = cls(dcfg, split="test")
-    cloud = train_ds.load_init_points()
+    cloud = _init_cloud(train_ds, mvs_init_kwargs, dev)
     if cfg is None:
         cfg = scene_config(cloud["xyz"], near=float(train_ds.near),
                            far=float(train_ds.far))
@@ -435,6 +494,123 @@ def test_dataset_scene(dataset_name: str, data_root: str, scan: str,
     return m
 
 
+def ff_demo_config() -> PointNeRFConfig:
+    """The feed-forward demo's config (the JAX package's ff_demo)."""
+    from ..config import (AggregatorConfig, QueryConfig, RenderConfig)
+    return PointNeRFConfig(
+        query=QueryConfig(vsize=(0.1, 0.1, 0.1), vscale=(2.0, 2.0, 2.0),
+                          max_o=2048, P=8, K=4, SR=12, z_depth_dim=48,
+                          ranges=(-2.0, -2.0, -2.0, 2.0, 2.0, 2.0),
+                          knn_chunk=4096),
+        agg=AggregatorConfig(point_features_dim=8, shading_feature_num=32,
+                             num_feat_freqs=2, dist_xyz_freq=3,
+                             num_pos_freqs=4, num_viewdir_freqs=2),
+        render=RenderConfig(near_plane=2.0, far_plane=4.5))
+
+
+def _mvs_batch(images, Ks, w2cs, depth_values, rays, dev):
+    """An MVSBatch on `dev` from one numpy view group (view 0 the
+    reference; images [V, H, W, 3])."""
+    from ..mvs.points_init import images_nchw, view_proj_mats
+    from .feedforward import MVSBatch
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return MVSBatch(images=images_nchw(images, dev),
+                    proj_mats=t(view_proj_mats(Ks, w2cs, 0)), Ks=t(Ks),
+                    w2cs=t(w2cs), depth_values=t(depth_values), rays=rays)
+
+
+def ff_demo(steps: int = 20, wh=(32, 32), device: DeviceLike = None):
+    """Feed-forward (generalization) demo on the synthetic sphere: three
+    ring views -> MVSNet -> points -> render a fourth view's rays, the
+    gradients into the MVS nets. Returns the final FFState."""
+    from ..mvs.points_init import init_mvs_points, new_mvs_model
+    from .feedforward import create_ff_state, make_feedforward_step
+    dev = resolve_device(device)
+    cfg = ff_demo_config()
+    V = 3
+    views = ring_cameras(n_views=V + 1, wh=wh, focal=float(wh[0]))
+    images, Ks, w2cs = [], [], []
+    for campos, rot, K in views[:V]:
+        item = view_ray_batch(campos, rot, K, wh)
+        images.append(item["gt_image"].reshape(wh[1], wh[0], 3))
+        Ks.append(K)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3] = rot.T
+        w2c[:3, 3] = -rot.T @ campos
+        w2cs.append(w2c)
+    images, Ks, w2cs = np.stack(images), np.stack(Ks), np.stack(w2cs)
+    model = new_mvs_model(cfg.agg.point_features_dim, n_views=V, device=dev)
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+    agg_params = init_aggregator_params(
+        cfg.agg, torch.Generator().manual_seed(1), device=dev)
+    state = create_ff_state(torch.Generator(device=dev).manual_seed(2),
+                            variables, agg_params, cfg)
+    step, _infer = make_feedforward_step(cfg, model,
+                                         capacity=(wh[0] // 4) ** 2 * 2)
+    depth_values = np.linspace(2.0, 4.5, 16, dtype=np.float32)
+    for i in range(steps):
+        target = view_ray_batch(*views[V], wh, n_rays=64, seed=i)
+        batch = _mvs_batch(images, Ks, w2cs, depth_values,
+                           ray_batch_from_numpy(target, cfg, device=dev), dev)
+        state, items = step(state, batch)
+        if i % 5 == 0 or i == steps - 1:
+            print(f"[ff] step {i}: loss={float(items['loss_total']):.5f} "
+                  f"psnr={float(items['psnr']):.2f}")
+    return state
+
+
+def train_feedforward_dataset(data_root: str, scan: str, run_dir: str,
+                              max_steps: int = 1000,
+                              cfg: Optional[PointNeRFConfig] = None,
+                              nsrc: int = 2, n_depths: int = 48,
+                              n_rays: int = 1024, log_every: int = 50,
+                              device: DeviceLike = None):
+    """Generalization training on a DTU-format dataset: per step, one MVS
+    view group (a random one) builds a fresh differentiable cloud and
+    sqrt(n_rays)^2 random rays of its reference view supervise both the
+    shading MLPs and the MVS nets. Without `cfg`, scene_config of a cube
+    of the depth range's span. Returns (state, infer_cloud)."""
+    from ..mvs.points_init import init_mvs_points, new_mvs_model
+    from .feedforward import create_ff_state, make_feedforward_step
+    dev = resolve_device(device)
+    dcfg = DataConfig(dataset_name="dtu", data_root=data_root, scan=scan)
+    ds = find_dataset_class_by_name("dtu")(dcfg, split="train", nsrc=nsrc,
+                                           n_depths=n_depths)
+    g0 = ds.get_mvs_item(0)
+    V, H, W = g0["images"].shape[:3]
+    if cfg is None:
+        near, far = float(g0["depth_values"][0]), float(g0["depth_values"][-1])
+        span = far - near
+        cfg = scene_config(np.array([[-span, -span, -span],
+                                     [span, span, span]], np.float32),
+                           near=near, far=far)
+    model = new_mvs_model(cfg.agg.point_features_dim, n_views=V, device=dev)
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+    agg_params = init_aggregator_params(
+        cfg.agg, torch.Generator().manual_seed(1), device=dev)
+    state = create_ff_state(torch.Generator(device=dev).manual_seed(2),
+                            variables, agg_params, cfg)
+    step_fn, infer_cloud = make_feedforward_step(
+        cfg, model, capacity=(H // 4) * (W // 4))
+    vis = Visualizer(run_dir, name="feedforward")
+    rng = np.random.RandomState(cfg.train.seed)
+    for i in range(max_steps):
+        gi = rng.randint(0, len(ds))
+        g = ds.get_mvs_item(gi)
+        item = ds.get_item(gi, random_sample="random",
+                           random_sample_size=int(np.sqrt(n_rays)), seed=i)
+        batch = _mvs_batch(g["images"], g["Ks"], g["w2cs"],
+                           g["depth_values"],
+                           ray_batch_from_numpy(item, cfg, device=dev), dev)
+        state, items = step_fn(state, batch)
+        vis.accumulate_losses(items)
+        if (i + 1) % log_every == 0:
+            vis.print_losses(i + 1)
+    return state, infer_cloud
+
+
 def main():
     ap = argparse.ArgumentParser(description="Per-scene optimization of the "
                                  "PyTorch port")
@@ -443,17 +619,27 @@ def main():
     ap.add_argument("--dataset", default=None,
                     help="per-scene training on a dataset on disk: its "
                          "registered name (nerf_synth360_ft, "
-                         "nerf_synth_ft, tt_ft, nsvf, waymo_ft)")
+                         "nerf_synth_ft, tt_ft, nsvf, waymo_ft, dtu, "
+                         "dtu_ft)")
     ap.add_argument("--data-root", default="")
     ap.add_argument("--scan", default="lego")
     ap.add_argument("--test", action="store_true",
                     help="evaluate the latest checkpoint on the test split "
                          "(with --dataset/--data-root/--scan)")
+    ap.add_argument("--ff-demo", action="store_true",
+                    help="feed-forward (MVS generalization) demo")
+    ap.add_argument("--ff-dataset", action="store_true",
+                    help="feed-forward generalization training on a "
+                         "DTU-format --data-root/--scan")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--run-dir", default="runs/demo")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args()
-    if args.dataset and args.test:
+    if args.ff_dataset:
+        train_feedforward_dataset(args.data_root, args.scan,
+                                  run_dir=args.run_dir, max_steps=args.steps,
+                                  device=args.device)
+    elif args.dataset and args.test:
         test_dataset_scene(args.dataset, args.data_root, args.scan,
                            run_dir=args.run_dir, device=args.device)
     elif args.dataset:
@@ -462,8 +648,11 @@ def main():
                             device=args.device)
     elif args.demo:
         demo(steps=args.steps, run_dir=args.run_dir, device=args.device)
+    elif args.ff_demo:
+        ff_demo(steps=min(args.steps, 50), device=args.device)
     else:
-        ap.error("use --demo or --dataset NAME --data-root DIR --scan NAME")
+        ap.error("use --demo, --ff-demo, --ff-dataset or --dataset NAME "
+                 "--data-root DIR --scan NAME")
 
 
 if __name__ == "__main__":

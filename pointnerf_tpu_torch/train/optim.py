@@ -16,7 +16,7 @@ update = -lr * mu_hat / (sqrt(nu_hat) + eps).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -69,10 +69,12 @@ def lr_schedule(base_lr: float, cfg: PointNeRFConfig
     raise ValueError(f"unsupported lr_policy {t.lr_policy}")
 
 
-def init_optimizer(params: Dict[str, Any]) -> Dict[str, AdamState]:
-    """Zero moments and count for each group ({"mlp", "points"})."""
+def init_optimizer(params: Dict[str, Any],
+                   groups: Tuple[str, ...] = GROUPS) -> Dict[str, AdamState]:
+    """Zero moments and count for each group ({"mlp", "points"}, or the
+    feed-forward step's {"mlp", "mvs"})."""
     out = {}
-    for g in GROUPS:
+    for g in groups:
         dev = tree_leaves(params[g])[0].device
         zeros = tree_map(torch.zeros_like, params[g])
         out[g] = AdamState(count=torch.zeros((), dtype=torch.int32,
@@ -150,20 +152,23 @@ def masked_updates(updates: Dict[str, Any], mlp_on, other_on):
 
 def alternated_update(grads, opt_state: Dict[str, AdamState],
                       step: torch.Tensor, alter_step: int,
-                      cfg: PointNeRFConfig):
-    """Both groups' Adam updates, with the reference's alternation: on an
+                      cfg: PointNeRFConfig, lrs: Optional[Dict] = None):
+    """Every group's Adam update, with the reference's alternation: on an
     off phase a group's updates are zero and its moments and count are
-    carried through unchanged (not decayed, not advanced)."""
-    lrs = {"mlp": lr_schedule(cfg.train.lr, cfg),
-           "points": lr_schedule(cfg.train.plr, cfg)}
+    carried through unchanged (not decayed, not advanced). `lrs` maps each
+    group to its learning rate or schedule; by default the per-scene pair,
+    "mlp" at lr and "points" at plr."""
+    if lrs is None:
+        lrs = {"mlp": lr_schedule(cfg.train.lr, cfg),
+               "points": lr_schedule(cfg.train.plr, cfg)}
     updates, new_opt = {}, {}
-    for g in GROUPS:
+    for g in lrs:
         updates[g], new_opt[g] = adam_update(grads[g], opt_state[g], lrs[g])
     if alter_step <= 0:
         return updates, new_opt
     mlp_on, other_on = alter_mask(step, alter_step)
     updates = masked_updates(updates, mlp_on, other_on)
-    for g in GROUPS:
+    for g in lrs:
         on = mlp_on if g == "mlp" else other_on
         new_opt[g] = tree_map(lambda n, o, on=on: torch.where(on, n, o),
                               new_opt[g], opt_state[g])

@@ -46,7 +46,17 @@ as chip_smoke's fine phase runs it). The hybrid's share of a step or
 request is the device time it adds to the points alone, the fine pass's
 what it adds to the hybrid.
 
-    python3 scripts/port_profile.py [--sections main dataset hybrid]
+MVS: chip_smoke's DTU-format cluster scene (written under build/mvs;
+640 x 512 views, random weights from a seed). Per MVS-init group (3 views,
+64 depth planes; N_PROFILED_CHUNKS groups after one warm-up) and per
+feed-forward step (train_feedforward_dataset's configuration: nsrc 2, 48
+planes, 1,024 rays; N_PROFILED_STEPS after two warm-up steps), with K3 and
+K4 (f32) named; MVSNet's share is the device time of MVSNet alone on the
+same inputs (the three reference views' forwards for a group; the
+train-mode forward and its backward for a step) over the whole group's or
+step's.
+
+    python3 scripts/port_profile.py [--sections main dataset hybrid mvs]
 
 Needs one CUDA card.
 """
@@ -61,7 +71,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
 N_PROFILED_CHUNKS = 4
-SECTIONS = ("main", "dataset", "hybrid")   # main: serving, training, probe
+SECTIONS = ("main", "dataset", "hybrid", "mvs")  # main: serve, train, probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or its live-list pass (live_*<false>) and
@@ -300,6 +310,120 @@ def hybrid_section(cs) -> None:
               f"{100 * (p2 - p1) / p2:.1f}% ({100 * (h2 - h1) / h2:.1f}%)")
 
 
+def mvs_section(cs) -> None:
+    """Per MVS-init group and per feed-forward step on the DTU-format
+    cluster scene, and MVSNet's share of each."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig, scene_config
+    from pointnerf_tpu_torch.data.dtu import DtuDataset
+    from pointnerf_tpu_torch.data.dtu_ft import DtuFtDataset
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.mvs.points_init import (gen_scene_points,
+                                                     images_nchw,
+                                                     init_mvs_points,
+                                                     mvs_apply, new_mvs_model,
+                                                     view_proj_mats)
+    from pointnerf_tpu_torch.train import feedforward as tff
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build", "mvs")
+    ft_root, ff_root = cs.write_dtu_scenes(root)
+    dev = torch.device("cuda")
+    model = new_mvs_model(32, n_views=3, device=dev)
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+
+    # MVS init groups (mvs_init_cloud's gen_scene_points call)
+    ds = DtuFtDataset(DataConfig(dataset_name="dtu_ft", data_root=ft_root,
+                                 scan=cs.DTU_SCAN), split="train")
+    groups = [ds.get_mvs_item(i) for i in range(N_PROFILED_CHUNKS + 1)]
+
+    def init_group(g):
+        dv = g["depth_values"]
+        gen_scene_points(variables["params"], model, g["images"], g["Ks"],
+                         g["w2cs"], (float(dv[0]), float(dv[-1])),
+                         n_depths=64, batch_stats=variables["batch_stats"],
+                         **cs.MVS_INIT_KW)
+    init_group(groups[0])
+    n = N_PROFILED_CHUNKS
+    wall, per_kernel, busy = profiled(lambda: [init_group(g)
+                                               for g in groups[1:]])
+    total = report("MVS init, group", n, 0, wall, per_kernel, busy)
+    ins = []
+    for g in groups[1:]:
+        dv = torch.linspace(float(g["depth_values"][0]),
+                            float(g["depth_values"][-1]), 64, device=dev)
+        for ref in range(3):
+            order = [ref] + [v for v in range(3) if v != ref]
+            ins.append((images_nchw(g["images"][order], dev), torch.tensor(
+                view_proj_mats(g["Ks"], g["w2cs"], ref)[order], device=dev),
+                dv))
+
+    def mvsnet_only():
+        with torch.no_grad():
+            for a in ins:
+                mvs_apply(model, variables, *a)
+    _w, pk_m, _b = profiled(mvsnet_only)
+    mvs_ms = sum(v[1] for v in pk_m.values())
+    print(f"MVS init, per group, device ms: {total / n:.4f}; MVSNet alone "
+          f"(3 reference views) {mvs_ms / n:.4f} = {100 * mvs_ms / total:.1f}"
+          f"% of it; host {wall * 1e3 / n:.3f} ms")
+
+    # feed-forward steps (train_feedforward_dataset's configuration)
+    dds = DtuDataset(DataConfig(dataset_name="dtu", data_root=ff_root,
+                                scan=cs.DTU_SCAN), split="train", nsrc=2,
+                     n_depths=cs.FF_DEPTHS)
+    g0 = dds.get_mvs_item(0)
+    near, far = float(g0["depth_values"][0]), float(g0["depth_values"][-1])
+    span = far - near
+    cfg = scene_config(np.array([[-span] * 3, [span] * 3], np.float32),
+                       near=near, far=far)
+    W, H = cs.MVS_WH
+    cap = (H // 4) * (W // 4)
+    agg = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                 device=dev)
+    state = tff.create_ff_state(torch.Generator(device=dev).manual_seed(2),
+                                variables, agg, cfg)
+    step, _infer = tff.make_feedforward_step(cfg, model, cap)
+    item = dds.get_item(0, random_sample="random",
+                        random_sample_size=int(np.sqrt(cs.FF_RAYS)), seed=0)
+    batch = cs.ff_batch(g0, item, cfg, dev)
+    states = [state]
+
+    def train(k):
+        for _ in range(k):
+            states[0], _it = step(states[0], batch)
+    train(2)
+    n = N_PROFILED_STEPS
+    wall, per_kernel, busy = profiled(lambda: train(n))
+    total = report("feed-forward, training", n, cs.FF_RAYS, wall, per_kernel,
+                   busy)
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k]) for k in ("K3", "K4")}
+    params = {k: v.detach().requires_grad_()
+              for k, v in states[0].params["mvs"].items()}
+
+    def mvsnet_fwd_bwd():
+        for _ in range(n):
+            stats = {k: v.clone() for k, v in states[0].mvs_stats.items()}
+            with torch.enable_grad(), mvs_precision():
+                d, _c, f, _p = mvs_apply(model, {"params": params,
+                                                 "batch_stats": stats},
+                                         batch.images, batch.proj_mats,
+                                         batch.depth_values, True)
+                torch.autograd.grad(d.sum() + f.sum(), list(params.values()),
+                                    allow_unused=True)
+    mvsnet_fwd_bwd()
+    _w, pk_m, _b = profiled(mvsnet_fwd_bwd)
+    mvs_ms = sum(v[1] for v in pk_m.values())
+    print(f"feed-forward, per step, device ms: " + ", ".join(
+        f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+        for k, ms in parts.items())
+        + f"; MVSNet forward + backward alone {mvs_ms / n:.4f} = "
+        f"{100 * mvs_ms / total:.1f}% of the step's {total / n:.4f}; host "
+        f"{wall * 1e3 / n:.3f} ms a step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -319,6 +443,8 @@ def main() -> None:
         dataset_section(cs)
     if "hybrid" in sections:
         hybrid_section(cs)
+    if "mvs" in sections:
+        mvs_section(cs)
     if "main" not in sections:
         return
     cfg = cs.slice_config()

@@ -295,3 +295,64 @@ def test_hybrid_merged_march_route(monkeypatch):
         tr.render_rays(tp, tpc, tst, tgrid, tb, tcfg, train=True,
                        generator=torch.Generator().manual_seed(0))
     assert calls == []
+
+
+def test_feedforward_step_takes_the_f32_decode_kernels(monkeypatch):
+    """The feed-forward step (ff_demo's config, f32) on a (faked) card: the
+    decode goes to K3 and its backward to K4, on the CUDA-core (f32) route,
+    once each a step; the march never to K2 (training takes the plain
+    march); the loss is the CPU step's (the flags off: the unfused decode)
+    within 2e-4."""
+    from pointnerf_tpu_torch.mvs.points_init import (MvsPointsInit,
+                                                     init_mvs_points)
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train import feedforward as tff
+    from test_torch_feedforward import CAPACITY, mvs_group
+    cfg = td.ff_demo_config()
+    assert not cfg.agg.fused_decode and cfg.train.compute_dtype == "f32"
+    model = MvsPointsInit(point_features_dim=cfg.agg.point_features_dim)
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+    agg = ta.init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                    device="cpu")
+    images, Ks, w2cs, dv, target = mvs_group(0)
+    batch = td._mvs_batch(images, Ks, w2cs, dv, tr.ray_batch_from_numpy(
+        target, cfg, device="cpu"), CPU)
+    u = torch.rand((batch.rays.raydir.shape[0], cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(3))
+    step = tff.make_feedforward_step(cfg, model, CAPACITY)[0]
+
+    def run():
+        state = tff.create_ff_state(torch.Generator(), variables, agg, cfg)
+        return step(state, batch, u=u)[1]["loss_total"]
+    cpu_loss = run()
+    specs = {"fused_decode": [], "fused_decode_bwd": [], "fused_march": 0}
+    real_dec, real_bwd = ta.fused_decode, fd.fused_decode_bwd
+    real_march = tr.fused_march
+
+    def dec(*a, **k):
+        specs["fused_decode"].append(a[5])
+        return real_dec(*a, **k)
+
+    def bwd(*a, **k):
+        specs["fused_decode_bwd"].append(a[5])
+        return real_bwd(*a, **k)
+
+    def march(*a, **k):
+        specs["fused_march"] += 1
+        return real_march(*a, **k)
+    real_pick_d, real_pick_m = ta.decode_takes_kernel, tr.march_takes_kernel
+    monkeypatch.setattr(ta, "fused_decode", dec)
+    monkeypatch.setattr(fd, "fused_decode_bwd", bwd)
+    monkeypatch.setattr(tr, "fused_march", march)
+    monkeypatch.setattr(ta, "decode_takes_kernel",
+                        lambda c, K, b, _d, backward: real_pick_d(
+                            c, K, b, CUDA, backward))
+    monkeypatch.setattr(tr, "march_takes_kernel",
+                        lambda c, _d, train: real_pick_m(c, CUDA, train))
+    card_loss = run()
+    assert [s.bf16 for s in specs["fused_decode"]] == [False]
+    assert [s.bf16 for s in specs["fused_decode_bwd"]] == [False]
+    assert fd.route(specs["fused_decode"][0]) == "cuda_core"
+    assert specs["fused_march"] == 0
+    assert abs(float(card_loss) - float(cpu_loss)) <= 2e-4 * float(cpu_loss)

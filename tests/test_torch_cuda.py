@@ -780,3 +780,143 @@ def test_fused_march_at_the_hybrid_and_fine_shapes(dev, SR):
                       ins[3])
     assert torch.equal(outs[1], plain[2])
     assert torch.equal(bw, plain[4][..., 0])
+
+
+# ---- the MVS stack (slice 9): card vs CPU --------------------------------
+# MVSNet's convolutions run in f32 (TF32 off) on both sides; the bars are
+# those the JAX package held against the reference's torch MVSNet: depth
+# max |err| / max |depth|, conf and prob max |err| within 1e-4, the
+# train-mode running stats within 1e-5
+MVS_TOL = 1e-4
+MVS_STATS_TOL = 1e-5
+
+
+def _seeded_mvs(seed=1, F=8):
+    """An MvsPointsInit (3 views) on the CPU with every weight drawn from a
+    numpy seed: kernels of spread 1/sqrt(fan_in), BatchNorm scales near 1,
+    nonzero biases and running stats (tests/test_torch_mvs.py's fill)."""
+    from pointnerf_tpu_torch.mvs.points_init import MvsPointsInit
+    model = MvsPointsInit(point_features_dim=F)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            shape = tuple(t.shape)
+            if name.endswith("bn.weight"):
+                v = 1 + 0.1 * rng.randn(*shape)
+            elif name.endswith("running_mean"):
+                v = 0.1 * rng.randn(*shape)
+            elif name.endswith("running_var"):
+                v = 1 + 0.2 * rng.rand(*shape)
+            elif name.endswith("weight"):
+                # fan-in: all but the first axis (a transposed
+                # convolution's output channels, as in flax's layout)
+                v = rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+            else:
+                v = 0.05 * rng.randn(*shape)
+            t.copy_(torch.tensor(v.astype(np.float32)))
+    return model
+
+
+def _mvs_case(V=3, H=32, W=64, D=8):
+    from pointnerf_tpu_torch.mvs.points_init import view_proj_mats
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(V, 3, H, W).astype(np.float32)
+    K = np.array([[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]], np.float32)
+    Ks = np.stack([K] * V)
+    w2cs = np.stack([np.eye(4, dtype=np.float32)] * V)
+    for v in range(V):
+        w2cs[v][0, 3] = -0.1 * v
+    return (torch.tensor(imgs), torch.tensor(view_proj_mats(Ks, w2cs, 0)),
+            torch.linspace(2.0, 6.0, D))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_mvsnet_card_matches_cpu(dev, train):
+    import copy
+    from pointnerf_tpu_torch.mvs.points_init import mvs_apply, mvs_variables
+    model = _seeded_mvs()
+    gpu = copy.deepcopy(model).to(dev)
+    args = _mvs_case()
+    outs, stats = [], []
+    for m, d in ((model, "cpu"), (gpu, dev)):
+        var = mvs_variables(m)
+        var["batch_stats"] = {k: v.clone() for k, v in
+                              var["batch_stats"].items()}
+        outs.append(mvs_apply(m, var, *[a.to(d) for a in args], train))
+        stats.append(var["batch_stats"])
+    (cd, cc, cf, cp), (gd, gc, gf, gp) = outs
+    assert float((gd.cpu() - cd).abs().max() / cd.abs().max()) <= MVS_TOL
+    assert float((gc.cpu() - cc).abs().max()) <= MVS_TOL
+    assert float((gp.cpu() - cp).abs().max()) <= MVS_TOL
+    assert float((gf.cpu() - cf).abs().max() / cf.abs().max()) <= MVS_TOL
+    for k, v in stats[0].items():
+        assert float((stats[1][k].cpu() - v).abs().max()) <= MVS_STATS_TOL, k
+
+
+def test_bilinear_sample_card_matches_cpu(dev):
+    from pointnerf_tpu_torch.ops.sample2d import bilinear_sample
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn((5, 9, 11), generator=g)
+    x = torch.rand(300, generator=g) * 14 - 2
+    y = torch.rand(300, generator=g) * 12 - 2
+    ct = torch.randn((5, 300), generator=g)
+    res = []
+    for d in ("cpu", dev):
+        ins = [t.to(d).requires_grad_() for t in (img, x, y)]
+        out = bilinear_sample(*ins)
+        res.append([out] + list(torch.autograd.grad(out, ins, ct.to(d))))
+    for a, b in zip(res[1], res[0]):
+        assert float((a.detach().cpu() - b).abs().max()) <= \
+            1e-6 * float(b.abs().max())
+
+
+def test_feedforward_step_launches_the_f32_kernels(dev):
+    """One feed-forward step (ff_demo's config on its 32 x 32 sphere
+    views) on the card: K3 f32 and K4 f32 launch once each, K2 never, the
+    loss is finite and MVSNet's weights move."""
+    from pointnerf_tpu_torch.data.synthetic import (ring_cameras,
+                                                    view_ray_batch)
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.mvs.points_init import (init_mvs_points,
+                                                     new_mvs_model)
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.ops.fused_march import fused_march
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train import feedforward as tff
+    cfg = td.ff_demo_config()
+    model = new_mvs_model(cfg.agg.point_features_dim, device=dev)
+    variables = init_mvs_points(model, torch.Generator().manual_seed(0))
+    agg = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                 device=dev)
+    state = tff.create_ff_state(torch.Generator(device=dev).manual_seed(2),
+                                variables, agg, cfg)
+    views = ring_cameras(n_views=4, wh=(32, 32), focal=32.0)
+    imgs, Ks, w2cs = [], [], []
+    for campos, rot, K in views[:3]:
+        imgs.append(view_ray_batch(campos, rot, K, (32, 32))[
+            "gt_image"].reshape(32, 32, 3))
+        Ks.append(K)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3], w2c[:3, 3] = rot.T, -rot.T @ campos
+        w2cs.append(w2c)
+    rays = ray_batch_from_numpy(view_ray_batch(*views[3], (32, 32),
+                                               n_rays=64, seed=0), cfg,
+                                device=dev)
+    batch = td._mvs_batch(np.stack(imgs), np.stack(Ks), np.stack(w2cs),
+                          np.linspace(2.0, 4.5, 16, dtype=np.float32), rays,
+                          dev)
+    fd.reset_launches()
+    fused_march.launches = 0
+    step = tff.make_feedforward_step(cfg, model, 128)[0]
+    new, items = step(state, batch)
+    torch.cuda.synchronize()
+    assert fd.fused_decode.launches_by_route == {"tensor_core": 0,
+                                                 "cuda_core": 1}
+    assert fd.fused_decode_bwd.launches_by_route == {"tensor_core": 0,
+                                                     "cuda_core": 1}
+    assert fused_march.launches == 0
+    assert bool(torch.isfinite(items["loss_total"]))
+    k = "mvsnet.cost_regularization.conv0.conv.weight"
+    assert not torch.equal(new.params["mvs"][k], state.params["mvs"][k])

@@ -247,7 +247,11 @@ def test_dataset_registry():
     for name in ("tt_ft", "nsvf"):
         assert find_dataset_class_by_name(name) is NsvfDataset
     assert find_dataset_class_by_name("waymo_ft") is WaymoDataset
-    for name in ("dtu", "dtu_ft", "llff_ft", "scannet_ft"):
+    from pointnerf_tpu_torch.data.dtu import DtuDataset
+    from pointnerf_tpu_torch.data.dtu_ft import DtuFtDataset
+    assert find_dataset_class_by_name("dtu") is DtuDataset
+    assert find_dataset_class_by_name("dtu_ft") is DtuFtDataset
+    for name in ("llff_ft", "scannet_ft"):
         with pytest.raises(SliceNotPorted, match="Queue 1, datasets"):
             find_dataset_class_by_name(name)
     with pytest.raises(KeyError):

@@ -33,6 +33,12 @@ MODULES = [
     "pointnerf_tpu_torch.eval_cli", "pointnerf_tpu_torch.data",
     "pointnerf_tpu_torch.data.ply", "pointnerf_tpu_torch.data.procedural",
     "pointnerf_tpu_torch.data.nerf_synth", "pointnerf_tpu_torch.ops.voxel",
+    "pointnerf_tpu_torch.ops.sample2d", "pointnerf_tpu_torch.mvs",
+    "pointnerf_tpu_torch.mvs.mvsnet", "pointnerf_tpu_torch.mvs.filter",
+    "pointnerf_tpu_torch.mvs.points_init",
+    "pointnerf_tpu_torch.mvs.torch_import",
+    "pointnerf_tpu_torch.mvs.masking", "pointnerf_tpu_torch.train.feedforward",
+    "pointnerf_tpu_torch.data.dtu", "pointnerf_tpu_torch.data.dtu_ft",
 ]
 
 
