@@ -196,20 +196,53 @@ Phases:
      scene_config), 3 + 10 steps: K3 f32 and K4 f32 once a step, K1 and K2
      never, the loss finite, MVSNet's and the aggregator's weights moved,
      s/step and rays/s, peak memory; one step card vs CPU from the trained
-     state at 320 x 256 (widths kept) — the loss, each group's gradients
-     and the running stats at bars from readings, each beside its control,
-     the CPU step with eval-mode BatchNorm —, and infer_cloud's num_active
-     and xyz card vs CPU; then K3 f32 and K4 f32 (the dists gradient
-     included) against their plain versions on the first timed step's
-     inputs, and K3 f32 and K2 on a recorded dtu_ft eval chunk;
- 23. the kernels JSON line (one row per kernel source; K3 and K4 have a
-     tensor-core row and a CUDA-core row, counted by route; launches per
+     state at 320 x 256 (widths kept), split at its cloud, at bars from
+     readings, each beside its control — the cloud and the running stats
+     (control: eval-mode BatchNorm), the render of the card's cloud on
+     both sides (the loss, the MLPs' and the cloud's gradients; control: a
+     bf16 decode), MVSNet's backward of one cotangent (control: eval-mode
+     BatchNorm) —, the whole step's loss and gradients printed, and
+     infer_cloud's num_active and xyz card vs CPU; then K3 f32 and K4 f32
+     (the dists gradient included) against their plain versions on the
+     first timed step's inputs, and K3 f32 and K2 on a recorded dtu_ft
+     eval chunk;
+ 23. the 2D heads: bench_config with the kernel flags on at the fork's
+     128 feature channels on the 65,536-point sphere, patches of 48 x 48
+     rays at the centre of ring views, the heads at the fork's widths
+     with random weights from seeds (the CNN: NeuralRenderer at JAX's
+     defaults, input 128; the one-layer StyleGAN2 Generator(128) with a
+     StyleVectorizer of 512 x 8 and 8 style codes; Discriminator(48)).
+     (a) K2 at C = 128 against its plain version, bit for bit, on a
+     recorded feature request (R = 2,304, SR = 80: the wide kernel) and
+     on the fine pass's sequence (SR' = 160), with times and the bytes
+     bound; (b)-(d) the launch counts set to 0, then 3 + 10 steps each of
+     the CNN neural2d step, the StyleGAN2 step and the GAN step (K1, K3,
+     K4 once a neural2d step; K1 and K3 twice and K4 once a GAN step; K2
+     never; the penalty on its cadence; the losses finite and falling, the
+     GAN's reconstruction), s/step, rays/s and peak memory each, and 4
+     feature requests through eval_step from the trained state (K1, K3,
+     K2 once each, K2 on its wide kernel), each decoded to RGB by the
+     trained CNN head; (b) a 512-ray feature request card vs CPU at
+     a bar from readings; (e) one CNN step and one GAN step (its penalty
+     on) from the states the timed steps left, card vs CPU with the same
+     draws: the losses and each group's gradients (from the Adam moments)
+     at bars from readings beside their control (the CPU with an f32
+     decode, or the card with TF32 convolutions; D's hinge loss, which
+     neither moves apart, is printed beside both and held to no bar: D's
+     gradients carry D's check); (f) K3 and K4 bf16 on the recorded
+     inputs of a CNN step, at their bars;
+ 24. the kernels JSON line (one row per kernel of a source: K2 has a row
+     for its tiled kernel and one for its wide kernel, K3 and K4 a
+     tensor-core row and a CUDA-core row, counted by route on every path,
+     where each path's K2 launches all take one kernel, the tiled one at
+     C = 3 and the wide one at C = 128; launches per
      path: serve, train, maintenance, dataset, flags_off, hybrid (phases
-     14-16), loaders, mvs (phases 21-22); each kernel's numbers on the
-     maintenance path's probe and eval chunks, on the flags-off path's
-     train step and request, at the hybrid's and the fine pass's shapes,
-     and on the feed-forward step and the dtu_ft eval chunk), the card
-     line, and the final status line.
+     14-16), loaders, mvs (phases 21-22), n2d (phase 23); each kernel's
+     numbers on the maintenance path's probe and eval chunks, on the
+     flags-off path's train step and request, at the hybrid's and the fine
+     pass's shapes, on the feed-forward step and the dtu_ft eval chunk,
+     and on the neural2d step and the feature requests), the card line,
+     and the final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -681,19 +714,24 @@ def check_k1(args, kw):
             "run_stats": st}
 
 
-def check_k2(args, kw):
+def check_k2(args, kw, tol: float = K2_TOL):
+    """K2 against its plain version within `tol` (0: the same bits), with
+    its time, the plain version's and the bound."""
     import torch
     from pointnerf_tpu_torch.ops.fused_march import (fused_march,
-                                                     fused_march_plain)
+                                                     fused_march_plain,
+                                                     route)
     dist, valid, feats, bg = args
     R, SR = dist.shape
     outs_k = fused_march(*args)
     outs_p = fused_march_plain(*args)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs_k, outs_p))
     err = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
-    log(f"K2 fused_march R={R} SR={SR}: max abs err {err:.3e} "
-        f"(tolerance {K2_TOL})")
-    if not err <= K2_TOL:
+    log(f"K2 fused_march ({route(SR, feats.shape[-1] - 1)} kernel) R={R} "
+        f"SR={SR} C={feats.shape[-1] - 1}: max abs err {err:.3e}, the same "
+        f"bits {same} (tolerance {tol})")
+    if not (same if tol == 0 else err <= tol):
         fail("K2 disagrees with its plain version")
     ms = graph_ms(lambda: fused_march(*args))
     host = host_us(lambda: fused_march(*args))
@@ -874,8 +912,9 @@ def reset_counts(kernels):
     for k in kernels.values():
         k.launches = 0
     reset_launches()
-    routes = kernels["knn_select"].launches_by_route
-    routes.update(dict.fromkeys(routes, 0))
+    for name in ("knn_select", "fused_march"):
+        routes = kernels[name].launches_by_route
+        routes.update(dict.fromkeys(routes, 0))
 
 
 # the route every launch of a main path takes: the decode kernels on the
@@ -884,16 +923,28 @@ MAIN_ROUTES = {"knn_select": "runs", "fused_decode": "tensor_core",
                "fused_decode_bwd": "tensor_core"}
 
 
-def kernel_routes(kernels, path: str):
+def kernel_routes(kernels, path: str, march: str = "tiled"):
     """The launches of a main-path run by route; fails unless every one
-    went to the route of MAIN_ROUTES."""
+    went to the route of MAIN_ROUTES, and K2's to `march`."""
     routes = {n: dict(kernels[n].launches_by_route) for n in MAIN_ROUTES}
     for n, r in routes.items():
         if r[MAIN_ROUTES[n]] != kernels[n].launches \
                 or sum(r.values()) != kernels[n].launches:
             fail(f"{path} path: {n} launches went to another route than "
                  f"{MAIN_ROUTES[n]}: {r}")
+    routes["fused_march"] = march_routes(kernels, path, march)
     return routes
+
+
+def march_routes(kernels, path: str, want: str = "tiled"):
+    """K2's launches of a main-path run by kernel; fails unless every one
+    went to `want` (the tiled kernel at C <= 8, the wide one at C = 128)."""
+    k = kernels["fused_march"]
+    r = dict(k.launches_by_route)
+    if r[want] != k.launches or sum(r.values()) != k.launches:
+        fail(f"{path} path: fused_march launches went to another kernel "
+             f"than the {want} one: {r}")
+    return r
 
 
 def same_integers(o_card, o_cpu):
@@ -2012,6 +2063,7 @@ def dataset_path(kernels, data_root: str, device="cuda"):
     for n in routes:
         if routes[n]["tensor_core"]:
             fail(f"the f32 dataset path launched {n} on the tensor cores")
+    routes["fused_march"] = march_routes(kernels, "dataset")
     kinds = [e for e, _d in rec.log if e not in ("grid",)]
     if kinds.count("prune") != 1 or "save" not in kinds \
             or "load" not in kinds:
@@ -3031,6 +3083,7 @@ def loaders_path(kernels, root: str, device="cuda"):
             if routes[n]["cuda_core"] != counts[n]:
                 fail(f"{name}: {n} launches left the CUDA-core (f32) route: "
                      f"{routes[n]}")
+        routes["fused_march"] = march_routes(kernels, name)
         losses = torch.stack(rec.losses).cpu()
         psnrs = [m["psnr"] for m in hist["eval"]]
         if int(state.step) != LOADER_STEPS or len(rec.losses) != LOADER_STEPS \
@@ -3116,17 +3169,26 @@ FF_PARITY_WH = (320, 256)     # the card-vs-CPU step's views (widths kept)
 MVS_TOL = 1e-4
 MVS_EMBED_TOL = 2e-4
 # card vs CPU feed-forward step (train-mode BatchNorm, cuDNN's f32
-# convolutions against oneDNN's, conv3d's backward with atomics): the loss
-# relative, each group's gradients sum |err| / sum |CPU|, the running
-# stats' worst max |err| / max |CPU|, infer_cloud's xyz max |err| /
-# max |CPU|; control: the CPU step with the BatchNorm in eval mode (a
-# wrong mode is the fault these catch). Readings on an H100 80GB HBM3 at
-# 700 W (PERF.md §6): loss 1.1e-05 (control 0.69), mlp 3.0e-04 (1.31),
-# mvs 6.6e-03 (1.00: MVSNet's deepest gradients are f32 rounding, ROADMAP
-# Queue 3), stats 2.5e-07 (8.8e-02), xyz 1.1e-06
-FF_LOSS_TOL = 1e-4
-FF_GRAD_TOL = {"mlp": 3e-3, "mvs": 5e-2}
-FF_STATS_TOL = 1e-5
+# convolutions against oneDNN's, conv3d's backward with atomics), split at
+# its cloud. Train-mode BatchNorm lets the convolutions' rounding move the
+# cloud far more than eval mode does, and the render turns that into a few
+# rays' colors, so the whole step's loss card vs CPU swings by decades
+# from one trained state to the next (past 1e-4 in some runs): it is
+# printed, and each part is held on the same inputs. The running stats'
+# worst max |err| / max |CPU| and the cloud's sum |err| / sum |CPU|,
+# control the CPU with eval-mode BatchNorm (a wrong mode is the fault
+# these catch); the render of one cloud, the card's, its loss relative and
+# its MLP and cloud gradients sum |err| / sum |CPU|, control the CPU with
+# a bf16 decode; MVSNet's backward of one cotangent, sum |err| / sum
+# |CPU|, control eval-mode BatchNorm. A pixel whose depth index rounds the
+# other way differs far beyond rounding in its confidence; the points
+# beyond FF_FLIP_TOL of a tensor's scale (at most FF_FLIP_MAX) carry no
+# cotangent into that backward. The bars sit between the readings of
+# scripts/ff_parity_readings.py and the controls (PERF.md §6)
+FF_TOL = {"stats": 1e-5, "cloud": 2e-4, "loss": 1e-5, "mlp": 1e-3,
+          "dcloud": 5e-4, "mvs": 5e-2}
+FF_FLIP_TOL = 1e-3
+FF_FLIP_MAX = 8
 FF_XYZ_TOL = 1e-4
 
 
@@ -3443,6 +3505,7 @@ def dtu_ft_path(kernels, ft_root: str, cloud, mvs_kw):
     for n in routes:
         if routes[n]["tensor_core"]:
             fail(f"the dtu_ft path launched {n} on the tensor cores")
+    routes["fused_march"] = march_routes(kernels, "dtu_ft")
     kinds = [e for e, _d in rec.log if e != "grid"]
     if kinds.count("prune") != 1 or kinds.count("load") != 2:
         fail(f"dtu_ft path events {kinds}: expected one prune and two loads")
@@ -3554,6 +3617,7 @@ def ff_path(kernels, ff_root: str):
     for n in routes:
         if routes[n]["tensor_core"]:
             fail(f"the feed-forward path launched {n} on the tensor cores")
+    routes["fused_march"] = march_routes(kernels, "feed-forward")
     losses = torch.stack(got["losses"]).cpu()
     if len(losses) != FF_WARMUP + FF_STEPS \
             or not bool(torch.isfinite(losses).all()):
@@ -3578,12 +3642,79 @@ def ff_path(kernels, ff_root: str):
         "s_per_step": s, "rays_per_s": FF_RAYS / s, "peak_gib": peak}
 
 
+def ff_cloud(model, cap, mvs, stats, batch, train: bool = True):
+    """gen_cloud on the device of `batch` with the MVS weights as leaves:
+    (leaves, cloud, static, new running stats)."""
+    import torch
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.train import feedforward as tff
+    from pointnerf_tpu_torch.train.optim import tree_map
+    dev = batch.rays.raydir.device
+    mvs = tree_map(lambda t: t.detach().to(dev).requires_grad_(), mvs)
+    with torch.enable_grad(), mvs_precision():
+        pc, st, new_stats = tff.gen_cloud(model, cap, mvs, stats, batch,
+                                          train)
+    return mvs, pc, st, new_stats
+
+
+def ff_render(cfg, mlp, pc, st, batch, u):
+    """The step's training render and loss on a fixed cloud, on the device
+    of `batch`: (loss, the MLPs' gradients, the cloud's gradients), on the
+    CPU."""
+    import torch
+    from pointnerf_tpu_torch.models.losses import compute_losses
+    from pointnerf_tpu_torch.models.points import PointCloud
+    from pointnerf_tpu_torch.models.renderer import render_rays
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.ops.grid import build_grid
+    from pointnerf_tpu_torch.train.optim import tree_leaves, tree_map
+    dev = batch.rays.raydir.device
+    mlp = tree_map(lambda t: t.detach().to(dev).requires_grad_(), mlp)
+    pc = PointCloud(*[t.detach().to(dev).requires_grad_() for t in pc])
+    st = type(st)(*[t.to(dev) for t in st])
+    wrt = tree_leaves(mlp) + list(pc)
+    with torch.enable_grad(), mvs_precision():
+        grid = build_grid(pc.xyz.detach(), st.num_active, cfg.query)
+        out = render_rays(mlp, pc, st, grid, batch.rays, cfg, train=True,
+                          u=u.to(dev))
+        total, _ = compute_losses(out, batch.rays.gt_image, cfg.loss)
+        g = torch.autograd.grad(total, wrt, allow_unused=True)
+    g = [(torch.zeros_like(w) if x is None else x).cpu()
+         for w, x in zip(wrt, g)]
+    n = len(tree_leaves(mlp))
+    return float(total.detach()), g[:n], g[n:]
+
+
+def ff_mvs_grads(mvs, pc, cot):
+    """MVSNet's (and the embedding's) backward of the cotangent `cot` on
+    the cloud `pc` that ff_cloud made: the MVS leaves' gradients, on the
+    CPU."""
+    import torch
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    dev = pc.xyz.device
+    outs = [(o, c.to(dev)) for o, c in zip(pc, cot) if o.requires_grad]
+    wrt = tree_leaves(mvs)
+    with mvs_precision():
+        g = torch.autograd.grad([o for o, _ in outs], wrt,
+                                [c for _, c in outs], allow_unused=True)
+    return [(torch.zeros_like(w) if x is None else x).cpu()
+            for w, x in zip(wrt, g)]
+
+
 def ff_parity(state, cfg, model, ff_root: str):
     """One feed-forward step card vs CPU from the same state at
     FF_PARITY_WH (the dtu scene's group 0 at half resolution; widths and
-    depth planes kept): the loss, each group's gradients, the new running
-    stats, beside the control (the CPU step with eval-mode BatchNorm);
-    then infer_cloud card vs CPU: num_active equal, xyz within FF_XYZ_TOL."""
+    depth planes kept), split at its cloud. The cloud (train-mode MVSNet
+    and the embedding) and the new running stats, beside the CPU with
+    eval-mode BatchNorm. The render of one cloud, the card's, on each side
+    (the loss, the MLPs' and the cloud's gradients), beside the CPU with a
+    bf16 decode. MVSNet's backward of one cotangent on each side, beside
+    eval-mode BatchNorm: the CPU render's cloud gradients, zero on the few
+    points (at most FF_FLIP_MAX) where the two clouds differ by more than
+    FF_FLIP_TOL of a tensor's scale. The whole step's loss and gradients
+    card vs CPU are printed. Then infer_cloud card vs CPU: num_active
+    equal, xyz within FF_XYZ_TOL."""
     import copy
     import torch
     from pointnerf_tpu_torch.config import DataConfig
@@ -3606,41 +3737,84 @@ def ff_parity(state, cfg, model, ff_root: str):
     m_cpu = copy.deepcopy(model).to(cpu)
     p_cpu = tree_map(lambda t: t.to(cpu), state.params)
     s_cpu = {k: v.to(cpu) for k, v in state.mvs_stats.items()}
-    res = {}
-    res["card"] = tff.ff_loss_and_grads(cfg, model, cap, state.params,
-                                        state.mvs_stats, b_card, u=u.cuda())
-    res["cpu"] = tff.ff_loss_and_grads(cfg, m_cpu, cap, p_cpu, s_cpu, b_cpu,
-                                       u=u)
-    real_gen = tff.gen_cloud
-    tff.gen_cloud = lambda m, c, p, s, b, train: real_gen(m, c, p, s, b,
-                                                          False)
-    try:
-        res["control"] = tff.ff_loss_and_grads(cfg, m_cpu, cap, p_cpu, s_cpu,
-                                               b_cpu, u=u)
-    finally:
-        tff.gen_cloud = real_gen
-    t_cpu = float(res["cpu"][0])
-    out = {}
-    for k in ("card", "control"):
-        t, _i, gr, stats = res[k]
-        out[k] = {"loss": abs(float(t) - t_cpu) / abs(t_cpu),
-                  "mlp": _sum_rel(gr["mlp"], res["cpu"][2]["mlp"]),
-                  "mvs": _sum_rel(gr["mvs"], res["cpu"][2]["mvs"]),
-                  "stats": max(_rel(stats[n], res["cpu"][3][n])
-                               for n in stats)}
+    # the whole step, printed
+    whole = {"card": tff.ff_loss_and_grads(cfg, model, cap, state.params,
+                                           state.mvs_stats, b_card,
+                                           u=u.cuda()),
+             "cpu": tff.ff_loss_and_grads(cfg, m_cpu, cap, p_cpu, s_cpu,
+                                          b_cpu, u=u)}
+    t_cpu = float(whole["cpu"][0])
     log(f"feed-forward step card vs CPU ({W} x {H} views, "
-        f"{b_cpu.rays.raydir.shape[0]} rays, capacity {cap}): " + ", ".join(
-            f"{k} {out['card'][k]:.3e} (control {out['control'][k]:.3e})"
-            for k in out["card"]))
-    hold_bf16("feed-forward loss card vs CPU, relative", out["card"]["loss"],
-              out["control"]["loss"], FF_LOSS_TOL, "eval-mode BatchNorm")
-    for grp in ("mlp", "mvs"):
-        hold_bf16(f"feed-forward {grp} gradients card vs CPU, sum |err| / "
-                  f"sum |CPU|", out["card"][grp], out["control"][grp],
-                  FF_GRAD_TOL[grp], "eval-mode BatchNorm")
-    hold_bf16("feed-forward running stats card vs CPU, worst max |err| / "
-              "max |CPU|", out["card"]["stats"], out["control"]["stats"],
-              FF_STATS_TOL, "eval-mode BatchNorm")
+        f"{b_cpu.rays.raydir.shape[0]} rays, capacity {cap}), the whole "
+        f"step, printed (train-mode BatchNorm's rounding moves the cloud, "
+        f"and the render turns that into a few rays' colors): loss "
+        f"{abs(float(whole['card'][0]) - t_cpu) / abs(t_cpu):.3e}, " +
+        ", ".join(f"{grp} gradients " + format(_sum_rel(
+            whole["card"][2][grp], whole["cpu"][2][grp]), ".3e")
+            for grp in ("mlp", "mvs")))
+    # the step split at its cloud: the clouds
+    clouds = {"card": ff_cloud(model, cap, state.params["mvs"],
+                               state.mvs_stats, b_card),
+              "cpu": ff_cloud(m_cpu, cap, p_cpu["mvs"], s_cpu, b_cpu),
+              "eval": ff_cloud(m_cpu, cap, p_cpu["mvs"], s_cpu, b_cpu,
+                               train=False)}
+    ref = clouds["cpu"]
+    err = {k: {"cloud": _sum_rel([t.detach() for t in clouds[k][1]],
+                                 [t.detach() for t in ref[1]]),
+               "stats": max(_rel(clouds[k][3][n], ref[3][n])
+                            for n in ref[3])} for k in ("card", "eval")}
+    # the render of the card's cloud, on each side
+    pc_g, st_g = clouds["card"][1], clouds["card"][2]
+    ren = {"card": ff_render(cfg, state.params["mlp"], pc_g, st_g, b_card,
+                             u),
+           "cpu": ff_render(cfg, p_cpu["mlp"], pc_g, st_g, b_cpu, u),
+           "bf16": ff_render(cfg.replace(train=dataclasses.replace(
+               cfg.train, compute_dtype="bf16")), p_cpu["mlp"], pc_g, st_g,
+               b_cpu, u)}
+    L_x = ren["cpu"][0]
+    for k in ("card", "bf16"):
+        err.setdefault(k, {}).update(loss=abs(ren[k][0] - L_x) / abs(L_x),
+                      mlp=_sum_rel(ren[k][1], ren["cpu"][1]),
+                      dcloud=_sum_rel(ren[k][2], ren["cpu"][2]))
+    # MVSNet's backward of one cotangent, on each side
+    per_point = torch.stack([
+        (a.detach().cpu() - b.detach()).abs().reshape(a.shape[0], -1)
+        .max(1).values / max(float(b.detach().abs().max()), 1e-30)
+        for a, b in zip(pc_g, ref[1])], 1).max(1).values
+    keep = (per_point <= FF_FLIP_TOL).float()
+    flips = int(keep.numel() - keep.sum())
+    cot = [c * keep.reshape(-1, *([1] * (c.dim() - 1)))
+           for c in ren["cpu"][2]]
+    mvs_g = {k: ff_mvs_grads(clouds[k][0], clouds[k][1], cot)
+             for k in clouds}
+    for k in ("card", "eval"):
+        err[k]["mvs"] = _sum_rel(mvs_g[k], mvs_g["cpu"])
+    log("feed-forward step card vs CPU split at the cloud: the cloud per "
+        "tensor, max |err| / max |CPU|, " + ", ".join(
+            f"{n} {_rel(a.detach(), b.detach()):.3e}" for n, a, b in zip(
+                ("xyz", "features", "conf", "color", "dirs"), pc_g, ref[1]))
+        + f"; {flips} of {keep.numel()} points beyond {FF_FLIP_TOL:.0e} of "
+        f"a tensor's scale (at most {FF_FLIP_MAX}) carry no cotangent into "
+        f"MVSNet's backward")
+    if flips > FF_FLIP_MAX:
+        fail(f"the feed-forward clouds card vs CPU differ beyond rounding at "
+             f"{flips} points")
+    for name, key, ctl, ctl_is in (
+            ("the running stats, worst max |err| / max |CPU|", "stats",
+             "eval", "eval-mode BatchNorm"),
+            ("the cloud (train-mode MVSNet and the embedding), sum |err| / "
+             "sum |CPU|", "cloud", "eval", "eval-mode BatchNorm"),
+            ("MVSNet's backward of one cotangent, sum |err| / sum |CPU|",
+             "mvs", "eval", "eval-mode BatchNorm"),
+            ("the render of the card's cloud, loss relative", "loss", "bf16",
+             "a bf16 decode"),
+            ("the render of the card's cloud, the MLPs' gradients, sum "
+             "|err| / sum |CPU|", "mlp", "bf16", "a bf16 decode"),
+            ("the render of the card's cloud, the cloud's gradients, sum "
+             "|err| / sum |CPU|", "dcloud", "bf16", "a bf16 decode")):
+        hold_bf16(f"feed-forward {name}, card vs CPU", err["card"][key],
+                  err[ctl][key], FF_TOL[key], ctl_is)
+    out = dict(err, flips=flips)
     step, infer = tff.make_feedforward_step(cfg, model, cap)
     _s, infer_cpu = tff.make_feedforward_step(cfg, m_cpu, cap)
     pc_card, st_card = infer(state.params, state.mvs_stats, b_card)
@@ -3690,6 +3864,447 @@ def mvs_paths(kernels, root: str):
                   "fused_march": check_k2(*chunk["fused_march"])}}
     counts = {n: c_ft[n] + c_ff[n] for n in c_ft}
     routes = {n: {k: r_ft[n][k] + r_ff[n][k] for k in r_ft[n]} for n in r_ft}
+    return counts, routes, checks, nums
+
+
+# ---- the 2D neural-render heads: the feature render at C = 128 decoded by
+# the CNN or the StyleGAN2 head, and the adversarial step ------------------
+N2D_C = 128                  # the fork's shading_color_channel_num
+N2D_PATCH = 48               # the fork's largest training chunk, 48 x 48 rays
+N2D_WH = (256, 256)          # the views the patches are cut from
+N2D_REQUESTS = 4
+N2D_WARMUP = 3
+N2D_STEPS = 10
+N2D_FRAMES = 8               # per-frame style codes
+N2D_Z = 512                  # StyleGAN2's latent_dim and emb (its defaults)
+N2D_MAP_DEPTH = 8            # StyleVectorizer depth (StyleGAN2's default)
+N2D_GP_EVERY = 4             # make_gan_step's default cadence
+N2D_FINE = 80                # the fine pass at C = 128: SR' = 80 + 80
+# the launches of each kernel per step or request
+N2D_STEP = {"knn_select": 1, "fused_decode": 1, "fused_decode_bwd": 1,
+            "fused_march": 0}
+N2D_GAN_STEP = {"knn_select": 2, "fused_decode": 2, "fused_decode_bwd": 1,
+                "fused_march": 0}
+N2D_REQUEST = {"knn_select": 1, "fused_decode": 1, "fused_decode_bwd": 0,
+               "fused_march": 1}
+# card vs CPU. The features of the rays that hit of a 512-ray request at
+# C = 128 (sigmoid colors, absolute; control: the CPU with an f32 decode).
+# Readings on an H100 80GB HBM3 at 700 W (PERF.md §6): 8.035e-06, control
+# 1.484e-04
+N2D_FEAT_TOL = 3e-5
+# One step from the state the timed steps left, the losses (relative) and
+# each group's gradients (sum |err| / sum |CPU|), each with the control
+# that moves it: the CPU with an f32 decode where the decode's roundings
+# lead (the aggregator's and the points' gradients, the CNN's loss and
+# head), the card with cuDNN's convolutions in TF32 where the StyleGAN2
+# generator's and the discriminator's convolutions lead (the GAN's losses,
+# D, and the style side; an f32 decode moves those less than the card does).
+# Readings of two runs on an H100 80GB HBM3 at 700 W (PERF.md §6), highest
+# reading / its control: CNN loss 1.2e-07 / 8.0e-05, mlp 1.9e-04 / 1.5e-02,
+# points 2.2e-04 / 4.4e-03, head 5.6e-05 / 3.8e-03; GAN loss_total 3.9e-06 /
+# 2.2e-04, recon 8.8e-08 / 2.7e-05, adversarial 3.5e-06 / 2.0e-04, D 9.3e-07
+# / 7.7e-06, penalty 7.2e-06 / 6.6e-03, mlp 1.1e-03 / 1.2e-02, points 9.7e-04
+# / 1.6e-02, head 3.0e-05 / 4.5e-04, style 2.1e-05 / 4.3e-04, stylevec
+# 2.0e-05 / 4.6e-04, d 4.7e-05 / 3.7e-03. The TF32 control reads lower in
+# some runs (loss_total 5.8e-05, recon 3.5e-06, adversarial 5.3e-05) and
+# recon higher (4.4e-07), so those three bars sit between the highest
+# reading and the lowest control, a decade or more apart.
+# No control moves D's hinge loss apart from the card's readings (up to
+# 9.3e-07; TF32 by 3.0e-06 to 7.7e-06, an f32 decode by less than the
+# card), so a bar on it could not tell a fault from rounding: it is printed
+# beside both controls and held to no bar, and D's gradients carry D's
+# check with a control
+N2D_TOL = {"cnn": {"loss_total": (1e-5, "f32"), "mlp": (2e-3, "f32"),
+                   "points": (1.5e-3, "f32"), "head": (5e-4, "f32")},
+           "gan": {"loss_total": (1.5e-5, "tf32"),
+                   "loss_recon": (1.5e-6, "tf32"),
+                   "loss_g_adv": (1.5e-5, "tf32"),
+                   "loss_gp": (1e-4, "tf32"), "mlp": (4e-3, "f32"),
+                   "points": (4e-3, "f32"), "head": (1e-4, "tf32"),
+                   "style": (1e-4, "tf32"), "stylevec": (1e-4, "tf32"),
+                   "d": (3e-4, "tf32")}}
+
+
+def n2d_config():
+    """bench_config with the kernel flags on, at the fork's 128 feature
+    channels."""
+    cfg = slice_config()
+    return cfg.replace(agg=dataclasses.replace(
+        cfg.agg, shading_color_channel_num=N2D_C))
+
+
+def n2d_patch(cfg, view: int, device):
+    """The rays of the N2D_PATCH x N2D_PATCH window at the centre of ring
+    view `view` (row-major, as the feature image lays them out) and its
+    analytic ground truth [N2D_PATCH, N2D_PATCH, 3]."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.camera import get_dtu_raydir
+    from pointnerf_tpu_torch.data.synthetic import (ring_cameras,
+                                                    sphere_gt_render)
+    from pointnerf_tpu_torch.models.renderer import RayBatch
+    campos, rot, K = ring_cameras(n_views=N2D_REQUESTS, wh=N2D_WH)[view]
+    patch = N2D_PATCH
+    x0, y0 = N2D_WH[0] // 2 - patch // 2, N2D_WH[1] // 2 - patch // 2
+    gx, gy = np.meshgrid(np.arange(x0, x0 + patch),
+                         np.arange(y0, y0 + patch))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    raydir = get_dtu_raydir(pix, K, rot, True).astype(np.float32)
+    gt = sphere_gt_render(campos, raydir).reshape(patch, patch, 3)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dt, device=device)
+    return RayBatch(campos=t(campos), camrotc2w=t(rot), raydir=t(raydir),
+                    pixel_idx=t(pix, torch.int32),
+                    near=t(cfg.render.near_plane),
+                    far=t(cfg.render.far_plane), gt_image=None), t(gt)
+
+
+def n2d_heads(device):
+    """The heads at the fork's widths, random weights from seeds: the CNN
+    (NeuralRenderer at JAX's defaults, input 128), the one-layer StyleGAN2
+    generator and its StyleVectorizer, N2D_FRAMES style codes, the
+    discriminator of the patch."""
+    import torch
+    from pointnerf_tpu_torch.models import neural_render as nr
+    mods = {"cnn": nr.NeuralRenderer(n_feat=128, input_dim=N2D_C,
+                                     img_size=64, min_feat=32),
+            "gen": nr.Generator(image_size=128, latent_dim=N2D_Z,
+                                network_capacity=16, fmap_max=512,
+                                init_channels=N2D_C),
+            "vec": nr.StyleVectorizer(N2D_Z, N2D_MAP_DEPTH),
+            "disc": nr.Discriminator(N2D_PATCH, network_capacity=16)}
+    params = {k: nr.init_neural_render(
+        m, torch.Generator().manual_seed(20 + i), device)
+        for i, (k, m) in enumerate(mods.items())}
+    params["styles"] = torch.randn(
+        (N2D_FRAMES, N2D_Z), generator=torch.Generator().manual_seed(30)).to(
+        device)
+    return mods, params
+
+
+def n2d_states(kind, hp, params, pc, device, seed=2):
+    """A fresh state of `kind` ("cnn", "stylegan" or "gan") on `device`."""
+    import torch
+    from pointnerf_tpu_torch.train import neural2d as n2
+    from pointnerf_tpu_torch.train.optim import tree_map
+    cp = lambda t: t.clone()  # noqa: E731
+    g = torch.Generator(device=device).manual_seed(seed)
+    args = (g, tree_map(cp, params), type(pc)(*[cp(t) for t in pc]))
+    style = dict(style_codes=hp["styles"].clone(),
+                 stylevec_params=tree_map(cp, hp["vec"]))
+    if kind == "cnn":
+        return n2.create_neural2d_state(*args, tree_map(cp, hp["cnn"]))
+    if kind == "stylegan":
+        return n2.create_neural2d_state(*args, tree_map(cp, hp["gen"]),
+                                        **style)
+    return n2.create_gan_state(*args, tree_map(cp, hp["gen"]),
+                               tree_map(cp, hp["disc"]), **style)
+
+
+def n2d_steps(cfg, heads):
+    """{kind: step function} at the fork's widths."""
+    from pointnerf_tpu_torch.train import neural2d as n2
+    gen = dict(generator=heads["gen"], vectorizer=heads["vec"])
+    return {"cnn": n2.make_neural2d_step(cfg, heads["cnn"], N2D_PATCH),
+            "stylegan": n2.make_neural2d_step(cfg, None, N2D_PATCH, **gen),
+            "gan": n2.make_gan_step(cfg, None, N2D_PATCH, heads["disc"],
+                                    gp_every=N2D_GP_EVERY, **gen)}
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def n2d_train(kind, step, state, st, grid, batch, gt, kernels, device,
+              record: bool = False):
+    """N2D_WARMUP + N2D_STEPS steps of `kind` on one patch: each step's
+    launches (N2D_STEP, the GAN step N2D_GAN_STEP: two renders, one
+    backward through the decode), the GAN's penalty on its cadence, the
+    losses finite and falling (the GAN's reconstruction). With `record`,
+    the decode inputs of the first timed step. Returns (state, numbers,
+    recorded)."""
+    import numpy as np
+    import torch
+    want = N2D_GAN_STEP if kind == "gan" else N2D_STEP
+    frame = 0 if kind == "cnn" else 1
+    times, losses, seen = [], [], None
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+    for i in range(N2D_WARMUP + N2D_STEPS):
+        before = {n: k.launches for n, k in kernels.items()}
+        sync(device)
+        t0 = time.perf_counter()
+        with (recording_decode() if record and i == N2D_WARMUP
+              else contextlib.nullcontext()) as rec:
+            state, items = step(state, st, grid, batch, gt, frame)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        if rec is not None:
+            seen = rec
+        d = {n: k.launches - before[n] for n, k in kernels.items()}
+        if d != want:
+            fail(f"{kind} step {i} launched {d}, not {want}")
+        if kind == "gan":
+            gp = float(items["loss_gp"])
+            if (gp > 0) != (i % N2D_GP_EVERY == 0):
+                fail(f"GAN step {i}: gradient penalty {gp} off its cadence "
+                     f"(every {N2D_GP_EVERY})")
+        losses.append(float(items["loss_recon" if kind == "gan"
+                                  else "loss_total"]))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"{kind} losses not finite or not falling: {losses}")
+    s = float(np.mean(times[N2D_WARMUP:]))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+            else float("nan"))
+    own = peak - base if on_card else float("nan")
+    nums = {"s_per_step": s, "rays_per_s": N2D_PATCH ** 2 / s,
+            "peak_gib": peak, "peak_above_start_gib": own, "losses": losses}
+    log(f"n2d {kind} path: {N2D_STEPS} steps of {N2D_PATCH} x {N2D_PATCH} "
+        f"rays after {N2D_WARMUP}, {s:.4f} s/step = {N2D_PATCH ** 2 / s:.1f} "
+        f"rays/s (host clock, synchronized), peak memory {peak:.2f} GiB "
+        f"({own:.2f} GiB above the allocation the run started from); "
+        f"losses {[round(v, 6) for v in losses]}")
+    return state, nums, seen
+
+
+def n2d_serve(params, pc, st, grid, cfg, cnn, cnn_params, kernels, device):
+    """N2D_REQUESTS feature requests through eval_step (K1, K3, K2 once
+    each: K2 on its wide kernel at C = 128), each decoded to RGB by the
+    trained CNN head. Returns numbers."""
+    import torch
+    from pointnerf_tpu_torch.models.neural_render import apply_head
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.train.step import eval_step
+    reqs = [n2d_patch(cfg, v, device)[0] for v in range(N2D_REQUESTS)]
+    sync(device)
+    t0 = time.perf_counter()
+    outs = []
+    for i, b in enumerate(reqs):
+        before = {n: k.launches for n, k in kernels.items()}
+        outs.append(eval_step({"mlp": params, "points": pc}, st, grid, b,
+                              cfg))
+        d = {n: k.launches - before[n] for n, k in kernels.items()}
+        if d != N2D_REQUEST:
+            fail(f"feature request {i} launched {d}, not {N2D_REQUEST}")
+    sync(device)
+    dt = time.perf_counter() - t0
+    with torch.no_grad(), mvs_precision():
+        for i, o in enumerate(outs):
+            f = o.coarse_raycolor
+            if f.shape != (N2D_PATCH ** 2, N2D_C) \
+                    or not bool(torch.isfinite(f).all()):
+                fail(f"feature request {i}: not finite or of shape "
+                     f"{tuple(f.shape)}")
+            img = f.reshape(1, N2D_PATCH, N2D_PATCH, N2D_C).permute(0, 3, 1, 2)
+            rgb = apply_head(cnn, cnn_params, img)
+            if rgb.shape != (1, 3, N2D_PATCH, N2D_PATCH) \
+                    or not bool(torch.isfinite(rgb).all()):
+                fail(f"feature request {i}: the CNN head's RGB is not finite")
+            log(f"feature request {i}: {int(o.ray_mask.sum())} of "
+                f"{N2D_PATCH ** 2} rays hit, decoded to RGB in "
+                f"[{float(rgb.min()):.4f}, {float(rgb.max()):.4f}]")
+    rate = N2D_REQUESTS * N2D_PATCH ** 2 / dt
+    log(f"n2d serving: {N2D_REQUESTS} feature requests of {N2D_PATCH ** 2} "
+        f"rays x {N2D_C} channels in {dt:.4f} s = {rate:.1f} rays/s (host "
+        f"clock, synchronized; the head's decode outside)")
+    return {"rays_per_s": rate}
+
+
+def state_to(state, device):
+    """A neural2d or GAN state with every tensor on `device` (a fresh
+    generator there: the parity steps take their draws as arguments)."""
+    import torch
+    from pointnerf_tpu_torch.train.optim import tree_map
+    f = {k: (v if isinstance(v, torch.Generator)
+             else tree_map(lambda t: t.to(device), v))
+         for k, v in state._asdict().items()}
+    f["key"] = torch.Generator(device=device).manual_seed(0)
+    return type(state)(**f)
+
+
+def step_grads(old, new):
+    """Each group's gradient of one step, from its Adam first moments:
+    g = (mu_new - b1 mu_old) / (1 - b1) (D's b1 is 0.5)."""
+    from pointnerf_tpu_torch.train.neural2d import D_B1
+    from pointnerf_tpu_torch.train.optim import B1, tree_map
+    if hasattr(new, "g_opt_state"):
+        pairs = {k: (old.g_opt_state[k].mu, v.mu, B1)
+                 for k, v in new.g_opt_state.items()}
+        pairs["d"] = (old.d_opt_state.mu, new.d_opt_state.mu, D_B1)
+    else:
+        pairs = {k: (old.opt_state[k].mu, v.mu, B1)
+                 for k, v in new.opt_state.items()}
+    return {k: tree_map(lambda a, b, b1=b1: (b - b1 * a) / (1 - b1), o, n)
+            for k, (o, n, b1) in pairs.items()}
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """cuDNN's convolutions in TF32 inside the block, the heads' float32
+    guard (mvs_precision) taken out: the control of the quantities no
+    decode reaches."""
+    import torch
+    from pointnerf_tpu_torch.train import neural2d as n2
+    real, flag = n2.mvs_precision, torch.backends.cudnn.allow_tf32
+    n2.mvs_precision = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        n2.mvs_precision, torch.backends.cudnn.allow_tf32 = real, flag
+
+
+def n2d_step_parity(kind, heads, state, st, grid, cfg):
+    """One step of `kind` ("cnn" or "gan") from `state` (the state the
+    timed steps left) on the card and on the CPU (plain versions) with the
+    same draws; the GAN step with the penalty on (gp_every 1). The losses
+    and each group's gradients (from the moments, `step_grads`) are held
+    at their bars beside a control (N2D_TOL): where the decode's roundings
+    lead, the CPU with an f32 decode; where the convolutions' lead, the
+    card with them in TF32 (`tf32_convolutions`). D's hinge loss, which
+    neither control moves apart, is printed and held to no bar."""
+    import torch
+    from pointnerf_tpu_torch.train import neural2d as n2
+    from pointnerf_tpu_torch.train.neural2d import augment_draws
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    b_card, gt = n2d_patch(cfg, 0, card)
+    b_cpu = type(b_card)(*[None if t is None else t.cpu() for t in b_card])
+    g = torch.Generator().manual_seed(3)
+    R = N2D_PATCH ** 2
+    draws = {"render": torch.rand((R, cfg.query.z_depth_dim), generator=g),
+             "render2": torch.rand((R, cfg.query.z_depth_dim), generator=g),
+             "aug_d": augment_draws(g, N2D_PATCH, N2D_PATCH, 1.0),
+             "aug_g": augment_draws(g, N2D_PATCH, N2D_PATCH, 1.0)}
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  compute_dtype="f32"))
+    grid_c = type(grid)(*[None if t is None else t.cpu() for t in grid])
+    st_c = type(st)(*[t.cpu() for t in st])
+    res = {}
+    # the heads run through functional_call with the state's parameters, so
+    # one module serves both devices
+    for side, c, dev in (("card", cfg, card), ("cpu", cfg, cpu),
+                         ("f32", cfg32, cpu), ("tf32", cfg, card)):
+        on_card = dev == card
+        if kind == "gan":
+            step = n2.make_gan_step(c, None, N2D_PATCH, heads["disc"],
+                                    generator=heads["gen"],
+                                    vectorizer=heads["vec"], gp_every=1)
+        else:
+            step = n2.make_neural2d_step(c, heads["cnn"], N2D_PATCH)
+        s0 = state if on_card else state_to(state, cpu)
+        args = (s0, st if on_card else st_c, grid if on_card else grid_c,
+                b_card if on_card else b_cpu, gt.to(dev),
+                0 if kind == "cnn" else 1)
+        with (tf32_convolutions() if side == "tf32"
+              else contextlib.nullcontext()):
+            if kind == "gan":
+                new, items = step(*args, draws={
+                    k: (v.to(dev) if torch.is_tensor(v) else v)
+                    for k, v in draws.items()})
+            else:
+                new, items = step(*args, u=draws["render"].to(dev))
+        res[side] = ({k: float(v) for k, v in items.items()},
+                     step_grads(s0, new))
+    out = {}
+    quantities = [k for k in res["cpu"][0] if k.startswith("loss_")] + list(
+        res["cpu"][1])
+    for k in quantities:
+        if k.startswith("loss_"):
+            ref = res["cpu"][0][k]
+            if ref == 0:
+                fail(f"n2d {kind} step: the CPU's {k} is 0")
+            r = {s: abs(res[s][0][k] - ref) / abs(ref)
+                 for s in ("card", "f32", "tf32")}
+            what = f"n2d {kind} step card vs CPU {k}, relative"
+        else:
+            r = {s: _sum_rel(res[s][1][k], res["cpu"][1][k])
+                 for s in ("card", "f32", "tf32")}
+            what = (f"n2d {kind} step card vs CPU {k} gradients, sum |err| "
+                    f"/ sum |CPU|")
+        log(f"{what} (printed): {r['card']:.3e}; the CPU with an f32 decode "
+            f"{r['f32']:.3e}, the card with TF32 convolutions "
+            f"{r['tf32']:.3e}")
+        out[k] = r
+        if k == "loss_d":
+            continue
+        bar, ctl_side = N2D_TOL[kind][k]
+        hold_bf16(what, r["card"], r[ctl_side], bar,
+                  "the CPU with an f32 decode" if ctl_side == "f32"
+                  else "the card with TF32 convolutions")
+    return out
+
+
+def n2d_path(kernels):
+    """Phase 23 (module docstring). Returns (launch counts, routes, kernel
+    checks, numbers)."""
+    import torch
+    from pointnerf_tpu_torch.train.step import eval_step
+    dev = torch.device("cuda")
+    cfg = n2d_config()
+    pc, st, params, grid = make_scene(cfg, dev)
+    heads, hp = n2d_heads(dev)
+    batch, gt = n2d_patch(cfg, 0, dev)
+    checks, nums = {}, {}
+
+    # (a) K2 at C = 128 on a recorded feature request, SR 80 and the fine
+    # pass's 160
+    with recording_kernels() as seen:
+        eval_step({"mlp": params, "points": pc}, st, grid, batch, cfg)
+    all_recorded(seen, "a feature request")
+    log(f"feature request: K2 at C = {N2D_C}, SR = {cfg.query.SR}")
+    checks["n2d_request"] = {
+        "fused_march_wide": check_k2(*seen["fused_march"], tol=0.0)}
+    fine = cfg.replace(render=dataclasses.replace(
+        cfg.render, fine_sample_num=N2D_FINE))
+    with recording_kernels() as seen:
+        eval_step({"mlp": params, "points": pc}, st, grid, batch, fine)
+    marches = seen["all"].get("fused_march", [])
+    if len(marches) != 2:
+        fail(f"the fine feature request launched K2 {len(marches)} times")
+    log(f"feature request with the fine pass: K2 at C = {N2D_C}, SR' = "
+        f"{marches[1][0][0].shape[1]}")
+    checks["n2d_request_fine_sequence"] = {
+        "fused_march_wide": check_k2(*marches[1], tol=0.0)}
+    del seen, marches
+
+    # the driven runs: the counts from 0, read at the end
+    steps = n2d_steps(cfg, heads)
+    reset_counts(kernels)
+    states, recorded = {}, None
+    for kind in ("cnn", "stylegan", "gan"):
+        state = n2d_states(kind, hp, params, pc, dev)
+        states[kind], nums[kind], rec = n2d_train(
+            kind, steps[kind], state, st, grid, batch, gt, kernels, dev,
+            record=kind == "cnn")
+        recorded = recorded or rec
+    trained = states["cnn"].params
+    nums["serve"] = n2d_serve(trained["mlp"], trained["points"], st, grid,
+                              cfg, heads["cnn"], trained["head"], kernels,
+                              dev)
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = kernel_routes(kernels, "n2d", march="wide")
+    log(f"n2d path launches {counts}, routes {routes}")
+
+    # (b) a 512-ray feature request card vs CPU, (e) a CNN and a GAN step
+    # from the states the timed steps left
+    cpu_parity(params, pc, st, grid, cfg, bar=N2D_FEAT_TOL)
+    nums["parity"] = {k: n2d_step_parity(k, heads, states[k], st, grid, cfg)
+                      for k in ("cnn", "gan")}
+    del states
+    # (f) K3 and K4 bf16 on the recorded CNN step's inputs
+    if recorded is None or "fused_decode_bwd" not in recorded:
+        fail("the neural2d step's decode inputs were not recorded")
+    with torch.no_grad():
+        checks["n2d_step"] = {
+            "fused_decode": check_k3([(recorded["fused_decode"], {})],
+                                     what="neural2d step")["bf16"],
+            "fused_decode_bwd": check_k4(
+                recorded["fused_decode_bwd"])["bf16"]}
     return counts, routes, checks, nums
 
 
@@ -3805,6 +4420,7 @@ def main() -> None:
     mv_counts, mv_routes, mv_checks, _mv_nums = mvs_paths(
         kernel_wrappers(), os.path.join(os.path.dirname(
             os.path.abspath(__file__)), "build", "mvs"))
+    n2_counts, n2_routes, n2_checks, _n2_nums = n2d_path(kernel_wrappers())
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
@@ -3817,8 +4433,10 @@ def main() -> None:
             "fused_decode_f32": ("fused_decode", "cuda_core",
                                  "fused_decode.cu",
                                  "pointnerf_tpu/ops/pallas_decode.py:404"),
-            "fused_march": ("fused_march", None, "fused_march.cu",
+            "fused_march": ("fused_march", "tiled", "fused_march.cu",
                             "pointnerf_tpu/ops/pallas_march.py:69"),
+            "fused_march_wide": ("fused_march", "wide", "fused_march.cu",
+                                 "pointnerf_tpu/ops/pallas_march.py:69"),
             "fused_decode_bwd": ("fused_decode_bwd", "tensor_core",
                                  "fused_decode_bwd_tc.cu",
                                  "pointnerf_tpu/ops/pallas_decode.py:467"),
@@ -3832,6 +4450,9 @@ def main() -> None:
                                    "eval_chunk": f32_k3["eval chunk"],
                                    "bench_request": k3["f32"]}
     results["fused_decode_bwd_f32"] = {**f32_k4, "bench_step": k4["f32"]}
+    # K2's wide kernel at the shapes it runs at: a feature request, C = 128
+    results["fused_march_wide"] = n2_checks.pop("n2d_request")[
+        "fused_march_wide"]
     now = {"K3 f32, train step": f32_k3["train step"]["ms"],
            "K3 f32, eval chunk": f32_k3["eval chunk"]["ms"],
            "K4 f32, train step": f32_k4["ms"]}
@@ -3846,13 +4467,14 @@ def main() -> None:
              "flags_off": (fo_counts, fo_routes),
              "hybrid": (hy_counts, hy_routes),
              "loaders": (ld_counts, ld_routes),
-             "mvs": (mv_counts, mv_routes)}
+             "mvs": (mv_counts, mv_routes),
+             "n2d": (n2_counts, n2_routes)}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]
         # launches over the main paths' runs, of this source's route
-        by_path = {p: (c.get(wrapper, 0) if route_name is None
-                       else rts.get(wrapper, {}).get(route_name, 0))
+        by_path = {p: (c[wrapper] if route_name is None
+                       else rts[wrapper][route_name])
                    for p, (c, rts) in paths.items()}
         row = {"name": row_name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
@@ -3878,7 +4500,7 @@ def main() -> None:
                            else ""))
                 hy.setdefault(kind, {})[n.replace("_fine", "")] = v
         for kind, res in ({"maintenance_" + k: v for k, v in chunks.items()}
-                          | fo_checks | hy | mv_checks).items():
+                          | fo_checks | hy | mv_checks | n2_checks).items():
             if row_name in res:
                 row[kind] = {k: v for k, v in res[row_name].items()
                              if k not in ("gemm_chain_ms", "run_stats")}

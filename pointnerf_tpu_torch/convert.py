@@ -9,6 +9,10 @@ turned into numpy arrays (`jax.tree.map(np.asarray, params)`): lists of
 `train_state_from_jax` carries a whole training state across — parameters,
 the optax Adam moments and counts of both groups, the step and the hit
 counters — so a test can take a step from a mid-training state.
+`neural_render_from_flax` loads a 2D head's flax parameters into the
+port's module layout, and `neural2d_state_from_jax` / `gan_state_from_jax`
+carry the 2D-head training states (every group's Adam state, the style
+codes, the discriminator and its Adam state, the EMA copies).
 """
 from __future__ import annotations
 
@@ -58,6 +62,20 @@ def _points_from(pc, dev) -> PointCloud:
                                      device=dev) for f in PointCloud._fields])
 
 
+def _adam_of(opt_state, g):
+    """The ScaleByAdamState of group `g` of an optax multi_transform state,
+    or of a plain optax.adam state when `g` is None; raises if a schedule
+    beside it counts otherwise."""
+    inner = (opt_state if g is None
+             else opt_state.inner_states[g].inner_state)
+    sched = [s for s in inner[1:] if "count" in getattr(s, "_fields", ())]
+    if sched and int(np.asarray(sched[0].count)) != int(
+            np.asarray(inner[0].count)):
+        raise ValueError(f"group {g}: the schedule count differs from the "
+                         "Adam count")
+    return inner[0]
+
+
 def train_state_from_jax(state, generator: torch.Generator,
                          device: DeviceLike = None):
     """A JAX `TrainState` with numpy leaves (`jax.tree.map(np.asarray,
@@ -72,13 +90,7 @@ def train_state_from_jax(state, generator: torch.Generator,
     dev = resolve_device(device)
     opt = {}
     for g in ("mlp", "points"):
-        inner = state.opt_state.inner_states[g].inner_state
-        adam = inner[0]
-        sched = [s for s in inner[1:] if hasattr(s, "count")]
-        if sched and int(np.asarray(sched[0].count)) != int(
-                np.asarray(adam.count)):
-            raise ValueError(f"group {g}: the schedule count differs from "
-                             "the Adam count")
+        adam = _adam_of(state.opt_state, g)
         conv = ((lambda t: params_from_jax(t, dev)) if g == "mlp"
                 else (lambda t: _points_from(t, dev)))
         opt[g] = AdamState(
@@ -129,3 +141,108 @@ def mvs_variables_from_jax(variables, device: DeviceLike = None):
     return {"params": walk(dict(variables["params"]), [], {}),
             "batch_stats": walk(dict(variables.get("batch_stats", {})), [],
                                 {})}
+
+
+def neural_render_from_flax(module, tree, device: DeviceLike = None):
+    """A head's flax parameter tree (numpy leaves) -> {state_dict name:
+    tensor} of the port's module (`models.neural_render`, whose submodules
+    carry flax's names). Conv kernels HWIO -> OIHW, no flip; Dense kernels
+    [in, out] -> Linear's [out, in]; GroupNorm scale -> weight; Conv2DMod's
+    "weight" HWIO -> OIHW and EqualLinear's [in, out] as they are (raw: the
+    lr_mul and the modulation stay in forward). Raises unless the names and
+    shapes are the module's."""
+    dev = resolve_device(device)
+    out = {}
+
+    def walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, path + [k])
+                continue
+            a = np.asarray(v, np.float32)
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif k == "kernel" and a.ndim == 2:
+                a = a.T
+            name = {"kernel": "weight", "scale": "weight"}.get(k, k)
+            out[".".join(path + [name])] = torch.tensor(
+                np.ascontiguousarray(a), device=dev)
+    walk(tree, [])
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if want != got:
+        bad = [(k, got[k], want[k]) for k in want
+               if k in got and got[k] != want[k]]
+        raise ValueError(f"flax tree does not fit {type(module).__name__}: "
+                         f"missing {sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}, shapes {bad}")
+    return out
+
+
+def _neural2d_groups(tree, heads, dev):
+    """The neural2d parameter groups of a JAX tree (numpy leaves):
+    "mlp" and "points" as in train_state_from_jax, "style" a tensor, and
+    each head group through `neural_render_from_flax(heads[group], ...)`."""
+    out = {}
+    for g, v in tree.items():
+        if g == "mlp":
+            out[g] = params_from_jax(v, dev)
+        elif g == "points":
+            out[g] = _points_from(v, dev)
+        elif g == "style":
+            out[g] = torch.tensor(np.asarray(v, np.float32), device=dev)
+        else:
+            out[g] = neural_render_from_flax(heads[g], v, dev)
+    return out
+
+
+def _adam_state(adam, conv, dev):
+    from .train.optim import AdamState
+    return AdamState(count=torch.tensor(int(np.asarray(adam.count)),
+                                        dtype=torch.int32, device=dev),
+                     mu=conv(adam.mu), nu=conv(adam.nu))
+
+
+def _neural2d_opt(opt_state, params, heads, dev):
+    """Each group's Adam state of a neural2d multi_transform state."""
+    return {g: _adam_state(
+        _adam_of(opt_state, g),
+        lambda t, g=g: _neural2d_groups({g: t[g]}, heads, dev)[g], dev)
+        for g in params}
+
+
+def neural2d_state_from_jax(state, generator: torch.Generator, heads,
+                            device: DeviceLike = None):
+    """A JAX `train.neural2d.Neural2DState` with numpy leaves -> the port's
+    `train.neural2d.Neural2DState`: `heads` maps "head" (and "stylevec")
+    to the port's modules; each group's Adam state of the multi_transform
+    carries over. `generator` takes the JAX key's place."""
+    from .train.neural2d import Neural2DState
+    dev = resolve_device(device)
+    return Neural2DState(
+        params=_neural2d_groups(state.params, heads, dev),
+        opt_state=_neural2d_opt(state.opt_state, state.params, heads, dev),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev), key=generator)
+
+
+def gan_state_from_jax(state, generator: torch.Generator, heads, disc,
+                       device: DeviceLike = None):
+    """A JAX `train.neural2d.GANTrainState` with numpy leaves -> the port's:
+    the generator side as `neural2d_state_from_jax`, the discriminator
+    (`disc`, the port's module) and its optax.adam state, the EMA copies."""
+    from .train.neural2d import GANTrainState
+    dev = resolve_device(device)
+
+    def d_conv(t):
+        return neural_render_from_flax(disc, t, dev)
+    return GANTrainState(
+        params=_neural2d_groups(state.params, heads, dev),
+        g_opt_state=_neural2d_opt(state.g_opt_state, state.params, heads,
+                                  dev),
+        d_params=d_conv(state.d_params),
+        d_opt_state=_adam_state(_adam_of(state.d_opt_state, None), d_conv,
+                                dev),
+        ema=_neural2d_groups(state.ema, heads, dev),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev), key=generator)

@@ -26,6 +26,22 @@
 // unrolled over the C channels (one instance per C). The walk rounds
 // exactly as the plain PyTorch twin's sequence of ops (built with
 // -fmad=false), so the outputs are the same bits.
+//
+// Wide rays (C > 8, or a tile of 4 rays too wide for shared memory):
+// fused_march_wide_launch. At C = 128 and SR = 80 one ray's features are
+// 41 KB, so a tile of rays no longer fits in shared memory and a thread
+// cannot hold a register per channel. One warp takes one ray. The lanes
+// take the samples 32 at a time: lane l computes sample s0 + l's opacity
+// (written coalesced), and the warp then walks the 32 samples in order,
+// each lane reading sample s's opacity from lane s - s0 by a shuffle, so
+// every lane carries the same T in a register and sums its own channels
+// c = lane, lane + 32, ... (kWideRegs of them a pass; wider C takes more
+// passes over the samples, each repeating the same T sequence). A
+// sample's 1 + C floats are contiguous, so the lanes' loads of one sample
+// coalesce. Each channel is summed in the plain version's order, so the
+// outputs are its bits too. Nothing is staged, so neither SR nor C is
+// limited. Bound: bytes (R * SR * (C + 1) * 4 read: ~95 MB at R = 2,304,
+// SR = 80, C = 128, ~0.03 ms at 3.35 TB/s).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -175,7 +191,83 @@ int launch(const float* dist, const uint8_t* valid, const float* feats,
   return 0;
 }
 
+constexpr int kWideRegs = 4;       // channels a lane sums per pass
+constexpr int kWideWarps = 4;      // rays (warps) per block
+
+__global__ void __launch_bounds__(kWideWarps * 32)
+    fused_march_wide_kernel(const float* __restrict__ dist,
+                            const uint8_t* __restrict__ valid,
+                            const float* __restrict__ feats,
+                            const float* __restrict__ bg, int R, int SR,
+                            int C, float* __restrict__ color,
+                            float* __restrict__ opacity,
+                            float* __restrict__ bgtr) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWideWarps + (threadIdx.x >> 5);
+  if (r >= R) return;  // the whole warp: the shuffles stay full
+  const size_t F = (size_t)C + 1;
+  const float* fr = feats + (size_t)r * SR * F;
+  const float* dr = dist + (size_t)r * SR;
+  const uint8_t* vr = valid + (size_t)r * SR;
+  float* orow = opacity + (size_t)r * SR;
+  // one pass per kWideRegs * 32 channels (one pass at C = 0: the
+  // opacities and T)
+  const int passes = max(1, (C + 32 * kWideRegs - 1) / (32 * kWideRegs));
+  float trans = 1.f;
+  for (int p = 0; p < passes; ++p) {
+    const int c0 = p * 32 * kWideRegs;
+    float acc[kWideRegs];
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) acc[j] = 0.f;
+    trans = 1.f;
+    for (int s0 = 0; s0 < SR; s0 += 32) {
+      const int s = s0 + lane;
+      float op = 0.f;
+      if (s < SR) {
+        const float sigma = fr[(size_t)s * F] * (vr[s] ? 1.f : 0.f);
+        op = 1.f - expf(-sigma * dr[s]);
+        if (p == 0) orow[s] = op;
+      }
+      const int n = min(32, SR - s0);
+      const float* f = fr + (size_t)s0 * F + 1 + c0 + lane;
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float op_i = __shfl_sync(0xffffffffu, op, i);
+        const float wgt = op_i * trans;
+#pragma unroll
+        for (int j = 0; j < kWideRegs; ++j)
+          if (c0 + lane + 32 * j < C)
+            acc[j] = acc[j] + __ldg(f + (size_t)i * F + 32 * j) * wgt;
+        trans = trans * (1.f - op_i + 1e-10f);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < C) color[(size_t)r * C + c] = acc[j] + bg[c] * trans;
+    }
+  }
+  if (lane == 0) bgtr[r] = trans;
+}
+
 }  // namespace
+
+// Any C and SR: one warp per ray (fused_march_wide_kernel); feats needs
+// only its 4-byte alignment.
+extern "C" int fused_march_wide_launch(const float* dist,
+                                       const uint8_t* valid,
+                                       const float* feats, const float* bg,
+                                       int R, int SR, int C, float* color,
+                                       float* opacity, float* bgtr,
+                                       void* stream) {
+  if (R == 0) return 0;
+  if (C < 0 || SR < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + kWideWarps - 1) / kWideWarps;
+  fused_march_wide_kernel<<<blocks, kWideWarps * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      dist, valid, feats, bg, R, SR, C, color, opacity, bgtr);
+  return (int)cudaGetLastError();
+}
 
 // rays: rays per block, a multiple of 4 picked by the wrapper
 // (ops/fused_march.py `rays_per_block`) so that the tile fits in shared

@@ -28,7 +28,7 @@ from .. import DeviceLike, not_ported, resolve_device
 from ..camera import w2pers
 from ..config import (PointNeRFConfig, effective_ray_generator,
                       generator_kwargs)
-from ..ops.fused_march import MAX_C, fused_march
+from ..ops.fused_march import fused_march
 from ..ops.grid import PointGrid
 from ..ops.query import (_xla_cumprod, generate_shading_points, knn_query,
                          query_points, refine_ray_generation)
@@ -108,9 +108,8 @@ def march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
     Training takes the plain march under autograd, as the JAX package does.
     On the CPU the flag decides, as in JAX; on CUDA serving takes K2
     whenever it computes the march (radiance render, alpha blend), whatever
-    `render.fused_march` says — the card never runs a kernel's plain twin.
-    Such a render with more than `MAX_C` channels raises on CUDA, whatever
-    the flag."""
+    `render.fused_march` says, at any channel count — the card never runs a
+    kernel's plain twin."""
     if train:
         return False
     r = cfg.render
@@ -123,10 +122,6 @@ def march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
             f"{r.which_render_func!r}/{r.which_blend_func!r}")
     if device.type != "cuda":
         return r.fused_march
-    if kernel_func and cfg.agg.shading_color_channel_num > MAX_C:
-        raise not_ported(f"the fused march at C="
-                         f"{cfg.agg.shading_color_channel_num}",
-                         "Queue 2, K2 at C > 8")
     return kernel_func
 
 

@@ -7,8 +7,12 @@ JAX backward recomputes through the plain march and has no kernel; training
 in the port takes the plain march under autograd, as the JAX package does
 (`models/renderer.py::_finalize`), so only serving launches the kernel.
 
-The kernel stages a tile of `rays_per_block` rays' features in shared
-memory with 16-byte loads, so `feats` must be 16-byte aligned.
+Two kernels in one source, picked by the shape. Up to `MAX_C` channels,
+where a tile of rays fits in shared memory (`rays_per_block`), the tiled
+kernel stages `rays_per_block` rays' features with 16-byte loads, so
+`feats` must be 16-byte aligned. Any other shape (the feature renders of
+the 2D heads, C = 128) takes the wide kernel: a warp per ray, nothing
+staged, any C and SR. Both give the plain version's bits.
 
 dist [R, SR] f32, valid [R, SR] bool, feats [R, SR, 1+C] f32, bg [C] f32 ->
 (ray_color [R, C], opacity [R, SR], background_transmission [R, 1]).
@@ -21,10 +25,12 @@ import torch
 
 from . import _build
 
+# the tiled kernel's most channels (one instance per C); wider rays take
+# the wide kernel
 MAX_C = 8
-# the kernel's block: its shared memory (an H100 block takes at most 227 KB)
-# holds a tile of rays, each SR * (C + 1) features and SR opacities (each
-# stride made odd)
+# the tiled kernel's block: its shared memory (an H100 block takes at most
+# 227 KB) holds a tile of rays, each SR * (C + 1) features and SR
+# opacities (each stride made odd)
 SMEM_BYTES = 232448
 TILE_RAYS = (8, 4)
 
@@ -56,11 +62,18 @@ def fused_march_plain(dist, valid, feats, bg):
     return acc + bg[None, :] * trans[:, None], opacity, trans[:, None]
 
 
-def _lib():
-    f = _build.load("fused_march").fused_march_launch
+def route(SR: int, C: int) -> str:
+    """The kernel a march of this shape launches: "tiled" (C <= MAX_C and a
+    tile of rays fits in shared memory) or "wide"."""
+    return "tiled" if C <= MAX_C and rays_per_block(SR, C) else "wide"
+
+
+def _lib(name: str):
+    f = getattr(_build.load("fused_march"), name)
     if f.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        ints = [ci] * (4 if name == "fused_march_launch" else 3)
+        f.argtypes = [vp, vp, vp, vp] + ints + [vp, vp, vp, vp]
         f.restype = ci
     return f
 
@@ -81,27 +94,25 @@ def fused_march(dist, valid, feats, bg):
                 f"{t.device}")
     if dev.type == "cpu":
         return fused_march_plain(dist, valid, feats, bg)
-    if C > MAX_C:
-        raise ValueError(f"fused_march: the CUDA kernel takes C <= {MAX_C}, "
-                         f"got {C}")
-    rays = rays_per_block(SR, C)
-    if not rays:
-        raise ValueError(f"fused_march: a tile of {TILE_RAYS[-1]} rays of "
-                         f"SR={SR} samples and C={C} channels exceeds the "
-                         f"kernel's shared memory")
-    if feats.data_ptr() % 16:
-        raise ValueError("fused_march: the CUDA kernel reads feats with "
-                         "16-byte loads; it must be 16-byte aligned")
+    kind = route(SR, C)
+    if kind == "tiled" and feats.data_ptr() % 16:
+        raise ValueError("fused_march: the tiled CUDA kernel reads feats "
+                         "with 16-byte loads; it must be 16-byte aligned")
     color = torch.empty((R, C), dtype=torch.float32, device=dev)
     opacity = torch.empty((R, SR), dtype=torch.float32, device=dev)
     bgtr = torch.empty((R, 1), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _lib()(p(dist), p(valid.view(torch.uint8)), p(feats), p(bg), R, SR,
-                 C, rays, p(color), p(opacity), p(bgtr),
-                 _build.stream_handle(dev))
+    ins = (p(dist), p(valid.view(torch.uint8)), p(feats), p(bg), R, SR, C)
+    outs = (p(color), p(opacity), p(bgtr), _build.stream_handle(dev))
+    if kind == "tiled":
+        err = _lib("fused_march_launch")(*ins, rays_per_block(SR, C), *outs)
+    else:
+        err = _lib("fused_march_wide_launch")(*ins, *outs)
     _build.check(err, "fused_march")
     fused_march.launches += 1
+    fused_march.launches_by_route[kind] += 1
     return color, opacity, bgtr
 
 
 fused_march.launches = 0
+fused_march.launches_by_route = {"tiled": 0, "wide": 0}

@@ -3,8 +3,8 @@
 Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
 `init_mlp_params`, `evaluate`, `train_scene`, `mvs_init_cloud`,
 `train_dataset_scene`, `test_dataset_scene`, `demo`, `ff_demo`,
-`train_feedforward_dataset` and `main` (`--demo`, `--dataset`, `--test`,
-`--ff-demo`, `--ff-dataset`).
+`train_feedforward_dataset`, `n2d_demo` and `main` (`--demo`,
+`--dataset`, `--test`, `--ff-demo`, `--ff-dataset`, `--n2d-demo`).
 One process, no restart loop: prune and grow change the cloud in place
 (`train/grow.py`) and the Adam state is carried through. The schedule:
 
@@ -32,6 +32,10 @@ aggregator end to end:
     python -m pointnerf_tpu_torch.train.driver --ff-demo [--device cpu]
     python -m pointnerf_tpu_torch.train.driver --ff-dataset \
         --data-root DIR --scan NAME [--steps N] [--device cpu]
+
+Feature rendering decoded by the 2D CNN head (`train/neural2d.py`):
+
+    python -m pointnerf_tpu_torch.train.driver --n2d-demo [--device cpu]
 """
 from __future__ import annotations
 
@@ -346,6 +350,56 @@ def demo(steps: int = 300, n_pts: int = 2048, wh=(64, 64),
     return hist
 
 
+def n2d_demo(steps: int = 40, patch: int = 16, device: DeviceLike = None):
+    """Feature-render + CNN-head demo: 16-channel feature rays of random
+    64 x 64 view patches decoded to RGB by the 2D neural renderer on the
+    synthetic sphere. Returns the final Neural2DState."""
+    from ..camera import get_dtu_raydir
+    from ..data.synthetic import sphere_gt_render
+    from ..models.neural_render import NeuralRenderer, init_neural_render
+    from ..models.renderer import RayBatch
+    from .neural2d import create_neural2d_state, make_neural2d_step
+    dev = resolve_device(device)
+    C = 16
+    cfg = tiny_test_config()
+    cfg = cfg.replace(agg=dataclasses.replace(
+        cfg.agg, shading_color_channel_num=C))
+    xyz, color, normals = sphere_scene(n_pts=2048)
+    pc, st = make_point_cloud(xyz, torch.Generator().manual_seed(0),
+                              cfg.points, cfg.agg.point_features_dim,
+                              color=color, dirs=normals, device=dev)
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                    device=dev)
+    grid, _max_d = refresh_grid(pc, st, cfg)
+    head = NeuralRenderer(n_feat=32, input_dim=C, img_size=64, min_feat=8)
+    hp = init_neural_render(head, torch.Generator().manual_seed(2), dev)
+    state = create_neural2d_state(torch.Generator(device=dev).manual_seed(3),
+                                  params, pc, hp)
+    step = make_neural2d_step(cfg, head, patch)
+
+    campos, rot, K = ring_cameras(n_views=1, wh=(64, 64), focal=64.0)[0]
+    rng = np.random.RandomState(0)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    for i in range(steps):
+        x0, y0 = rng.randint(0, 64 - patch, 2)
+        gx, gy = np.meshgrid(np.arange(x0, x0 + patch),
+                             np.arange(y0, y0 + patch))
+        pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+        raydir = get_dtu_raydir(pix, K, rot, True).astype(np.float32)
+        gt = sphere_gt_render(campos, raydir).reshape(patch, patch, 3)
+        batch = RayBatch(campos=t(campos), camrotc2w=t(rot), raydir=t(raydir),
+                         pixel_idx=t(pix, torch.int32),
+                         near=t(cfg.render.near_plane),
+                         far=t(cfg.render.far_plane), gt_image=None)
+        state, items = step(state, st, grid, batch, t(gt), 0)
+        if i % 10 == 0 or i == steps - 1:
+            print(f"[n2d] step {i}: loss={float(items['loss_total']):.5f} "
+                  f"psnr={float(items['psnr']):.2f}")
+    return state
+
+
 def mvs_init_cloud(ds, mvs_variables: Optional[Dict] = None,
                    n_groups: int = 8, point_features_dim: int = 32,
                    depth_conf_thresh: float = 0.8,
@@ -631,6 +685,8 @@ def main():
     ap.add_argument("--ff-dataset", action="store_true",
                     help="feed-forward generalization training on a "
                          "DTU-format --data-root/--scan")
+    ap.add_argument("--n2d-demo", action="store_true",
+                    help="feature rendering + 2D neural-render head demo")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--run-dir", default="runs/demo")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
@@ -650,9 +706,11 @@ def main():
         demo(steps=args.steps, run_dir=args.run_dir, device=args.device)
     elif args.ff_demo:
         ff_demo(steps=min(args.steps, 50), device=args.device)
+    elif args.n2d_demo:
+        n2d_demo(steps=min(args.steps, 100), device=args.device)
     else:
-        ap.error("use --demo, --ff-demo, --ff-dataset or --dataset NAME "
-                 "--data-root DIR --scan NAME")
+        ap.error("use --demo, --ff-demo, --n2d-demo, --ff-dataset or "
+                 "--dataset NAME --data-root DIR --scan NAME")
 
 
 if __name__ == "__main__":

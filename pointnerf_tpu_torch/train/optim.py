@@ -83,14 +83,15 @@ def init_optimizer(params: Dict[str, Any],
     return out
 
 
-def adam_update(grads, state: AdamState, lr) -> Tuple[Any, AdamState]:
+def adam_update(grads, state: AdamState, lr, b1: float = B1,
+                b2: float = B2) -> Tuple[Any, AdamState]:
     """One optax.adam step for one group: (updates, new state)."""
-    mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1 - B2) * (g * g) + B2 * v, grads, state.nu)
+    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
     count = state.count + 1
     c = count.float()
-    bc1 = 1 - torch.pow(torch.tensor(B1, device=c.device), c)
-    bc2 = 1 - torch.pow(torch.tensor(B2, device=c.device), c)
+    bc1 = 1 - torch.pow(torch.tensor(b1, device=c.device), c)
+    bc2 = 1 - torch.pow(torch.tensor(b2, device=c.device), c)
     step = -(lr(state.count) if callable(lr) else torch.tensor(
         lr, dtype=torch.float32, device=c.device))
     updates = tree_map(lambda m, v: step * ((m / bc1) / (torch.sqrt(v / bc2)

@@ -56,7 +56,16 @@ same inputs (the three reference views' forwards for a group; the
 train-mode forward and its backward for a step) over the whole group's or
 step's.
 
-    python3 scripts/port_profile.py [--sections main dataset hybrid mvs]
+2D heads (n2d): chip_smoke's phase-23 configuration (bench_config at 128
+feature channels on the sphere, 48 x 48 patches, the heads at the fork's
+widths): per CNN step and per GAN step (N_PROFILED_STEPS after three
+warm-up steps on one patch) with K1, K3 and K4 named, the heads' share
+(the head's forward and backward alone on the step's feature image; for
+the GAN, the generator side's and the discriminator's four passes: fake,
+real, the penalty's double backward, the G side), and per feature request
+(N_PROFILED_CHUNKS after one warm-up) with K1, K3 and K2 named.
+
+    python3 scripts/port_profile.py [--sections main dataset hybrid mvs n2d]
 
 Needs one CUDA card.
 """
@@ -71,7 +80,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
 N_PROFILED_CHUNKS = 4
-SECTIONS = ("main", "dataset", "hybrid", "mvs")  # main: serve, train, probe
+SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d")  # main: serve, train,
+# probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or its live-list pass (live_*<false>) and
@@ -82,7 +92,7 @@ PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel"),
                        "live_flags<false>", "live_compact<false>"),
                 "K4": ("fused_decode_bwd", "live_flags<true>",
                        "live_compact<true>"),
-                "K2": ("fused_march_kernel",)}
+                "K2": ("fused_march_kernel", "fused_march_wide_kernel")}
 
 
 def profiled(fn):
@@ -424,6 +434,92 @@ def mvs_section(cs) -> None:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
 
+def n2d_section(cs) -> None:
+    """Per CNN step, per GAN step and per feature request at chip_smoke's
+    phase-23 configuration, and the heads' share of each step."""
+    import torch
+    from pointnerf_tpu_torch.models.neural_render import apply_head
+    from pointnerf_tpu_torch.mvs.mvsnet import mvs_precision
+    from pointnerf_tpu_torch.train.step import eval_step
+    dev = torch.device("cuda")
+    cfg = cs.n2d_config()
+    pc, st, params, grid = cs.make_scene(cfg, dev)
+    heads, hp = cs.n2d_heads(dev)
+    batch, gt = cs.n2d_patch(cfg, 0, dev)
+    steps = cs.n2d_steps(cfg, heads)
+    P, C = cs.N2D_PATCH, cs.N2D_C
+    n = N_PROFILED_STEPS
+    for kind in ("cnn", "gan"):
+        states = [cs.n2d_states(kind, hp, params, pc, dev)]
+
+        def train(k, kind=kind, states=states):
+            for _ in range(k):
+                states[0], _it = steps[kind](states[0], st, grid, batch, gt,
+                                             0 if kind == "cnn" else 1)
+        train(3)
+        wall, per_kernel, busy = profiled(lambda: train(n))
+        total = report(f"n2d {kind} step", n, P * P, wall, per_kernel, busy)
+        parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+                 for k in ("K1", "K3", "K4")}
+        prm = {g: {k: v.detach().requires_grad_() for k, v in
+                   states[0].params[g].items()} for g in ("head",)}
+        img = torch.rand((1, C, P, P), device=dev, requires_grad=True)
+        real = gt.permute(2, 0, 1)[None]
+        if kind == "gan":
+            dp = {k: v.detach().requires_grad_()
+                  for k, v in states[0].d_params.items()}
+            w = torch.rand((1, 1, cs.N2D_Z), device=dev)
+
+        def heads_only(kind=kind):
+            for _ in range(n):
+                with torch.enable_grad(), mvs_precision():
+                    if kind == "cnn":
+                        rgb = apply_head(heads["cnn"], prm["head"], img)
+                        torch.autograd.grad(rgb.sum(), [img] + list(
+                            prm["head"].values()))
+                        continue
+                    rgb = apply_head(heads["gen"], prm["head"], w, img)
+                    fake = rgb.detach()
+                    x = real.detach().requires_grad_()
+                    r = apply_head(heads["disc"], dp, x).sum()
+                    g, = torch.autograd.grad(r, x, create_graph=True)
+                    d = (apply_head(heads["disc"], dp, fake).sum() + r
+                         + (g ** 2).sum())
+                    torch.autograd.grad(d, list(dp.values()))
+                    adv = apply_head(heads["disc"], dp, rgb).sum()
+                    torch.autograd.grad(rgb.sum() + adv, [img] + list(
+                        prm["head"].values()))
+        heads_only()
+        _w, pk_h, _b = profiled(heads_only)
+        head_ms = sum(v[1] for v in pk_h.values())
+        rest = total - sum(parts.values()) - head_ms
+        print(f"n2d {kind} step, per step, device ms: " + ", ".join(
+            f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+            for k, ms in parts.items())
+            + f", the heads alone {head_ms / n:.4f} "
+            f"({100 * head_ms / total:.1f}%), everything else {rest / n:.4f}"
+            f" ({100 * rest / total:.1f}%); kernel total {total / n:.4f}, "
+            f"host {wall * 1e3 / n:.3f} ms")
+    p = {"mlp": params, "points": pc}
+    reqs = [cs.n2d_patch(cfg, v % cs.N2D_REQUESTS, dev)[0]
+            for v in range(N_PROFILED_CHUNKS + 1)]
+    eval_step(p, st, grid, reqs[0], cfg)
+
+    def serve():
+        for b in reqs[1:]:
+            eval_step(p, st, grid, b, cfg)
+    m = N_PROFILED_CHUNKS
+    wall, per_kernel, busy = profiled(serve)
+    total = report("n2d feature request", m, P * P, wall, per_kernel, busy)
+    parts = {k: kernel_ms(per_kernel, PORT_KERNELS[k])
+             for k in ("K1", "K3", "K2")}
+    rest = total - sum(parts.values())
+    print("n2d feature request, per request, device ms: " + ", ".join(
+        f"{k} {ms / m:.4f} ({100 * ms / total:.1f}%)"
+        for k, ms in parts.items())
+        + f", everything else {rest / m:.4f} ({100 * rest / total:.1f}%)")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -445,6 +541,8 @@ def main() -> None:
         hybrid_section(cs)
     if "mvs" in sections:
         mvs_section(cs)
+    if "n2d" in sections:
+        n2d_section(cs)
     if "main" not in sections:
         return
     cfg = cs.slice_config()

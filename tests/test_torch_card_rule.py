@@ -144,8 +144,9 @@ def test_decode_route_on_the_card(bf16):
 
 def test_march_route_on_the_card():
     """march_takes_kernel: K2 for every radiance / alpha render served on
-    CUDA whatever the flag, never in training, the flag on the CPU; past
-    K2's channel limit a refusal on CUDA whatever the flag."""
+    CUDA whatever the flag, at any channel count (past the tiled kernel's
+    MAX_C, the 2D heads' C = 128, the wide kernel), never in training, the
+    flag on the CPU."""
     cfg = tc.tiny_test_config()
     for flag in (True, False):
         c = cfg.replace(render=dataclasses.replace(cfg.render,
@@ -153,17 +154,16 @@ def test_march_route_on_the_card():
         assert tr.march_takes_kernel(c, CUDA, train=False)
         assert not tr.march_takes_kernel(c, CUDA, train=True)
         assert tr.march_takes_kernel(c, CPU, train=False) == flag
-    wide = cfg.replace(agg=dataclasses.replace(
-        cfg.agg, shading_color_channel_num=MAX_C + 1))
-    for flag in (True, False):
-        c = wide.replace(render=dataclasses.replace(wide.render,
-                                                    fused_march=flag))
-        with pytest.raises(SliceNotPorted, match="K2 at C > 8"):
-            tr.march_takes_kernel(c, CUDA, train=False)
-        with pytest.raises(SliceNotPorted, match="K2 at C > 8"):
+    for C in (MAX_C + 1, 128):
+        wide = cfg.replace(agg=dataclasses.replace(
+            cfg.agg, shading_color_channel_num=C))
+        for flag in (True, False):
+            c = wide.replace(render=dataclasses.replace(wide.render,
+                                                        fused_march=flag))
+            assert tr.march_takes_kernel(c, CUDA, train=False)
             tr.check_envelope(c, CUDA)
-        assert not tr.march_takes_kernel(c, CUDA, train=True)
-        assert tr.march_takes_kernel(c, CPU, train=False) == flag
+            assert not tr.march_takes_kernel(c, CUDA, train=True)
+            assert tr.march_takes_kernel(c, CPU, train=False) == flag
     other = cfg.replace(render=dataclasses.replace(
         cfg.render, which_blend_func="add"))
     assert not tr.march_takes_kernel(other, CUDA, train=False)

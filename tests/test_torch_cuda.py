@@ -150,6 +150,49 @@ def test_fused_march_kernel_matches_plain(dev, SR, C):
     assert bool((bgtr[20:40] <= 1e-10).all())
 
 
+@pytest.mark.parametrize("SR", [16, 80, 160])
+@pytest.mark.parametrize("C", [9, 16, 128])
+def test_fused_march_wide_kernel_matches_plain(dev, SR, C):
+    """The wide kernel (C > MAX_C: a warp per ray) against the plain march
+    bit for bit, R = 333 (not a multiple of the block's 4 rays), with
+    all-invalid rays and rays whose transmittance underflows; the launch
+    takes the wide route."""
+    _wide_kernel_matches_plain(dev, SR, C)
+
+
+@pytest.mark.parametrize("SR,C", [(2000, 8), (3000, 3)])
+def test_fused_march_wide_kernel_at_few_channels(dev, SR, C):
+    """C <= MAX_C with no tile of rays that fits in shared memory: the
+    launch takes the wide kernel, bit for bit the plain march."""
+    from pointnerf_tpu_torch.ops.fused_march import rays_per_block, route
+    assert rays_per_block(SR, C) == 0 and route(SR, C) == "wide"
+    _wide_kernel_matches_plain(dev, SR, C)
+
+
+def _wide_kernel_matches_plain(dev, SR, C):
+    from pointnerf_tpu_torch.ops.fused_march import (fused_march,
+                                                     fused_march_plain)
+    g = torch.Generator().manual_seed(SR * 1000 + C)
+    R = 333
+    dist = torch.rand((R, SR), generator=g) * 0.1
+    valid = torch.rand((R, SR), generator=g) > 0.3
+    feats = torch.randn((R, SR, C + 1), generator=g)
+    feats[..., 0] = feats[..., 0].abs() * 5
+    valid[:20] = False
+    feats[20:40, :, 0] = 2000.0
+    dist[20:40] = 0.05 + dist[20:40]
+    valid[20:40] = True
+    bg = torch.rand((C,), generator=g)
+    ins = [t.to(dev) for t in (dist, valid, feats, bg)]
+    before = dict(fused_march.launches_by_route)
+    outs = fused_march(*ins)
+    assert fused_march.launches_by_route["wide"] == before["wide"] + 1
+    assert fused_march.launches_by_route["tiled"] == before["tiled"]
+    for a, b in zip(outs, fused_march_plain(*ins)):
+        assert torch.equal(a, b)
+    assert bool((outs[2][:20] == 1.0).all())
+
+
 def test_fused_march_tile_of_four_rays(dev):
     """SR * (C + 2) too wide for an 8-ray tile: the launch takes 4 rays."""
     from pointnerf_tpu_torch.ops.fused_march import (fused_march,

@@ -42,7 +42,8 @@ def interpret_pallas(monkeypatch):
 
 
 @pytest.mark.parametrize("R,SR,C,seed", [(64, 16, 3, 0), (37, 80, 3, 1),
-                                         (5, 7, 4, 2)])
+                                         (5, 7, 4, 2), (19, 80, 16, 3),
+                                         (9, 33, 128, 4)])
 def test_fused_march_matches_pallas_kernel(interpret_pallas, R, SR, C, seed):
     from pointnerf_tpu.ops import pallas_march as pm
     ins = _inputs(R, SR, C, seed)
@@ -78,13 +79,14 @@ def test_fused_march_underflow_matches_pallas_kernel(interpret_pallas):
                                        (700, 8, 8), (1000, 8, 4),
                                        (2000, 8, 0)])
 def test_fused_march_rays_per_block(SR, C, rays):
-    """The kernel's tile of rays: 8 where the shared memory holds it, then
-    4; 0 (the wrapper raises) where no tile fits."""
+    """The tiled kernel's tile of rays: 8 where the shared memory holds
+    it, then 4; 0 where no tile fits (the march takes the wide kernel)."""
     from pointnerf_tpu_torch.ops.fused_march import (SMEM_BYTES,
                                                      TILE_RAYS,
-                                                     rays_per_block,
+                                                     rays_per_block, route,
                                                      smem_bytes)
     assert rays_per_block(SR, C) == rays
+    assert route(SR, C) == ("tiled" if rays else "wide")
     if rays:
         assert smem_bytes(rays, SR, C) <= SMEM_BYTES
     if rays != TILE_RAYS[0]:
