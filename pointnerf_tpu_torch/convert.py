@@ -43,7 +43,9 @@ def point_cloud_from_numpy(xyz, features, conf, color, dirs,
                            num_active: int, Rw2c: Optional[np.ndarray] = None,
                            device: DeviceLike = None):
     """PointCloud fields (already padded to capacity, as the JAX PointCloud
-    holds them) -> (PointCloud, PointCloudStatic) on `device`."""
+    holds them) -> (PointCloud, PointCloudStatic) on `device`. `Rw2c` is
+    the global [3, 3] rotation (identity if None) or an editing
+    composite's per-point [capacity, 3, 3]."""
     dev = resolve_device(device)
 
     def t(a):

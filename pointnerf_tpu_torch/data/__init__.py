@@ -1,14 +1,11 @@
 """Scene data for the PyTorch port (counterpart of `pointnerf_tpu/data/`):
 the dataset registry and its loaders. Datasets register by name; items are
-dicts of numpy arrays that the drivers turn into ray batches."""
+dicts of numpy arrays that the drivers turn into ray batches. Every loader
+of the JAX package is registered; frames are read as PNG, and a JPEG frame
+raises `not_ported` in the loader that meets it."""
 from __future__ import annotations
 
-from .. import not_ported
-
 DATASET_REGISTRY = {}
-# registered by the JAX package, not ported yet (ROADMAP Queue 1, datasets:
-# JPEG)
-NOT_PORTED = ("llff_ft", "scannet_ft")
 
 
 def register_dataset(name):
@@ -20,10 +17,9 @@ def register_dataset(name):
 
 def find_dataset_class_by_name(name: str):
     """The loader class registered as `name`."""
-    from . import dtu, dtu_ft, nerf_synth, nsvf, waymo  # noqa: F401
+    from . import (dtu, dtu_ft, llff, nerf_synth, nsvf, scannet,  # noqa: F401
+                   waymo)
     if name in DATASET_REGISTRY:
         return DATASET_REGISTRY[name]
-    if name in NOT_PORTED:
-        raise not_ported(f"the {name!r} dataset", "Queue 1, datasets")
     raise KeyError(f"dataset '{name}' not registered; "
                    f"have {sorted(DATASET_REGISTRY)}")

@@ -257,7 +257,9 @@ class AggOutput(NamedTuple):
 
 def _act(cfg: AggregatorConfig, x):
     if cfg.act_type == "LeakyReLU":
-        return torch.nn.functional.leaky_relu(x, 0.01)
+        # jax.nn.leaky_relu's form: slope 1 at exactly 0 (F.leaky_relu's
+        # is 0.01 there)
+        return torch.where(x >= 0, x, 0.01 * x)
     return torch.relu(x)
 
 
@@ -286,18 +288,20 @@ def aggregate(params: Dict, cfg: AggregatorConfig, sp: SampledPoints,
               compute_dtype=torch.float32) -> AggOutput:
     """Decode per-shading-point density + radiance from K neighbor payloads.
     sp.* [R, SR, K, *]; sample_loc/_w [R, SR, 3]; sample_ray_dirs [R, SR, 3];
-    Rw2c a global [3, 3] rotation or None."""
+    Rw2c a global [3, 3] rotation, per-neighbor rotations [R, SR, K, 3, 3]
+    (editing composites: each part keeps its training frame), or None."""
     _check_envelope(cfg)
-    if Rw2c is not None and Rw2c.dim() != 2:
-        raise not_ported("per-point rotations (editing)",
-                         "Queue 1, remaining modules: edit.py")
     R, SR, K = sp.mask.shape
     mask = sp.mask
     maskf = mask.to(compute_dtype)
     ray_valid = mask.any(-1)
     zero = torch.zeros((), device=mask.device)
+    per_point_rot = Rw2c is not None and Rw2c.dim() == 5
 
     def rot_local(v):
+        """World-frame rows back into the point frame: v @ Rw2c^T."""
+        if per_point_rot:
+            return torch.einsum("...c,...dc->...d", v, Rw2c.to(v.dtype))
         return v @ Rw2c.T.to(v.dtype)
 
     dists = compute_dists(cfg, sp, sample_loc, sample_loc_w, sample_ray_dirs)
@@ -309,12 +313,23 @@ def aggregate(params: Dict, cfg: AggregatorConfig, sp: SampledPoints,
                   else torch.ones_like(weight))
     w = (weight * conf_coeff)[..., None].to(compute_dtype)       # [R,SR,K,1]
 
-    viewdirs = sample_ray_dirs if Rw2c is None else rot_local(sample_ray_dirs)
+    viewdirs = sample_ray_dirs
+    if per_point_rot:
+        viewdirs = rot_local(viewdirs[..., None, :].expand(R, SR, K, 3))
+    elif Rw2c is not None:
+        viewdirs = rot_local(viewdirs)
     if cfg.num_viewdir_freqs > 0:
         vpe = positional_encoding(viewdirs, cfg.num_viewdir_freqs, ori=True)
         ori_viewdirs, viewdirs_pe = vpe[..., :3], vpe[..., 3:]
     else:
         ori_viewdirs, viewdirs_pe = viewdirs, viewdirs
+    if per_point_rot:
+        # the color head runs per shading point: the per-neighbor rotated
+        # view-direction PE is summed with the NORMALIZED weights, so one
+        # part at R = I gives the global path (JAX's documented deviation
+        # from the reference's broadcast)
+        wn = w / w.sum(-2, keepdim=True).clamp(min=1e-8)
+        viewdirs_pe = (viewdirs_pe * wn).sum(-2)
 
     dists_flat = dists
     if cfg.dist_xyz_deno != 0.0:
@@ -334,7 +349,8 @@ def aggregate(params: Dict, cfg: AggregatorConfig, sp: SampledPoints,
         sdir = torch.where(mask[..., None], sp.dirs, zero)
         if Rw2c is not None:
             sdir = rot_local(sdir)
-        ov = ori_viewdirs[..., None, :].expand(sdir.shape)
+        ov = (ori_viewdirs if per_point_rot
+              else ori_viewdirs[..., None, :].expand(sdir.shape))
         extras.append(sdir - ov)
         extras.append(torch.sum(sdir * ov, -1, keepdim=True))
 

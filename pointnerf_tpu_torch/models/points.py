@@ -35,7 +35,8 @@ class PointCloud(NamedTuple):
 
 class PointCloudStatic(NamedTuple):
     num_active: torch.Tensor  # [] int32
-    Rw2c: torch.Tensor        # [3, 3] global rotation
+    # [3, 3] global rotation, or [cap, 3, 3] per point (editing composites)
+    Rw2c: torch.Tensor
 
 
 def round_capacity(n: int, multiple: int = 4096) -> int:

@@ -1,8 +1,8 @@
 """Ray marching + render/blend/tonemap registries.
 
 Counterpart of `pointnerf_tpu/models/ray_march.py` (`ray_march`,
-`radiance_render`, `alpha_blend`, `RENDER_FUNCS`, `BLEND_FUNCS`,
-`TONEMAP_FUNCS`). This is the plain compositor; kernel K2
+`alpha_ray_march`, `radiance_render`, `alpha_blend`, `RENDER_FUNCS`,
+`BLEND_FUNCS`, `TONEMAP_FUNCS`). This is the plain compositor; kernel K2
 (`ops/fused_march.py`) computes the radiance/alpha case in one pass.
 """
 from __future__ import annotations
@@ -83,3 +83,18 @@ def ray_march(ray_dist, ray_valid, ray_features, render_func, blend_func,
     background_blend_weight = blend_func(1.0, background_transmission)
     return (ray_color, point_color, opacity, acc, blend_weight,
             background_transmission, background_blend_weight)
+
+
+def alpha_ray_march(ray_dist, ray_valid, ray_features, blend_func):
+    """The march's opacity and blend weights alone (no color): returns
+    (opacity, acc, blend_weight, background_transmission,
+    background_blend_weight)."""
+    sigma = ray_features[..., 0] * ray_valid.to(ray_features.dtype)
+    opacity = 1.0 - torch.exp(-sigma * ray_dist)
+    acc = torch.cumprod(1.0 - opacity + 1e-10, dim=-1)
+    background_transmission = acc[..., -1:]
+    acc = torch.cat([torch.ones_like(acc[..., :1]), acc[..., :-1]], -1)
+    blend_weight = blend_func(opacity, acc)[..., None]
+    background_blend_weight = blend_func(1.0, background_transmission)
+    return (opacity, acc, blend_weight, background_transmission,
+            background_blend_weight)

@@ -15,7 +15,8 @@ backward K4 inside `aggregate` (coarse and fine), K2 (fused march) for
 every serving march — `_finalize` of both passes and the hybrid's merged
 sequence; on the card they run wherever they compute the function,
 whatever the fused flags say (`aggregator.decode_takes_kernel`,
-`march_takes_kernel`).
+`march_takes_kernel`). An editing composite's per-point Rw2c is gathered
+per neighbor on every path (`neighbor_rot`) for the aggregator's rotations.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..config import (PointNeRFConfig, effective_ray_generator,
                       generator_kwargs)
 from ..ops.fused_march import fused_march
 from ..ops.grid import PointGrid
+from ..ops.knn_select import MAX_QP
 from ..ops.query import (_xla_cumprod, generate_shading_points, knn_query,
                          query_points, refine_ray_generation)
 from .aggregator import aggregate, decode_takes_kernel
@@ -139,11 +141,25 @@ def check_envelope(cfg: PointNeRFConfig, device: torch.device,
     """Raise before any work for a config the port does not implement: on
     CUDA one inside the fused envelope but past the port kernels' limits
     (`decode_takes_kernel`, `march_takes_kernel`; the fine pass and the
-    hybrid's merged march take the same kernels)."""
+    hybrid's merged march take the same kernels), or a KNN on K1's route
+    past its QP = 512 candidates."""
     decode_takes_kernel(cfg.agg, cfg.query.K,
                         cfg.train.compute_dtype == "bf16", device,
                         backward=train)
     march_takes_kernel(cfg, device, train)
+    check_knn_envelope(cfg.query, device)
+
+
+def check_knn_envelope(q, device: torch.device) -> None:
+    """On CUDA, refuse a query on K1's route (prebuilt tables, NN > 0, no
+    shell cut) whose table rows hold more than K1's MAX_QP candidates:
+    `refresh_grid` calls it before it builds the tables."""
+    qp = int(np.prod(q.kernel_size)) * q.P
+    if (device.type == "cuda" and q.prebuild_neighbors and q.NN > 0
+            and not q.shell_layered and qp > MAX_QP):
+        raise not_ported(f"the KNN select kernel at QP={qp} (kernel_size "
+                         f"{tuple(q.kernel_size)} x P={q.P})",
+                         "Queue 2, K1 at QP > 512")
 
 
 def compute_ray_dist(sample_loc_pers, ray_valid, vsize_z: float,
@@ -297,6 +313,15 @@ def conf_coeff_fill(cfg: PointNeRFConfig, pc: PointCloud):
             else 1.0)
 
 
+def neighbor_rot(Rw2c, pidx):
+    """A global [3, 3] Rw2c as it is; per-point rotations [N, 3, 3]
+    (editing composites) gathered per neighbor, [..., K, 3, 3] (an invalid
+    neighbor takes point 0's, and is masked downstream)."""
+    if Rw2c is None or Rw2c.dim() != 3:
+        return Rw2c
+    return Rw2c[pidx.clamp(min=0).long()]
+
+
 def decode_compacted(params: Dict, cfg: PointNeRFConfig, sp, cloc, cloc_w,
                      craydir, Rw2c, compute_dtype):
     """Aggregate a compact [C, 1, K] neighbor batch."""
@@ -335,8 +360,8 @@ def shade_compacted(params: Dict, cfg: PointNeRFConfig, pc: PointCloud,
     cloc = torch.where(cmask[:, None],
                        w2pers(cloc_w, batch.camrotc2w, batch.campos), zero)
     cloc_w = torch.where(cmask[:, None], cloc_w, zero)
-    agg = decode_compacted(params, cfg, sp, cloc, cloc_w, craydir, Rw2c,
-                           compute_dtype)
+    agg = decode_compacted(params, cfg, sp, cloc, cloc_w, craydir,
+                           neighbor_rot(Rw2c, cpidx), compute_dtype)
     features, weight, conf_coeff, ray_valid, final_mask = expand_compact_many(
         [(agg.features, 0.0), (agg.weight, 0.0),
          (agg.conf_coefficient, conf_coeff_fill(cfg, pc)),
@@ -369,9 +394,6 @@ def _shade_at(params, pc: PointCloud, st: PointCloudStatic, grid, batch,
               compute_dtype, train: bool = False) -> RenderOutput:
     """KNN + gather + shade at explicit world shading locations: compacted
     when decode_capacity > 0 and not probing, dense otherwise."""
-    if st.Rw2c.dim() == 3:
-        raise not_ported("per-point rotations (editing)",
-                         "Queue 1, remaining modules: edit.py")
     if cfg.query.decode_capacity > 0 and not prob:
         return shade_compacted(params, cfg, pc, grid, sample_loc_w,
                                sample_mask, batch, st.Rw2c,
@@ -383,8 +405,9 @@ def _shade_at(params, pc: PointCloud, st: PointCloudStatic, grid, batch,
                                torch.zeros((), device=sample_loc_w.device))
     sp, sample_loc, dirs = _dense_inputs(pc, batch, sample_pidx, sample_loc_w,
                                          sample_mask, cfg.query.gather_bwd)
-    out = shade(params, cfg, sp, sample_loc, sample_loc_w, dirs, st.Rw2c,
-                prob=prob, compute_dtype=compute_dtype, train=train)
+    out = shade(params, cfg, sp, sample_loc, sample_loc_w, dirs,
+                neighbor_rot(st.Rw2c, sample_pidx), prob=prob,
+                compute_dtype=compute_dtype, train=train)
     return out._replace(neighbor_pidx=sample_pidx)
 
 
@@ -431,8 +454,8 @@ def render_rays(params: Dict, pc: PointCloud, st: PointCloudStatic,
                                              q.sample_loc_w, q.sample_mask,
                                              cfg.query.gather_bwd)
         out = shade(params, cfg, sp, sample_loc, q.sample_loc_w, dirs,
-                    st.Rw2c, prob=prob, compute_dtype=compute_dtype,
-                    train=train)
+                    neighbor_rot(st.Rw2c, q.sample_pidx), prob=prob,
+                    compute_dtype=compute_dtype, train=train)
         out = out._replace(neighbor_pidx=q.sample_pidx)
     gen = generator if train else None
     if cfg.render.fine_sample_num > 0:

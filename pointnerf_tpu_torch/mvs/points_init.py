@@ -23,7 +23,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from .. import DeviceLike, resolve_device
 from ..ops.sample2d import bilinear_sample
@@ -115,7 +114,8 @@ class MvsPointsInit(nn.Module):
             for i, lyr in enumerate(self.premlp):
                 x = lyr(x)
                 if i < len(self.premlp) - 1:
-                    x = F.leaky_relu(x, 0.01)
+                    # flax's nn.leaky_relu: slope 1 at exactly 0
+                    x = torch.where(x >= 0, x, 0.01 * x)
             embedding = x
         else:
             embedding = feat_cat

@@ -29,6 +29,7 @@ DEAD = 1.0e7
 # slots per block of the kernel's run path (csrc/knn_select.cu kSlots)
 SLOTS_PER_BLOCK = 64
 ROUTES = ("runs", "warp")
+MAX_QP = 512           # candidates a slot's table row may hold
 
 
 def route_for(K: int) -> int:
@@ -85,9 +86,9 @@ def _check(nbr_xyz, nbr_pid, dslot, centers, ok, K):
             raise ValueError(
                 f"knn_select: {name} must be a contiguous {dt} {shape} tensor "
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 0 < K <= QP or QP > 512:
-        raise ValueError(f"knn_select: needs 0 < K <= QP <= 512, got K={K} "
-                         f"QP={QP}")
+    if not 0 < K <= QP or QP > MAX_QP:
+        raise ValueError(f"knn_select: needs 0 < K <= QP <= {MAX_QP}, got "
+                         f"K={K} QP={QP}")
 
 
 def knn_select(nbr_xyz, nbr_pid, dslot, centers, ok, K: int, r2: float):

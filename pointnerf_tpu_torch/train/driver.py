@@ -2,9 +2,11 @@
 
 Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
 `init_mlp_params`, `evaluate`, `train_scene`, `mvs_init_cloud`,
-`train_dataset_scene`, `test_dataset_scene`, `demo`, `ff_demo`,
+`train_dataset_scene`, `test_dataset_scene`, `render_video`,
+`render_video_from_checkpoint`, `demo`, `ff_demo`,
 `train_feedforward_dataset`, `n2d_demo` and `main` (`--demo`,
-`--dataset`, `--test`, `--ff-demo`, `--ff-dataset`, `--n2d-demo`).
+`--dataset`, `--test`, `--video`, `--ff-demo`, `--ff-dataset`,
+`--n2d-demo`).
 One process, no restart loop: prune and grow change the cloud in place
 (`train/grow.py`) and the Adam state is carried through. The schedule:
 
@@ -21,7 +23,7 @@ device, `cuda` unless the caller asks for the CPU.
 
     python -m pointnerf_tpu_torch.train.driver --demo [--device cpu]
     python -m pointnerf_tpu_torch.train.driver --dataset nerf_synth360_ft \
-        --data-root DIR --scan NAME [--test] [--device cpu]
+        --data-root DIR --scan NAME [--test | --video] [--device cpu]
 
 (`--dataset` also takes tt_ft / nsvf — an NSVF scene directory —,
 waymo_ft — a `<scan>.npz` bundle of `data/waymo_export.frames_to_npz` — and
@@ -499,6 +501,81 @@ def train_dataset_scene(dataset_name: str, data_root: str, scan: str,
                        device=dev)
 
 
+def _restore_latest(train_ds, run_dir: str,
+                    cfg: Optional[PointNeRFConfig], mvs_init_kwargs, dev):
+    """The latest checkpoint under `run_dir` of a scene trained by
+    train_dataset_scene: (state, st, grid, cfg). The init cloud (for the
+    config and the template the checkpoint fills) comes as there, MVS
+    included; the template is built at the checkpoint's capacity (growth
+    may have re-bucketed the cloud, a downsample shrunk it)."""
+    cloud = _init_cloud(train_ds, mvs_init_kwargs, dev)
+    if cfg is None:
+        cfg = scene_config(cloud["xyz"], near=float(train_ds.near),
+                           far=float(train_ds.far))
+    path = latest_checkpoint(run_dir)
+    if path is None:
+        raise SystemExit(f"no checkpoint under {run_dir}")
+    cap = checkpoint_meta(path).get("capacity")
+    n = cloud["xyz"].shape[0] if cap is None else min(cap,
+                                                      cloud["xyz"].shape[0])
+    pc, st = make_point_cloud(cloud["xyz"][:n], torch.Generator().manual_seed(
+        cfg.train.seed), cfg.points, cfg.agg.point_features_dim,
+        capacity=cap, device=dev)
+    params = init_mlp_params(torch.Generator().manual_seed(
+        cfg.train.seed + 1), cfg, device=dev)
+    state = create_train_state(torch.Generator(device=dev), params, pc, cfg)
+    state, meta = load_checkpoint(path, state)
+    if meta.get("num_active") is not None:
+        st = st._replace(num_active=torch.tensor(
+            meta["num_active"], dtype=torch.int32, device=dev))
+    grid, _ = refresh_grid(state.params["points"], st, cfg)
+    return state, st, grid, cfg
+
+
+def render_video(params, st, grid, cfg: PointNeRFConfig, items: List[Dict],
+                 wh: Tuple[int, int], run_dir: str, name: str = "spiral",
+                 fps: int = 24, container: Optional[str] = None) -> str:
+    """Render a pose sequence (full frames through `render_full_frame`:
+    K3 and K2 on the card) and write it with `Visualizer.gen_video`: a
+    directory of numbered PNG frames, or a `container` file ("mp4",
+    "gif") where imageio is installed. Returns its path."""
+    vis = Visualizer(run_dir, name=name)
+    frames = []
+    for item in items:
+        maps = render_full_frame(params, st, grid, cfg, item, wh,
+                                 chunk=9216 if wh[0] * wh[1] >= 9216 else 2304,
+                                 prob=False)
+        frames.append(np.clip(maps["coarse_raycolor"][..., :3], 0, 1))
+    return vis.gen_video(frames, name=name, fps=fps, container=container)
+
+
+def render_video_from_checkpoint(dataset_name: str, data_root: str,
+                                 scan: str, run_dir: str,
+                                 cfg: Optional[PointNeRFConfig] = None,
+                                 n_frames: int = 40, fps: int = 12,
+                                 container: Optional[str] = None,
+                                 mvs_init_kwargs: Optional[Dict] = None,
+                                 device: DeviceLike = None) -> str:
+    """A spiral video of the latest checkpoint under `run_dir`: frame i of
+    n_frames is the dataset's `get_dummyrot_item(i, n_frames)` (nerf_synth
+    and dtu_ft have one). Returns render_video's path."""
+    dev = resolve_device(device)
+    dcfg = DataConfig(dataset_name=dataset_name, data_root=data_root,
+                      scan=scan)
+    ds = find_dataset_class_by_name(dataset_name)(dcfg, split="train")
+    if not hasattr(ds, "get_dummyrot_item"):
+        raise SystemExit(f"{dataset_name} has no spiral render path")
+    state, st, grid, cfg = _restore_latest(ds, run_dir, cfg,
+                                           mvs_init_kwargs, dev)
+    items = [ds.get_dummyrot_item(i, n_frames=n_frames)
+             for i in range(n_frames)]
+    out = render_video(state.params, st, grid, cfg, items,
+                       (ds.width, ds.height), run_dir, fps=fps,
+                       container=container)
+    print("video:", out)
+    return out
+
+
 def test_dataset_scene(dataset_name: str, data_root: str, scan: str,
                        run_dir: str, cfg: Optional[PointNeRFConfig] = None,
                        save_images: bool = True,
@@ -515,29 +592,8 @@ def test_dataset_scene(dataset_name: str, data_root: str, scan: str,
     cls = find_dataset_class_by_name(dataset_name)
     train_ds = cls(dcfg, split="train")
     test_ds = cls(dcfg, split="test")
-    cloud = _init_cloud(train_ds, mvs_init_kwargs, dev)
-    if cfg is None:
-        cfg = scene_config(cloud["xyz"], near=float(train_ds.near),
-                           far=float(train_ds.far))
-    path = latest_checkpoint(run_dir)
-    if path is None:
-        raise SystemExit(f"no checkpoint under {run_dir}")
-    # a template at the checkpoint's capacity (growth may have re-bucketed
-    # the cloud, a downsample shrunk it); the checkpoint fills it
-    cap = checkpoint_meta(path).get("capacity")
-    n = cloud["xyz"].shape[0] if cap is None else min(cap,
-                                                      cloud["xyz"].shape[0])
-    pc, st = make_point_cloud(cloud["xyz"][:n], torch.Generator().manual_seed(
-        cfg.train.seed), cfg.points, cfg.agg.point_features_dim,
-        capacity=cap, device=dev)
-    params = init_mlp_params(torch.Generator().manual_seed(
-        cfg.train.seed + 1), cfg, device=dev)
-    state = create_train_state(torch.Generator(device=dev), params, pc, cfg)
-    state, meta = load_checkpoint(path, state)
-    if meta.get("num_active") is not None:
-        st = st._replace(num_active=torch.tensor(
-            meta["num_active"], dtype=torch.int32, device=dev))
-    grid, _ = refresh_grid(state.params["points"], st, cfg)
+    state, st, grid, cfg = _restore_latest(train_ds, run_dir, cfg,
+                                           mvs_init_kwargs, dev)
     vis = Visualizer(run_dir, name="test")
     items = [test_ds.get_item(i) for i in range(len(test_ds))]
     m = evaluate(state.params, st, grid, cfg, items,
@@ -674,12 +730,15 @@ def main():
                     help="per-scene training on a dataset on disk: its "
                          "registered name (nerf_synth360_ft, "
                          "nerf_synth_ft, tt_ft, nsvf, waymo_ft, dtu, "
-                         "dtu_ft)")
+                         "dtu_ft, llff_ft, scannet_ft)")
     ap.add_argument("--data-root", default="")
     ap.add_argument("--scan", default="lego")
     ap.add_argument("--test", action="store_true",
                     help="evaluate the latest checkpoint on the test split "
                          "(with --dataset/--data-root/--scan)")
+    ap.add_argument("--video", action="store_true",
+                    help="render a spiral video (PNG frames) from the latest "
+                         "checkpoint (with --dataset/--data-root/--scan)")
     ap.add_argument("--ff-demo", action="store_true",
                     help="feed-forward (MVS generalization) demo")
     ap.add_argument("--ff-dataset", action="store_true",
@@ -691,7 +750,10 @@ def main():
     ap.add_argument("--run-dir", default="runs/demo")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args()
-    if args.ff_dataset:
+    if args.dataset and args.video:
+        render_video_from_checkpoint(args.dataset, args.data_root, args.scan,
+                                     run_dir=args.run_dir, device=args.device)
+    elif args.ff_dataset:
         train_feedforward_dataset(args.data_root, args.scan,
                                   run_dir=args.run_dir, max_steps=args.steps,
                                   device=args.device)

@@ -17,7 +17,8 @@ import torch
 from ..config import PointNeRFConfig, hits_tracked
 from ..models.losses import compute_losses, mse2psnr
 from ..models.points import PointCloud, PointCloudStatic
-from ..models.renderer import RayBatch, RenderOutput, render_rays
+from ..models.renderer import (RayBatch, RenderOutput, check_knn_envelope,
+                               render_rays)
 from ..ops.grid import PointGrid, build_grid
 from .optim import (AdamState, alternated_update, apply_grad_flags,
                     freeze_points, hit_boost, init_optimizer, tree_leaves,
@@ -178,7 +179,9 @@ def refresh_grid(pc: PointCloud, st: PointCloudStatic, cfg: PointNeRFConfig,
     table capacity, the grid is rebuilt with max_d auto-sized to 1.25x that
     count (rounded up to 4096) — never silently truncated. The max_d used is
     handed back; pass it as `max_d` to later refreshes so they build once
-    (the JAX version rebuilds twice on every refresh past the envelope)."""
+    (the JAX version rebuilds twice on every refresh past the envelope).
+    On the card a query past K1's limits is refused before the build."""
+    check_knn_envelope(cfg.query, pc.xyz.device)
     q = cfg.query if max_d is None else dataclasses.replace(cfg.query,
                                                             max_d=max_d)
     grid = build_grid(pc.xyz, st.num_active, q)

@@ -2,10 +2,11 @@
 dumps, optional tensorboardX.
 
 Counterpart of `pointnerf_tpu/utils/visualizer.py` (`to8b`, `Visualizer`
-without `gen_video`). Losses may be device tensors: they are held as they
+with `gen_video`). Losses may be device tensors: they are held as they
 are and read back once per print. PNG files are written (`write_png`) and
-read (`read_png`) with the standard library (zlib + struct), so no image
-package is needed.
+read (`read_png`, 8- and 16-bit) with the standard library (zlib + struct),
+so no image package is needed. A video is a directory of numbered PNG
+frames unless the caller asks for a container, which needs imageio.
 """
 from __future__ import annotations
 
@@ -23,24 +24,44 @@ def to8b(x: np.ndarray) -> np.ndarray:
     return (255 * np.clip(x, 0, 1)).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """An [H, W] or [H, W, 1|2|3|4] uint8 array (grey, grey+alpha, RGB,
-    RGBA) as a PNG file (filter type 0 on every row, one zlib stream)."""
+def _paeth(a, b, c):
+    """The PNG Paeth predictor of left `a`, upper `b` and upper-left `c`
+    (int arrays): whichever is nearest a + b - c, ties to a, then b."""
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def write_png(path: str, img: np.ndarray, filters=(0,)) -> None:
+    """An [H, W] or [H, W, 1|2|3|4] uint8 (8-bit) or uint16 (16-bit) array
+    (grey, grey+alpha, RGB, RGBA) as a PNG file, one zlib stream. Row r is
+    stored with filter type filters[r % len(filters)] (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth; default 0 on every row)."""
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(img, np.uint8).reshape(h, -1)],
-                          axis=1)
+    depth = 16 if img.dtype == np.uint16 else 8
+    data = (np.ascontiguousarray(img, ">u2").view(np.uint8) if depth == 16
+            else np.ascontiguousarray(img, np.uint8)).reshape(h, -1)
+    ft = np.asarray(filters, np.uint8)[np.arange(h) % len(filters)]
+    if ft.any():
+        nb = c * depth // 8        # bytes a pixel: the filters' stride
+        x = data.astype(np.int16)
+        up = np.concatenate([np.zeros_like(x[:1]), x[:-1]])
+        left = np.pad(x, ((0, 0), (nb, 0)))[:, :-nb]
+        ul = np.pad(up, ((0, 0), (nb, 0)))[:, :-nb]
+        pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1,
+                         _paeth(left, up, ul)])[ft, np.arange(h)]
+        data = ((x - pred) & 255).astype(np.uint8)
+    rows = np.concatenate([ft[:, None], data], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
-                                           0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                           color_type, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
 
@@ -50,34 +71,47 @@ _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # color type -> channels
 
 def _unfilter(raw: np.ndarray, H: int, W: int, c: int) -> np.ndarray:
     """Undo the PNG row filters (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
-    of [H, 1 + W*c] scanlines. Each byte depends on its left, upper and
-    upper-left neighbors, so pixels are reconstructed one anti-diagonal at
-    a time (H + W - 1 vectorized steps), each pixel by its row's filter."""
-    ftype = raw[:, 0].astype(np.int32)
+    of [H, 1 + W*c] scanlines, c bytes a pixel. None, Sub and Up rows are
+    undone a row at a time (Sub as a running sum along the row, mod 256).
+    Average and Paeth read the reconstructed left, upper and upper-left
+    bytes, so an image with such rows is undone one anti-diagonal at a
+    time: the rows are skewed so that anti-diagonal j is the slice T[j]
+    (row r's pixel x at j = x + r + 2, row 0 of T the zeros above the
+    image), H + W - 1 vectorized steps, each pixel by its row's filter."""
+    ftype = raw[:, 0]
     if ftype.max(initial=0) > 4:
         raise ValueError(f"PNG: unknown filter type {ftype.max()}")
-    filt = raw[:, 1:].reshape(H, W, c).astype(np.int32)
-    if not ftype.any():
-        return filt.astype(np.uint8)
-    out = np.zeros((H + 1, W + 1, c), np.int32)   # zero row above, column left
-    for d in range(H + W - 1):
-        r = np.arange(max(0, d - W + 1), min(H, d + 1))
-        col = d - r
-        a, b, ul = out[r + 1, col], out[r, col + 1], out[r, col]
-        p = a + b - ul
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
-        ft = ftype[r][:, None]
-        pred = np.where(ft == 1, a, np.where(ft == 2, b, np.where(
-            ft == 3, (a + b) >> 1, np.where(ft == 4, paeth, 0))))
-        out[r + 1, col + 1] = (filt[r, col] + pred) & 255
-    return out[1:, 1:].astype(np.uint8)
+    filt = raw[:, 1:].reshape(H, W, c)
+    if ftype.max(initial=0) <= 2:
+        out = np.empty_like(filt)
+        prev = np.zeros_like(filt[0])
+        for r in range(H):
+            if ftype[r] == 1:
+                prev = np.cumsum(filt[r], axis=0, dtype=np.uint8)
+            else:
+                prev = filt[r] + prev if ftype[r] == 2 else filt[r]
+            out[r] = prev
+        return out
+    T = np.zeros((H + W + 1, H + 1, c), np.int16)
+    F = np.zeros((H + W + 1, H, c), np.int16)
+    for r in range(H):
+        F[r + 2:r + 2 + W, r] = filt[r]
+    ft = ftype[:, None]
+    sub, up, avg, pae = ft == 1, ft == 2, ft == 3, ft == 4
+    for j in range(2, H + W + 1):
+        a, b, ul = T[j - 1, 1:], T[j - 1, :-1], T[j - 2, :-1]
+        pred = np.where(sub, a, np.where(up, b, np.where(
+            avg, (a + b) >> 1, np.where(pae, _paeth(a, b, ul), 0))))
+        T[j, 1:] = (F[j] + pred) & 255
+    return np.stack([T[r + 2:r + 2 + W, r + 1] for r in range(H)]
+                    ).astype(np.uint8)
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced grey, grey+alpha, RGB or RGBA PNG file as a
-    uint8 array: [H, W] for grey, else [H, W, 2|3|4] (the layout imageio
-    returns). Anything else raises. Standard library only (zlib)."""
+    """An 8- or 16-bit, non-interlaced grey, grey+alpha, RGB or RGBA PNG
+    file as a uint8 (uint16) array: [H, W] for grey, else [H, W, 2|3|4]
+    (the layout imageio returns). Anything else raises. Standard library
+    only (zlib)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -96,16 +130,21 @@ def read_png(path: str) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, ctype, _comp, _filt, interlace = ihdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey, grey+"
-                         f"alpha, RGB and RGBA are read (bit depth {depth}, "
-                         f"color type {ctype}, interlace {interlace})")
+    if depth not in (8, 16) or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8- and 16-bit non-interlaced grey, "
+                         f"grey+alpha, RGB and RGBA are read (bit depth "
+                         f"{depth}, color type {ctype}, interlace "
+                         f"{interlace})")
     c = _PNG_CHANNELS[ctype]
+    nb = c * depth // 8            # bytes a pixel: the filters' stride
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != H * (1 + W * c):
+    if raw.size != H * (1 + W * nb):
         raise ValueError(f"{path}: {raw.size} bytes of scanlines for "
-                         f"{W}x{H}x{c}")
-    img = _unfilter(raw.reshape(H, 1 + W * c), H, W, c)
+                         f"{W}x{H}x{c} at {depth} bits")
+    img = _unfilter(raw.reshape(H, 1 + W * nb), H, W, nb)
+    if depth == 16:                # big-endian samples
+        img = img.reshape(H, W, c, 2).astype(np.uint16)
+        img = (img[..., 0] << 8) | img[..., 1]
     return img[..., 0] if c == 1 else img
 
 
@@ -185,6 +224,29 @@ class Visualizer:
         with open(path, "w") as f:
             for r in rows:
                 f.write(";".join(f"{v:.6f}" for v in r) + "\n")
+        return path
+
+    def gen_video(self, frames, name: str = "video", fps: int = 24,
+                  container: Optional[str] = None) -> str:
+        """Write `frames` ([H, W, 3] floats in [0, 1]) as numbered PNG files
+        `<run_dir>/<name>/frame_00000.png`, ... and return that directory.
+        With `container` ("mp4" or "gif") the frames are also encoded into
+        `<run_dir>/<name>.<container>` by imageio, and that path is
+        returned; a host without imageio raises."""
+        d = os.path.join(self.run_dir, name)
+        os.makedirs(d, exist_ok=True)
+        for i, f in enumerate(frames):
+            write_png(os.path.join(d, f"frame_{i:05d}.png"), to8b(f))
+        if container is None:
+            return d
+        try:
+            import imageio.v2 as imageio
+        except ImportError as e:
+            raise RuntimeError(f"a {container} video needs imageio, which "
+                               "this host lacks; the frames are in " + d) \
+                from e
+        path = os.path.join(self.run_dir, f"{name}.{container}")
+        imageio.mimwrite(path, [to8b(f) for f in frames], fps=fps)
         return path
 
     def save_options(self, cfg_json: str):

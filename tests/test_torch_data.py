@@ -114,10 +114,12 @@ def test_read_png_equals_imageio(tmp_path):
 def test_read_png_refuses_other_formats(tmp_path):
     import imageio.v2 as imageio
     from pointnerf_tpu_torch.utils.visualizer import read_png
-    p16 = str(tmp_path / "d16.png")
-    imageio.imwrite(p16, (np.arange(40).reshape(5, 8) * 1000).astype(np.uint16))
-    with pytest.raises(ValueError, match="8-bit"):
-        read_png(p16)
+    p4 = str(tmp_path / "d4.png")       # 4-bit grey: neither 8 nor 16 bits
+    with open(p4, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(
+            b"IHDR", struct.pack(">IIBBBBB", 8, 5, 4, 0, 0, 0, 0)))
+    with pytest.raises(ValueError, match="8- and 16-bit"):
+        read_png(p4)
     jpg = str(tmp_path / "x.jpg")
     imageio.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match="not a PNG"):
@@ -237,7 +239,6 @@ def test_scene_config_and_presets_equal_jax():
 
 
 def test_dataset_registry():
-    from pointnerf_tpu_torch import SliceNotPorted
     from pointnerf_tpu_torch.data import find_dataset_class_by_name
     from pointnerf_tpu_torch.data.nerf_synth import NerfSynthDataset
     for name in ("nerf_synth360_ft", "nerf_synth_ft"):
@@ -251,9 +252,10 @@ def test_dataset_registry():
     from pointnerf_tpu_torch.data.dtu_ft import DtuFtDataset
     assert find_dataset_class_by_name("dtu") is DtuDataset
     assert find_dataset_class_by_name("dtu_ft") is DtuFtDataset
-    for name in ("llff_ft", "scannet_ft"):
-        with pytest.raises(SliceNotPorted, match="Queue 1, datasets"):
-            find_dataset_class_by_name(name)
+    from pointnerf_tpu_torch.data.llff import LlffDataset
+    from pointnerf_tpu_torch.data.scannet import ScannetDataset
+    assert find_dataset_class_by_name("llff_ft") is LlffDataset
+    assert find_dataset_class_by_name("scannet_ft") is ScannetDataset
     with pytest.raises(KeyError):
         find_dataset_class_by_name("nope")
 

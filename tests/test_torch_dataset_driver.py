@@ -19,6 +19,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 import pointnerf_tpu.config as jcfg
 import pointnerf_tpu.data.nerf_synth as jns
@@ -160,3 +161,46 @@ def test_dataset_cli_trains_then_tests(scene, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "[test] step 3: psnr=" in out and "over 3 frames" in out
     assert "ckpt_00000003" in os.listdir(scene / "cli")
+
+
+def test_render_video_from_checkpoint(scene, monkeypatch, capsys):
+    """`--video` renders the spiral path from the latest checkpoint into
+    numbered PNG frames, each equal (after to8b) to render_full_frame of the
+    restored state at that pose; a container without imageio raises."""
+    from pointnerf_tpu_torch.data import find_dataset_class_by_name
+    from pointnerf_tpu_torch.train.grow import render_full_frame
+    from pointnerf_tpu_torch.utils.visualizer import Visualizer, read_png, to8b
+    pcfg = tcfg.PointNeRFConfig.from_json(_tiny_cfg().to_json())
+    run = str(scene / "vid")
+    td.train_dataset_scene("nerf_synth360_ft", str(scene), "lego",
+                           run_dir=run, max_steps=2, cfg=pcfg, resume=False,
+                           device="cpu")
+    out = td.render_video_from_checkpoint(
+        "nerf_synth360_ft", str(scene), "lego", run, cfg=pcfg, n_frames=3,
+        device="cpu")
+    assert sorted(os.listdir(out)) == [f"frame_{i:05d}.png" for i in range(3)]
+    ds = find_dataset_class_by_name("nerf_synth360_ft")(
+        td.DataConfig(data_root=str(scene), scan="lego"), split="train")
+    state, st, grid, _c = td._restore_latest(ds, run, pcfg, None,
+                                             torch.device("cpu"))
+    for i in (0, 2):
+        maps = render_full_frame(state.params, st, grid, pcfg,
+                                 ds.get_dummyrot_item(i, n_frames=3), WH,
+                                 chunk=2304, prob=False)
+        want = to8b(np.clip(maps["coarse_raycolor"][..., :3], 0, 1))
+        np.testing.assert_array_equal(
+            read_png(os.path.join(out, f"frame_{i:05d}.png")), want)
+    monkeypatch.setattr(sys, "argv", [
+        "driver", "--dataset", "nerf_synth360_ft", "--data-root", str(scene),
+        "--scan", "lego", "--run-dir", run, "--video", "--device", "cpu"])
+    calls = []
+    monkeypatch.setattr(td, "render_video_from_checkpoint",
+                        lambda *a, **k: calls.append((a, k)))
+    td.main()
+    assert calls == [(("nerf_synth360_ft", str(scene), "lego"),
+                      {"run_dir": run, "device": "cpu"})]
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    with pytest.raises(RuntimeError, match="needs imageio"):
+        Visualizer(run).gen_video([np.zeros((4, 4, 3))], "v", container="mp4")
+    capsys.readouterr()

@@ -370,3 +370,33 @@ def test_visualizer_matches_jax(tmp_path, capsys):
     for f in ("points/pts.txt", "opt.json"):
         with open(tmp_path / "t" / f) as a, open(tmp_path / "j" / f) as b:
             assert a.read() == b.read()
+
+
+def test_profiling_on_the_cpu(tmp_path):
+    """utils/profiling: StepTimer reports as JAX's does (mean_ms, total_s,
+    count per section); device_trace writes a Chrome trace that names the
+    annotated range and the ops run inside it."""
+    import json as _json
+    import time as _time
+    from pointnerf_tpu.utils.profiling import StepTimer as JTimer
+    from pointnerf_tpu_torch.utils.profiling import (StepTimer, annotate,
+                                                     device_trace)
+    timer, jtimer = StepTimer(torch.device("cpu")), JTimer()
+    for t in (timer, jtimer):
+        for _ in range(3):
+            with t.section("a"):
+                _time.sleep(0.002)
+        t.time_fn("b", lambda: torch.ones(3) * 2)
+    rep, jrep = timer.report(), jtimer.report()
+    assert {k: set(v) for k, v in rep.items()} == \
+        {k: set(v) for k, v in jrep.items()}
+    assert rep["a"]["count"] == 3 and rep["b"]["count"] == 1
+    assert rep["a"]["mean_ms"] >= 2.0
+    assert abs(rep["a"]["total_s"] * 1000 / 3 - rep["a"]["mean_ms"]) < 1e-9
+    with device_trace(str(tmp_path), name="t") as prof:
+        with annotate("my_section"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    names = {e.get("name") for e in _json.load(
+        open(tmp_path / "t.pt.trace.json"))["traceEvents"]}
+    assert "my_section" in names and "aten::mm" in names
+    assert any(e.key == "aten::mm" for e in prof.key_averages())

@@ -42,6 +42,9 @@ MODULES = [
     "pointnerf_tpu_torch.models.neural_render",
     "pointnerf_tpu_torch.train.neural2d",
     "pointnerf_tpu_torch.models.registry",
+    "pointnerf_tpu_torch.train.torch_import", "pointnerf_tpu_torch.edit",
+    "pointnerf_tpu_torch.data.llff", "pointnerf_tpu_torch.data.scannet",
+    "pointnerf_tpu_torch.utils.profiling", "pointnerf_tpu_torch.models",
 ]
 
 

@@ -127,3 +127,19 @@ def test_fused_march_checks_inputs():
         fused_march(dist, valid.float(), feats, bg)
     with pytest.raises(ValueError, match="feats"):
         fused_march(dist, valid, feats[:2].contiguous(), bg)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_alpha_ray_march_matches_jax(seed):
+    from pointnerf_tpu.models.ray_march import alpha_ray_march as j_arm
+    dist, valid, feats, _bg = _inputs(R=37, SR=24, seed=seed)
+    ref = j_arm(jnp.asarray(dist), jnp.asarray(valid > 0.5),
+                jnp.asarray(feats), j_alpha_blend)
+    got = tm.alpha_ray_march(*_torch(dist, valid, feats, _bg)[:3],
+                             tm.alpha_blend)
+    assert len(got) == len(ref) == 5
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=TOL,
+                                   atol=TOL)
+    from pointnerf_tpu_torch.models import alpha_ray_march
+    assert alpha_ray_march is tm.alpha_ray_march
