@@ -5,7 +5,7 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the six kernel sources of pointnerf_tpu_torch/csrc (one nvcc
+  2. build the eight kernel sources of pointnerf_tpu_torch/csrc (one nvcc
      per source, in parallel) and print the build time and ptxas summary:
      K1, K2, and K3 and K4 on two routes each — bf16 on the tensor-core
      kernels (fused_decode_tc.cu, fused_decode_bwd_tc.cu), f32 on the
@@ -287,20 +287,47 @@ Phases:
      build/trace) of one serving request, which must name K1's, K3's and
      K2's kernels; a StepTimer's sections of another request sum to within
      its host clock;
- 30. the kernels JSON line (one row per kernel of a source: K2 has a row
+ 30. the whole aggregator, on phase 3's scene at bench_config width:
+     (a) each of the ten distance-kernel settings (quadric, numlinear,
+     numquadric, avg, trilinear, sh_intrp, feat_intrp, meta_intrp,
+     gau_intrp, and linear with axis weight (1, 2, 1)) serves one
+     3,600-ray request and takes one train step, each launching K3 (and
+     K4) once on the tensor-core route (trilinear with the KNN radius cut
+     to one voxel, AGG_QUERY); (b) each layout outside the fused envelope
+     (agg_intrp_order 0 and 1, block2, block2 with the feat xyz hook, the
+     alpha and color xyz hooks, a 2-layer alpha head, block3 absent) the
+     same, launching K1 and K2 and no decode kernel; for each of (a) and
+     (b) a 512-ray request card vs CPU, integers equal and the colors of
+     the rays that hit held on their mean error: at most AGG_COLOR_SHARE
+     of the control's (the CPU with an f32 decode), the largest printed
+     beside phase 5's bar; (c) bench_config with H = 512 and with K = 6, past
+     the tuned kernels' limits: 4 requests and 3 + 5 train steps, each
+     launching the general K3 (and K4) once, the general K3 held against
+     its plain version on a recorded request and the general K4 on a
+     recorded step from the fresh and from the trained state, in bf16 and
+     in f32 (f32 within 2e-4 of scale; K3 bf16 as phase 3 holds K3; K4
+     bf16 on its mean, control the f32 plain version, and on its largest
+     errors — row gradients per tile at GENERAL_K4_BF16_TILE_TOL, dW / db
+     at GENERAL_K4_BF16_DW_TOL, control a live tile left out), two K4 calls
+     bit-equal in each rounding, with times and bounds. The counts are
+     set to 0 just before each setting's counted serve and steps and read
+     just after; the card-vs-CPU requests and the captures of the kernel
+     checks' inputs run outside those windows;
+ 31. the kernels JSON line (one row per kernel of a source: K2 has a row
      for its tiled kernel and one for its wide kernel, K3 and K4 a
-     tensor-core row and a CUDA-core row, counted by route on every path,
-     where each path's K2 launches all take one kernel, the tiled one at
-     C = 3 and the wide one at C = 128; launches per
+     tensor-core row, a CUDA-core row and a general row, counted by route
+     on every path, where each path's K2 launches all take one kernel, the
+     tiled one at C = 3 and the wide one at C = 128; launches per
      path: serve, train, maintenance, dataset, flags_off, hybrid (phases
      14-16), loaders, mvs (phases 21-22), n2d (phase 23), import, edit,
-     scannet, llff, video (phases 24-28); each kernel's
-     numbers on the maintenance path's probe and eval chunks, on the
-     flags-off path's train step and request, at the hybrid's and the fine
-     pass's shapes, on the feed-forward step and the dtu_ft eval chunk,
-     on the neural2d step and the feature requests, and on the import and
-     edit requests, the scannet step and eval chunk, the llff step and
-     eval chunk and the video chunk), the card line, and the final status
+     scannet, llff, video (phases 24-28), whole_agg (phase 30); each
+     kernel's numbers on the maintenance path's probe and eval chunks, on
+     the flags-off path's train step and request, at the hybrid's and the
+     fine pass's shapes, on the feed-forward step and the dtu_ft eval
+     chunk, on the neural2d step and the feature requests, and on the
+     import and edit requests, the scannet step and eval chunk, the llff
+     step and eval chunk and the video chunk; the general rows at H = 512
+     and beside them K = 6 and f32), the card line, and the final status
      line.
 
 Each bf16 bar is also held against a control: the same comparison with the
@@ -311,8 +338,9 @@ bf16 are held there on the mean error (mean |kernel - plain| / mean
 so the largest error of a sound kernel is of the control's order. Their
 largest error is held apart, tensor by tensor, which catches a fault in a
 few rows: K3's at fixed bars set from readings over many chunks, with a
-control (a live tile zeroed) above them (hold_k3_max), K4's against that
-of the plain version summed in f64 (hold_max).
+control (a live tile zeroed) above them (hold_k3_max), the tuned K4's
+against that of the plain version summed in f64 (hold_max), the general
+K4's at a fixed bar from readings with a control (a live tile left out).
 
 Any failure exits non-zero before the status line. Without a CUDA device,
 or without the pointnerf_tpu_torch package beside it, it exits 1.
@@ -323,6 +351,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -613,6 +642,29 @@ def bound_ms(nbytes: float, flops: float, peak: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def decode_bound(w, params, spec, backward: bool = False):
+    """(rows, bytes, bound ms, bound_by) of one K3 call, or with `backward`
+    of one K4 call, on these inputs. Rows: those this run's data needs,
+    the ones with a nonzero weight (a row without weight has all-zero
+    gradients), each read once, with the weights and the outputs written
+    once; K4 also reads the upstream gradients and writes all M gradient
+    rows and every dW/db, and does 3x K3's operations (the forward again,
+    dW, and the input gradients)."""
+    from pointnerf_tpu_torch.ops.fused_decode import flops, param_count
+    M = w.shape[0]
+    rows = int((w != 0).sum())
+    wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
+                 for layer in params[n] for p in layer.values())
+    width = spec.Fi + spec.Dd + spec.E + 1
+    nbytes = rows * width * 4 + wbytes + (M // spec.K) * (spec.H + 1) * 4
+    ops = flops(rows, spec)
+    if backward:
+        nbytes += M * 4 + M * width * 4 + param_count(spec) * 4
+        ops *= 3
+    b, by = bound_ms(nbytes, ops, PEAK_BF16 if spec.bf16 else PEAK_F32)
+    return rows, nbytes, b, by
+
+
 def slice_config():
     from pointnerf_tpu_torch.config import bench_config
     cfg = bench_config()
@@ -814,8 +866,7 @@ def check_k3(captured, what: str = "request"):
     `what` (a request, a probe chunk or an eval chunk), in bf16 and in f32;
     times and bound on the first one's."""
     import torch
-    from pointnerf_tpu_torch.ops.fused_decode import (TC_ROWS, flops,
-                                                      fused_decode,
+    from pointnerf_tpu_torch.ops.fused_decode import (TC_ROWS, fused_decode,
                                                       fused_decode_plain,
                                                       route)
 
@@ -874,14 +925,7 @@ def check_k3(captured, what: str = "request"):
         plain_ms = cuda_ms(lambda: fused_decode_plain(feat, dists, extras, w,
                                                       params, sp),
                            iters=3, warmup=1)
-        # rows this run's data needs: those with a nonzero weight
-        rows = int((w != 0).sum())
-        wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
-                     for layer in params[n] for p in layer.values())
-        nbytes = rows * (sp.Fi + sp.Dd + sp.E + 1) * 4 + wbytes \
-            + (M // sp.K) * (sp.H + 1) * 4
-        b, by = bound_ms(nbytes, flops(rows, sp),
-                         PEAK_BF16 if sp.bf16 else PEAK_F32)
+        rows, _nbytes, b, by = decode_bound(w, params, sp)
         log(f"K3 {label} ({route(sp)} kernel) time {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by}: {rows} of {M} rows "
             f"carry weight; tiles of {TC_ROWS} rows with weight: "
@@ -1034,41 +1078,58 @@ def cpu_parity(params, pc, st, grid, cfg, cfg_cpu=None, b_card=None,
     flags say. `b_card` (default a ring view's 512 rays) is the request.
     Integers must be equal and the colors of the rays that hit within
     `bar`."""
-    cfg_cpu = cfg_cpu or cfg
+    err, ctl, _m, _mctl, n_hit = request_parity(
+        params, pc, st, grid, cfg, cpu_scene(pc, st, grid, cfg),
+        "the parity request", cfg_cpu=cfg_cpu, b_card=b_card)
+    log(f"card vs CPU, 512 rays: integers equal, neighbor-id mismatches 0, "
+        f"{n_hit} rays hit")
+    hold_bf16("card vs CPU colors of the rays that hit", err, ctl, bar)
+
+
+def cpu_scene(pc, st, grid, cfg):
+    """A scene on the CPU, its grid rebuilt there and its tables checked
+    against the card's."""
     import torch
     from pointnerf_tpu_torch.ops.grid import build_grid
-    from pointnerf_tpu_torch.train.step import eval_step
-    cpu = torch.device("cpu")
-    mv = lambda t: t.to(cpu)  # noqa: E731
-    pc_c = type(pc)(*[mv(t) for t in pc])
-    st_c = type(st)(*[mv(t) for t in st])
-    from pointnerf_tpu_torch.train.optim import tree_map
-    params_c = tree_map(mv, params)
+    mv = lambda t: t.cpu()  # noqa: E731
+    pc_c, st_c = type(pc)(*[mv(t) for t in pc]), type(st)(*[mv(t) for t in st])
     q = dataclasses.replace(cfg.query, max_d=grid.nbr_pid.shape[0])
     grid_c = build_grid(pc_c.xyz, st_c.num_active, q)
     for f in ("vox_dslot", "nbr_pid", "nbr_xyz", "vox_occ"):
         if not torch.equal(getattr(grid_c, f), mv(getattr(grid, f))):
             fail(f"grid table {f} differs between the card and the CPU")
+    return pc_c, st_c, grid_c
+
+
+def request_parity(params, pc, st, grid, cfg, scene_c, what: str,
+                   cfg_cpu=None, b_card=None):
+    """A request (default a ring view's 512 rays) on the card and on the
+    CPU (`scene_c`, from `cpu_scene`; `cfg_cpu`, default `cfg`), and the
+    control, the CPU with an f32 decode: integers equal. Returns (max
+    |err|, its control, mean |err| / mean |CPU|, its control, rays hit)
+    over the colors of the rays that hit."""
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from pointnerf_tpu_torch.train.step import eval_step
+    cfg_cpu = cfg_cpu or cfg
+    pc_c, st_c, grid_c = scene_c
+    params_c = tree_map(lambda t: t.cpu(), params)
     if b_card is None:
         b_card = batches(cfg, 512, 1, "cuda", seed0=7)[0]
-    b_cpu = type(b_card)(*[None if t is None else mv(t) for t in b_card])
+    b_cpu = type(b_card)(*[None if t is None else t.cpu() for t in b_card])
     o_card = eval_step({"mlp": params, "points": pc}, st, grid, b_card, cfg)
     o_cpu = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
                       cfg_cpu)
     same_integers(o_card, o_cpu)
-    cfg32 = cfg_cpu.replace(train=dataclasses.replace(cfg_cpu.train,
-                                                      compute_dtype="f32"))
     o_ctl = eval_step({"mlp": params_c, "points": pc_c}, st_c, grid_c, b_cpu,
-                      cfg32)
+                      cfg_cpu.replace(train=dataclasses.replace(
+                          cfg_cpu.train, compute_dtype="f32")))
     hit = o_cpu.ray_mask
-    col = mv(o_card.coarse_raycolor)[hit]
-    log(f"card vs CPU, 512 rays: integers equal, neighbor-id mismatches 0, "
-        f"{int(hit.sum())} rays hit")
     if not bool(hit.any()):
-        fail("no ray of the parity request hits the scene")
-    err = float((col - o_cpu.coarse_raycolor[hit]).abs().max())
-    ctl = float((col - o_ctl.coarse_raycolor[hit]).abs().max())
-    hold_bf16("card vs CPU colors of the rays that hit", err, ctl, bar)
+        fail(f"{what}: no ray hits the scene")
+    col, ref = o_card.coarse_raycolor.cpu()[hit], o_cpu.coarse_raycolor[hit]
+    ctl = o_ctl.coarse_raycolor[hit]
+    return (float((col - ref).abs().max()), float((col - ctl).abs().max()),
+            mean_rel(col, ref), mean_rel(col, ctl), int(hit.sum()))
 
 
 def capture_k4_inputs(state, st, grid, batch, cfg):
@@ -1137,95 +1198,91 @@ def decode_grad_leaves(out):
     return names, leaves
 
 
-def check_k4(args):
+def check_k4(args, what: str = "train step", hold_largest=None):
     """K4 against its plain version on the inputs of a real training step,
     in bf16 and in f32, on the row gradients and every dW/db (each relative
-    to its own max|plain|); times and bound in each precision."""
+    to its own max|plain|): f32 within K4_F32_TOL; bf16 on the worst mean
+    error (K4_BF16_TOL, control the f32 plain version) and on each
+    gradient's largest error, held by `hold_largest(what, args, spec,
+    names, kernel, plain)` (by default `hold_max`, against the plain
+    version summed in f64), whose return goes under "largest"; two calls
+    the same bits in each rounding; times and bound in each precision."""
     import torch
-    from pointnerf_tpu_torch.ops.fused_decode import (TC_ROWS_BWD, flops,
+    from pointnerf_tpu_torch.ops.fused_decode import (TC_ROWS_BWD,
                                                       fused_decode_bwd,
                                                       fused_decode_bwd_plain,
-                                                      layer_inputs,
-                                                      param_count, route)
+                                                      layer_inputs, route)
     feat, dists, extras, w, params, spec, g_fagg, g_alpha = args
     M = feat.shape[0]
 
-    def run(fn, bf16):
-        return decode_grad_leaves(fn(feat, dists, extras, w, params,
-                                     spec._replace(bf16=bf16), g_fagg,
-                                     g_alpha))
+    def run(fn, sp, **kw):
+        return decode_grad_leaves(fn(feat, dists, extras, w, params, sp,
+                                     g_fagg, g_alpha, **kw))
 
-    def rel(a_list, b_list):
-        out = []
-        for a, b in zip(a_list, b_list):
-            scale = float(b.abs().max())
-            if not scale > 0:
-                fail("K4: a gradient of the plain backward is all zero")
-            out.append(float((a - b).abs().max()) / scale)
-        return out
-
-    def worst(errs):
-        i = max(range(len(errs)), key=errs.__getitem__)
-        return errs[i], names[i]
-
+    specs = {label: spec._replace(bf16=label == "bf16")
+             for label in ("bf16", "f32")}
     res = {}
     with torch.no_grad():
-        names, plain32 = run(fused_decode_bwd_plain, False)
-        _, plain16 = run(fused_decode_bwd_plain, True)
+        names, plain32 = run(fused_decode_bwd_plain, specs["f32"])
+        _, plain16 = run(fused_decode_bwd_plain, specs["bf16"])
         control = max(mean_rel(a, b) for a, b in zip(plain32, plain16))
         for label, plain in (("bf16", plain16), ("f32", plain32)):
-            _, out = run(fused_decode_bwd, label == "bf16")
+            sp = specs[label]
+            _, out = run(fused_decode_bwd, sp)
+            _, again = run(fused_decode_bwd, sp)
             torch.cuda.synchronize()
-            mx, mx_name = worst(rel(out, plain))
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            del again
+            rel = []
+            for a, b in zip(out, plain):
+                scale = float(b.abs().max())
+                if not scale > 0:
+                    fail(f"K4 ({what}): a gradient of the plain backward is "
+                         f"all zero")
+                rel.append(float((a - b).abs().max()) / scale)
+            i = max(range(len(rel)), key=rel.__getitem__)
             abs_err = max(float((a - b).abs().max())
                           for a, b in zip(out, plain))
-            if label == "bf16":
-                m, m_name = worst([mean_rel(a, b) for a, b in zip(out, plain)])
-                log(f"K4 fused_decode_bwd bf16, M={M} H={spec.H}: mean "
-                    f"|err| / mean |plain| {m:.3e} (worst gradient: {m_name}); "
-                    f"max abs err {abs_err:.3e}, {mx:.3e} of its gradient's "
-                    f"max|plain| ({mx_name})")
-                hold_bf16("K4 bf16 vs plain, mean |err| / mean |plain|, worst "
-                          "gradient", m, control, K4_BF16_TOL)
-                _, plain64 = decode_grad_leaves(fused_decode_bwd_plain(
-                    feat, dists, extras, w, params, spec, g_fagg, g_alpha,
-                    dtype=torch.float64))
-                hold_max("K4 bf16", names, out, plain, plain64, K4_F32_TOL)
+            log(f"K4 fused_decode_bwd {label} ({route(sp, backward=True)} "
+                f"kernel), {what}, M={M} H={sp.H} K={sp.K}: max abs err "
+                f"{abs_err:.3e}, {rel[i]:.3e} of its gradient's max|plain| "
+                f"({names[i]}); two calls on the same inputs give the same "
+                f"bits in every gradient: {same}")
+            if not same:
+                fail(f"K4 ({label}, {what}) is not deterministic run to run")
+            res[label] = {"max_abs_err": abs_err, "max_rel_err": rel[i],
+                          "two_calls_same_bits": same}
+            if label == "f32":
+                if not rel[i] <= K4_F32_TOL:
+                    fail(f"K4 (f32, {what}) disagrees with its plain version")
+                continue
+            means = [mean_rel(a, b) for a, b in zip(out, plain)]
+            j = max(range(len(means)), key=means.__getitem__)
+            hold_bf16(f"K4 bf16 vs plain, {what}, mean |err| / mean |plain|, "
+                      f"worst gradient ({names[j]})", means[j], control,
+                      K4_BF16_TOL)
+            if hold_largest is None:
+                _, plain64 = run(fused_decode_bwd_plain, sp,
+                                 dtype=torch.float64)
+                hold_max(f"K4 bf16, {what}", names, out, plain, plain64,
+                         K4_F32_TOL)
                 del plain64
             else:
-                log(f"K4 fused_decode_bwd f32, M={M} H={spec.H}: max abs "
-                    f"err {abs_err:.3e}, max err relative to its gradient's "
-                    f"max|plain| {mx:.3e} ({mx_name})")
-                if not mx <= K4_F32_TOL:
-                    fail("K4 (f32) disagrees with its plain version")
-            res[label] = {"max_abs_err": abs_err}
-        del plain32, plain16, out
+                res[label]["largest"] = hold_largest(
+                    f"K4 bf16, {what}", args, sp, names, out, plain)
+            del out
+        del plain32, plain16
 
-        # rows this run's data needs: those with a nonzero weight (a row
-        # without weight has all-zero gradients); all M gradient rows are
-        # written
-        rows = int((w != 0).sum())
-        wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
-                     for layer in params[n] for p in layer.values())
-        width = spec.Fi + spec.Dd + spec.E + 1
-        nbytes = (rows * width * 4 + M * 4 + wbytes
-                  + (M // spec.K) * (spec.H + 1) * 4
-                  + M * width * 4 + param_count(spec) * 4)
-        # a cost of the tensor-core K4's design, not of its function (so not
-        # in the bound): its second phase takes dW from every live row's
-        # layer inputs and g_z (bf16), written to device memory once and
-        # read once
-        phase_b = rows * 2 * 2 * (sum(layer_inputs(spec))
-                                  + (spec.L1 + spec.L3) * spec.H)
         # K4's tiles that are computed: a live row, or a live upstream
         # gradient on the tile's groups
-        live = ((w != 0).view(-1)
-                | ((g_fagg != 0).any(1) | (g_alpha != 0).view(-1))
-                .repeat_interleave(spec.K))
-        log(f"K4 tiles of {TC_ROWS_BWD} rows computed (not dead): "
-            f"{live_tiles(live, TC_ROWS_BWD)}")
-        for label in res:
-            sp = spec._replace(bf16=label == "bf16")
+        tuned_tc = route(specs["bf16"], backward=True) == "tensor_core"
+        if tuned_tc:
+            live = ((w != 0).view(-1)
+                    | ((g_fagg != 0).any(1) | (g_alpha != 0).view(-1))
+                    .repeat_interleave(spec.K))
+            log(f"K4 tiles of {TC_ROWS_BWD} rows computed (not dead): "
+                f"{live_tiles(live, TC_ROWS_BWD)}")
+        for label, sp in specs.items():
             ms = cuda_ms(lambda: fused_decode_bwd(feat, dists, extras, w,
                                                   params, sp, g_fagg,
                                                   g_alpha),
@@ -1233,15 +1290,19 @@ def check_k4(args):
             plain_ms = cuda_ms(lambda: fused_decode_bwd_plain(
                 feat, dists, extras, w, params, sp, g_fagg, g_alpha),
                 iters=3, warmup=1)
-            # the forward again, dW, and the input gradients: 3 x K3's
-            b, by = bound_ms(nbytes, 3 * flops(rows, sp),
-                             PEAK_BF16 if sp.bf16 else PEAK_F32)
-            log(f"K4 {label} ({route(sp)} kernel) time {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by}: {rows} of {M} "
-                f"rows carry weight; bytes alone "
+            rows, nbytes, b, by = decode_bound(w, params, sp, backward=True)
+            log(f"K4 {label} ({route(sp, backward=True)} kernel), {what}, "
+                f"time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} "
+                f"ms ({by}: {rows} of {M} rows carry weight; bytes alone "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), library: none "
                 f"(no single PyTorch call computes the decode backward)")
-            if sp.bf16:
+            if sp.bf16 and tuned_tc:
+                # a cost of the tensor-core K4's design, not of its function
+                # (so not in the bound): its second phase takes dW from
+                # every live row's layer inputs and g_z (bf16), written to
+                # device memory once and read once
+                phase_b = rows * 2 * 2 * (sum(layer_inputs(spec))
+                                          + (spec.L1 + spec.L3) * spec.H)
                 log(f"K4 bf16 design cost, outside the bound: phase B moves "
                     f"{phase_b / 1e9:.3f} GB of bf16 layer inputs and g_z "
                     f"through device memory, "
@@ -1250,17 +1311,6 @@ def check_k4(args):
             res[label].update({"ms": ms, "plain_ms": plain_ms,
                                "bound_ms": b, "bound_by": by,
                                "library_ms": None})
-        a = fused_decode_bwd(feat, dists, extras, w, params, spec, g_fagg,
-                             g_alpha)
-        b2 = fused_decode_bwd(feat, dists, extras, w, params, spec, g_fagg,
-                              g_alpha)
-        same = all(torch.equal(x, y) for x, y in
-                   zip(decode_grad_leaves(a)[1], decode_grad_leaves(b2)[1]))
-        log(f"K4 bf16: two calls on the same inputs give the same bits in "
-            f"every gradient: {same}")
-        if not same:
-            fail("K4 (bf16) is not deterministic run to run")
-        del a, b2
     chain = gemm_chain_ms(spec, rows, backward=True)
     log(f"K4 yardstick (printed only, never called by the port): the same "
         f"layer products (forward, g_z W^T, act^T g_z) over {rows} rows as a "
@@ -2199,8 +2249,7 @@ def check_f32_decode(fwd_cases, bwd_args):
     from pointnerf_tpu_torch.ops.fused_decode import (flops, fused_decode,
                                                       fused_decode_bwd,
                                                       fused_decode_bwd_plain,
-                                                      fused_decode_plain,
-                                                      param_count)
+                                                      fused_decode_plain)
 
     def live_log(what, M, counts):
         rows, grouped, tiled = counts
@@ -2227,12 +2276,7 @@ def check_f32_decode(fwd_cases, bwd_args):
                                               spec), iters=5, warmup=1)
             plain_ms = cuda_ms(lambda: fused_decode_plain(
                 feat, dists, extras, w, params, spec), iters=2, warmup=1)
-        rows = int((w != 0).sum())
-        wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
-                     for layer in params[n] for p in layer.values())
-        nbytes = rows * (spec.Fi + spec.Dd + spec.E + 1) * 4 + wbytes \
-            + (M // spec.K) * (spec.H + 1) * 4
-        b, by = bound_ms(nbytes, flops(rows, spec), PEAK_F32)
+        rows, _nbytes, b, by = decode_bound(w, params, spec)
         log(f"K3 f32 (cuda_core kernel), {label}, M={M} H={spec.H}: max abs "
             f"err {err:.3e}, scale {scale:.3e} (tolerance {K3_F32_TOL} x "
             f"scale); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -2275,14 +2319,7 @@ def check_f32_decode(fwd_cases, bwd_args):
         plain_ms = cuda_ms(lambda: fused_decode_bwd_plain(
             feat, dists, extras, w, params, spec, g_fagg, g_alpha),
             iters=2, warmup=1)
-    rows = int((w != 0).sum())
-    wbytes = sum(p.numel() * 4 for n in ("block1", "block3", "alpha")
-                 for layer in params[n] for p in layer.values())
-    width = spec.Fi + spec.Dd + spec.E + 1
-    nbytes = (rows * width * 4 + M * 4 + wbytes
-              + (M // spec.K) * (spec.H + 1) * 4
-              + M * width * 4 + param_count(spec) * 4)
-    b, by = bound_ms(nbytes, 3 * flops(rows, spec), PEAK_F32)
+    rows, _nbytes, b, by = decode_bound(w, params, spec, backward=True)
     log(f"K4 f32 (cuda_core kernel), train step, M={M} H={spec.H}: max abs "
         f"err {abs_err:.3e}, worst relative {rel[worst]:.3e} ({names[worst]}, "
         f"tolerance {K4_F32_TOL}); time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -5183,6 +5220,328 @@ def scene_io_paths(kernels, params, pc, st, grid, reqs, cfg, ds_root: str,
     return paths, checks
 
 
+# ---- phase 30: the whole aggregator — every distance kernel on K3 / K4,
+# every layout outside the fused envelope on the unfused decode, and the
+# general K3 / K4 at full width ---------------------------------------------
+# (a) the distance kernels on the fused envelope: the nine besides linear,
+# and linear with a non-uniform axis weight
+AGG_KERNELS = {
+    "quadric": dict(agg_distance_kernel="quadric"),
+    "numlinear": dict(agg_distance_kernel="numlinear"),
+    "numquadric": dict(agg_distance_kernel="numquadric"),
+    "avg": dict(agg_distance_kernel="avg"),
+    "trilinear": dict(agg_distance_kernel="trilinear"),
+    "sh_intrp": dict(agg_distance_kernel="sh_intrp"),
+    "feat_intrp": dict(agg_distance_kernel="feat_intrp"),
+    "meta_intrp": dict(agg_distance_kernel="meta_intrp"),
+    "gau_intrp": dict(agg_distance_kernel="gau_intrp"),
+    "linear_axis_121": dict(agg_axis_weight=(1.0, 2.0, 1.0)),
+}
+# (b) the layouts outside the envelope (JAX's XLA decode)
+AGG_LAYOUTS = {
+    "order0": dict(agg_intrp_order=0),
+    "order1": dict(agg_intrp_order=1),
+    "block2": dict(shading_feature_mlp_layer2=1),
+    "block2_feat_xyz": dict(shading_feature_mlp_layer2=1,
+                            agg_feat_xyz_mode="world"),
+    "alpha_color_xyz": dict(agg_alpha_xyz_mode="world",
+                            agg_color_xyz_mode="world"),
+    "alpha2": dict(shading_alpha_mlp_layer=2),
+    "no_block3": dict(shading_feature_mlp_layer3=0),
+}
+# (c) bench_config past the tuned kernels' limits: (aggregator, query)
+# overrides
+AGG_GENERAL = {"h512": (dict(shading_feature_num=512), {}),
+               "k6": ({}, dict(K=6))}
+AGG_GENERAL_STEPS = (3, 5)     # warm-up and timed train steps
+# trilinear takes 1 - |d| / vsize per axis: past one voxel a weight turns
+# negative and the normalized weights blow up (JAX's function; NaN colors
+# at bench_config's four-voxel radius), so its setting cuts the KNN radius
+# to one voxel
+AGG_QUERY = {"trilinear": dict(radius_limit_scale=1.0)}
+# card vs CPU colors of a 512-ray request in phase 30: the share mean
+# |card - CPU| / mean |CPU| over the rays that hit, divided by the same
+# for the control (the CPU with an f32 decode), is held at most this. The
+# weights and layouts move the colors' scale by decades (numlinear's
+# weights are not normalized; no block3 leaves little to round), so no
+# absolute bar fits them all; the share does not depend on that scale. A
+# card decode that skips its bf16 rounding reads as the control, a share
+# near 1; one that adds a rounding moves the colors by a bf16 step, of
+# the control's order again. Readings on an H100 80GB HBM3 at 700 W
+# (PERF.md §6): at most 0.12 over the distance kernels (sh_intrp), 0.26
+# with block3 absent
+AGG_COLOR_SHARE = 0.5
+# the general K4 in bf16, its largest errors (the control: one live tile
+# left out). Row gradients per tile of the kernel, max |kernel - plain| /
+# max |plain| over the tile's rows (a tile left out reads 1); dW / db
+# relative to max|plain| (a tile's share). Readings on an H100 80GB HBM3
+# at 700 W, H = 512 and K = 6 from the fresh and the trained state
+# (PERF.md §6): rows up to 1.07e-02 (g_dists, fresh), dW / db up to
+# 1.8e-06, their controls down to 4.6e-05 (dalpha, K = 6, trained)
+GENERAL_K4_BF16_TILE_TOL = 0.05
+GENERAL_K4_BF16_DW_TOL = 1.5e-5
+
+
+def agg_config(cfg, agg_kw=None, query_kw=None):
+    return cfg.replace(
+        agg=dataclasses.replace(cfg.agg, **(agg_kw or {})),
+        query=dataclasses.replace(cfg.query, **(query_kw or {})))
+
+
+def agg_params(cfg):
+    import torch
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    return init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                  device="cuda")
+
+
+def agg_color_hold(name, serve_s, losses, parity):
+    """Print a phase-30 setting's request and step, and hold its card vs
+    CPU colors (`request_parity`): mean |err| / mean |CPU| at most
+    AGG_COLOR_SHARE of the control's; the largest error is printed beside
+    phase 5's bar."""
+    err, ctl, m, mctl, _n_hit = parity
+    share = m / mctl if mctl > 0 else float("inf")
+    log(f"phase 30 {name}: 1 request {serve_s:.4f} s, 1 train step (loss "
+        f"{losses[-1]:.6f}); card vs CPU colors max |err| {err:.3e} (control "
+        f"{ctl:.3e}; phase 5's bar {COLOR_BF16_TOL:.0e}), mean |err| / mean "
+        f"|CPU| {m:.3e}, control {mctl:.3e}: a share of {share:.3e} "
+        f"[bar {AGG_COLOR_SHARE}]")
+    if not share <= AGG_COLOR_SHARE:
+        fail(f"phase 30 {name}: the card's colors are {share:.3e} of the "
+             f"control's distance from the CPU's, past {AGG_COLOR_SHARE}")
+
+
+def decode_routes_now(kernels):
+    return {n: dict(kernels[n].launches_by_route)
+            for n in ("fused_decode", "fused_decode_bwd")}
+
+
+def add_counts(total, kernels):
+    """Add the wrappers' launches and launches by route, read now, to
+    `total` = (counts, routes)."""
+    counts, routes = total
+    for n, k in kernels.items():
+        counts[n] = counts.get(n, 0) + k.launches
+        for r, v in getattr(k, "launches_by_route", {}).items():
+            routes.setdefault(n, {})[r] = routes.get(n, {}).get(r, 0) + v
+
+
+def agg_serve_and_step(params, pc, st, grid, cfg, kernels, reqs, tbatch,
+                       what: str, decode_route, total, steps=(0, 1)):
+    """Serve `reqs` and take warm-up + timed train steps from a fresh state
+    (`steps`); each request launches K1 and K2 once and K3 once on
+    `decode_route` (None: no decode kernel), each step K1 once and K3 and
+    K4 once on `decode_route`. The counts are set to 0 just before and
+    added to `total` (`add_counts`) just after. Returns (serve seconds,
+    step seconds per timed step, last losses, the trained state)."""
+    import torch
+    from pointnerf_tpu_torch.train.step import create_train_state, train_step
+    k3 = int(decode_route is not None)
+    state = create_train_state(torch.Generator(device="cuda").manual_seed(2),
+                               params, pc, cfg)
+    reset_counts(kernels)
+    _outs, serve_s = serve_requests(
+        params, pc, st, grid, reqs, cfg, kernels, what,
+        want={"knn_select": 1, "fused_decode": k3, "fused_march": 1,
+              "fused_decode_bwd": 0})
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(sum(steps)):
+        if i == steps[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        b = {n: kernels[n].launches for n in TRAIN_KERNELS}
+        state, items = train_step(state, st, grid, tbatch, cfg)
+        got = {n: kernels[n].launches - b[n] for n in TRAIN_KERNELS}
+        want = {"knn_select": 1, "fused_decode": k3, "fused_decode_bwd": k3}
+        if got != want:
+            fail(f"{what} train step {i} launched {got}, not {want}")
+        losses.append(float(items["loss_total"]))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / max(steps[1], 1)
+    march_routes(kernels, what)
+    add_counts(total, kernels)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: a training loss is not finite: {losses}")
+    for n, r in decode_routes_now(kernels).items():
+        n_all = sum(r.values())
+        if decode_route is None and n_all:
+            fail(f"{what}: {n} launched outside the fused envelope: {r}")
+        if decode_route is not None and r[decode_route] != n_all:
+            fail(f"{what}: {n} launches left the {decode_route} route: {r}")
+    return serve_s, step_s, losses, state
+
+
+def general_tile(w, K: int):
+    """(rows per tile of the general kernels, the median live tile)."""
+    import torch
+    T = max(1, 64 // K) * K
+    live = torch.nn.functional.pad((w.reshape(-1) != 0),
+                                   (0, -w.shape[0] % T)).view(-1, T).any(1)
+    idx = live.nonzero().reshape(-1)
+    return T, int(idx[idx.numel() // 2])
+
+
+def tile_rel_max(a, b, T: int) -> float:
+    """The largest, over tiles of T rows, of max |a - b| / max |b| in the
+    tile (inf where b is zero and a is not)."""
+    import torch
+    pad = -a.shape[0] % T
+    e = torch.nn.functional.pad((a - b).abs().reshape(a.shape[0], -1),
+                                (0, 0, 0, pad)).view(-1, T * a[0].numel())
+    s = torch.nn.functional.pad(b.abs().reshape(b.shape[0], -1),
+                                (0, 0, 0, pad)).view(-1, T * b[0].numel())
+    e, s = e.amax(1), s.amax(1)
+    r = torch.where(s > 0, e / s.clamp(min=1e-30),
+                    torch.where(e > 0, float("inf"), 0.0))
+    return float(r.max()) if r.numel() else 0.0
+
+
+def k4_tile_control(args, sp, names, plain, out):
+    """The controls of the general K4's largest errors: the median live
+    tile left out. Row gradients: `tile_rel_max` of the kernel's output
+    with that tile's rows zeroed. dW / db: the largest |plain backward of
+    that tile alone| / max|plain|, the share the tile would leave out."""
+    from pointnerf_tpu_torch.ops.fused_decode import fused_decode_bwd_plain
+    feat, dists, extras, w, params, _spec, g_fagg, g_alpha = args
+    K = sp.K
+    T, t = general_tile(w, K)
+    r0, r1 = t * T, min((t + 1) * T, w.shape[0])
+    _, tile = decode_grad_leaves(fused_decode_bwd_plain(
+        feat[r0:r1], dists[r0:r1], extras[r0:r1], w[r0:r1], params, sp,
+        g_fagg[r0 // K:r1 // K], g_alpha[r0 // K:r1 // K]))
+    ctl = {}
+    for i, (n, a, b) in enumerate(zip(names, tile, plain)):
+        if i < 4:
+            z = out[i].clone()
+            z[r0:r1] = 0
+            ctl[n] = tile_rel_max(z, b, T)
+        else:
+            ctl[n] = float(a.abs().max()) / max(float(b.abs().max()), 1e-30)
+    return ctl
+
+
+def hold_k4_tiles(what: str, args, sp, names, out, plain):
+    """The general K4's largest-error rule in bf16 (for `check_k4`): each
+    row gradient's largest error per tile of the kernel (`tile_rel_max`)
+    within GENERAL_K4_BF16_TILE_TOL, each dW / db's of its max|plain|
+    within GENERAL_K4_BF16_DW_TOL, and each control (`k4_tile_control`: a
+    live tile left out) above its bar. Returns {name: (reading, control)}."""
+    T = general_tile(args[3], sp.K)[0]
+    got = {n: (tile_rel_max(x, p, T) if i < 4 else
+               float((x - p).abs().max()) / max(float(p.abs().max()), 1e-30))
+           for i, (n, x, p) in enumerate(zip(names, out, plain))}
+    ctl = k4_tile_control(args, sp, names, plain, out)
+    bars = {n: (GENERAL_K4_BF16_TILE_TOL if i < 4 else GENERAL_K4_BF16_DW_TOL)
+            for i, n in enumerate(names)}
+    log(f"{what}: largest errors [bar] (control: a live tile left out) — "
+        f"rows per tile of {T}, max |err| / max |plain| in the tile; dW / db "
+        f"of max|plain|: " + ", ".join(
+            f"{n} {got[n]:.3e} [{bars[n]:.0e}] ({ctl[n]:.3e})" for n in names))
+    bad = [n for n in names if not got[n] <= bars[n]]
+    if bad:
+        fail(f"{what}: the largest error of {bad} is beyond its bar")
+    bad = [n for n in names if not ctl[n] > bars[n]]
+    if bad:
+        fail(f"{what}: the bar of {bad} does not tell the control apart")
+    return {n: (got[n], ctl[n]) for n in names}
+
+
+def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
+    """Phase 30 (module docstring). The launches are those of the counted
+    serves and steps alone (`agg_serve_and_step`); the card-vs-CPU
+    requests and the recorded inputs of the kernel checks are taken
+    outside them. Returns ((counts, routes), checks)."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import any_plan, route
+    from pointnerf_tpu_torch.train.step import create_train_state
+    t_all = time.perf_counter()
+    total = ({}, {})
+    scene_c = cpu_scene(pc, st, grid, cfg)
+    tbatch = batches(cfg, N_RAYS, 1, "cuda")[0]
+    secs = {}
+    # (a) every distance kernel on K3 / K4's tensor-core route
+    t0 = time.perf_counter()
+    for name, kw in AGG_KERNELS.items():
+        c = agg_config(cfg, kw, AGG_QUERY.get(name))
+        p = agg_params(c)
+        serve_s, _step_s, losses, _st = agg_serve_and_step(
+            p, pc, st, grid, c, kernels, reqs[:1], tbatch, name,
+            "tensor_core", total)
+        agg_color_hold(name, serve_s, losses,
+                       request_parity(p, pc, st, grid, c, scene_c, name))
+        del p
+    secs["kernels"] = time.perf_counter() - t0
+    # (b) every layout outside the envelope on the unfused decode
+    t0 = time.perf_counter()
+    for name, kw in AGG_LAYOUTS.items():
+        c = agg_config(cfg, kw)
+        p = agg_params(c)
+        serve_s, _step_s, losses, _st = agg_serve_and_step(
+            p, pc, st, grid, c, kernels, reqs[:1], tbatch, name, None, total)
+        agg_color_hold(name, serve_s, losses,
+                       request_parity(p, pc, st, grid, c, scene_c, name))
+        del p
+    secs["layouts"] = time.perf_counter() - t0
+    # (c) the general K3 / K4 at full width; their inputs are recorded
+    # here, outside the counted runs, and held against the plain versions
+    # once the path's launches are read
+    recorded = {}
+    for name, (akw, qkw) in AGG_GENERAL.items():
+        t0 = time.perf_counter()
+        c = agg_config(cfg, akw, qkw)
+        p = agg_params(c)
+        seen = capture_kernel_inputs(p, pc, st, grid, reqs[0], c)
+        args3 = seen["fused_decode"][0]
+        spec, M = args3[5], args3[0].shape[0]
+        for bf16 in (True, False):
+            sp = spec._replace(bf16=bf16)
+            if {route(sp), route(sp, backward=True)} != {"general"}:
+                fail(f"phase 30 {name}: K3 / K4 ({sp}) is not on the "
+                     f"general route")
+        log(f"phase 30 {name}: {spec}, K3 plan (grid, workspace floats, "
+            f"shared bytes) {any_plan(spec, M)}, K4 plan "
+            f"{any_plan(spec, M, backward=True)}")
+        k4_fresh = capture_k4_inputs(
+            create_train_state(torch.Generator(device="cuda").manual_seed(2),
+                               p, pc, c), st, grid, tbatch, c)
+        serve_s, step_s, losses, state = agg_serve_and_step(
+            p, pc, st, grid, c, kernels, reqs, tbatch, name, "general",
+            total, steps=AGG_GENERAL_STEPS)
+        log(f"phase 30 {name}: {len(reqs)} requests x {N_RAYS} rays in "
+            f"{serve_s:.4f} s = {len(reqs) * N_RAYS / serve_s:.1f} rays/s; "
+            f"{AGG_GENERAL_STEPS[1]} train steps after "
+            f"{AGG_GENERAL_STEPS[0]} warm-up: {step_s:.4f} s/step = "
+            f"{N_RAYS / step_s:.1f} train rays/s, losses "
+            f"{[round(v, 6) for v in losses]} (host clock, synchronized)")
+        recorded[name] = (seen["fused_decode"], k4_fresh,
+                          capture_k4_inputs(state, st, grid, tbatch, c))
+        del p, seen, state
+        secs[name] = time.perf_counter() - t0
+    counts, routes = total
+    t0 = time.perf_counter()
+    checks = {}
+    for name, (cap3, k4_fresh, k4_trained) in recorded.items():
+        k3 = check_k3([cap3], what=f"{name} request")
+        k4 = {st_name: check_k4(args, f"{name}, {st_name} state",
+                                hold_largest=hold_k4_tiles)
+              for st_name, args in (("fresh", k4_fresh),
+                                    ("trained", k4_trained))}
+        checks[name] = {"fused_decode_any": {**k3["bf16"], "f32": k3["f32"]},
+                        "fused_decode_bwd_any": {
+                            **k4["trained"]["bf16"],
+                            "f32": k4["trained"]["f32"],
+                            "fresh_state": k4["fresh"]}}
+    del recorded
+    secs["general kernel checks"] = time.perf_counter() - t0
+    log(f"phase 30 wall seconds {time.perf_counter() - t_all:.2f} ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"); launches of the counted serves and steps {counts}, routes "
+        f"{routes}")
+    return (counts, routes), checks
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -5303,6 +5662,9 @@ def main() -> None:
                                          grid, reqs, cfg, data_root, ds_run,
                                          ds_cfg)
     shutil.rmtree(ds_run, ignore_errors=True)
+    # phase 30: the whole aggregator
+    whole_agg, agg_checks = whole_aggregator_path(kernel_wrappers(), params,
+                                                  pc, st, grid, reqs, cfg)
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
@@ -5324,6 +5686,12 @@ def main() -> None:
                                  "pointnerf_tpu/ops/pallas_decode.py:467"),
             "fused_decode_bwd_f32": ("fused_decode_bwd", "cuda_core",
                                      "fused_decode_bwd.cu",
+                                     "pointnerf_tpu/ops/pallas_decode.py:467"),
+            "fused_decode_any": ("fused_decode", "general",
+                                 "fused_decode_any.cu",
+                                 "pointnerf_tpu/ops/pallas_decode.py:404"),
+            "fused_decode_bwd_any": ("fused_decode_bwd", "general",
+                                     "fused_decode_bwd_any.cu",
                                      "pointnerf_tpu/ops/pallas_decode.py:467")}
     # the numbers of each row: at the main paths' shapes for K1, K2 and the
     # tensor-core kernels; the CUDA-core kernels at the dataset path's train
@@ -5332,6 +5700,11 @@ def main() -> None:
                                    "eval_chunk": f32_k3["eval chunk"],
                                    "bench_request": k3["f32"]}
     results["fused_decode_bwd_f32"] = {**f32_k4, "bench_step": k4["f32"]}
+    # the general kernels at bench_config with H = 512 (bf16, the main
+    # numbers; f32 beside them) and with K = 6
+    for row_name in ("fused_decode_any", "fused_decode_bwd_any"):
+        results[row_name] = {**agg_checks["h512"][row_name],
+                             "k6": agg_checks["k6"][row_name]}
     # K2's wide kernel at the shapes it runs at: a feature request, C = 128
     results["fused_march_wide"] = n2_checks.pop("n2d_request")[
         "fused_march_wide"]
@@ -5350,13 +5723,14 @@ def main() -> None:
              "hybrid": (hy_counts, hy_routes),
              "loaders": (ld_counts, ld_routes),
              "mvs": (mv_counts, mv_routes),
-             "n2d": (n2_counts, n2_routes), **io_paths}
+             "n2d": (n2_counts, n2_routes), **io_paths,
+             "whole_agg": whole_agg}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]
         # launches over the main paths' runs, of this source's route
         by_path = {p: (c[wrapper] if route_name is None
-                       else rts[wrapper][route_name])
+                       else rts[wrapper].get(route_name, 0))
                    for p, (c, rts) in paths.items()}
         row = {"name": row_name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
@@ -5366,7 +5740,8 @@ def main() -> None:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for k in ("host_us", "run_stats", "gemm_chain_ms", "M", "live_rows",
                   "live_group_rows", "live_tile_rows", "eval_chunk",
-                  "bench_request", "bench_step"):
+                  "bench_request", "bench_step", "f32", "k6",
+                  "fresh_state"):
             if k in r:
                 row[k] = r[k]
         # the same comparison and timing on the maintenance path's dense

@@ -34,7 +34,7 @@ from ..ops.grid import PointGrid
 from ..ops.knn_select import MAX_QP
 from ..ops.query import (_xla_cumprod, generate_shading_points, knn_query,
                          query_points, refine_ray_generation)
-from .aggregator import aggregate, decode_takes_kernel
+from .aggregator import aggregate
 from .points import PointCloud, PointCloudStatic, gather_points
 from .ray_march import (BLEND_FUNCS, RENDER_FUNCS, TONEMAP_FUNCS,
                         exclusive_transmission, ray_march)
@@ -138,14 +138,12 @@ def merged_march_takes_kernel(cfg: PointNeRFConfig, device: torch.device,
 
 def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                    train: bool = False) -> None:
-    """Raise before any work for a config the port does not implement: on
-    CUDA one inside the fused envelope but past the port kernels' limits
-    (`decode_takes_kernel`, `march_takes_kernel`; the fine pass and the
-    hybrid's merged march take the same kernels), or a KNN on K1's route
-    past its QP = 512 candidates."""
-    decode_takes_kernel(cfg.agg, cfg.query.K,
-                        cfg.train.compute_dtype == "bf16", device,
-                        backward=train)
+    """Raise before any work for a config the port does not take: a
+    fused_march flag on a render the march kernel does not compute
+    (`march_takes_kernel`, ValueError, as JAX raises), or on CUDA a KNN on
+    K1's route past its QP = 512 candidates. Every decode layout and
+    every spec inside the fused envelope runs on both devices
+    (`aggregator.decode_takes_kernel`)."""
     march_takes_kernel(cfg, device, train)
     check_knn_envelope(cfg.query, device)
 

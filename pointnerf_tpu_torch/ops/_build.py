@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("knn_select", "fused_march", "fused_decode", "fused_decode_bwd",
-           "fused_decode_tc", "fused_decode_bwd_tc")
+           "fused_decode_tc", "fused_decode_bwd_tc", "fused_decode_any",
+           "fused_decode_bwd_any")
 
 # -Xptxas=-v puts each kernel's registers, shared memory and spills into
 # the build log that build() returns
@@ -45,6 +46,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "fused_decode_bwd": [],
     "fused_decode_tc": [],
     "fused_decode_bwd_tc": [],
+    "fused_decode_any": [],
+    "fused_decode_bwd_any": [],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,20 +24,25 @@ The weights enter as f32 tensors and their gradients come back in f32: the
 bf16 cast is straight-through for dW, as in JAX where `_prep_weights` runs
 inside the custom VJP. Both versions here round at the same places.
 
-Two routes on the card, picked by `spec.bf16`. bf16 (the main paths) runs
-the tensor-core kernels `csrc/fused_decode_tc.cu` (K3) and
-`csrc/fused_decode_bwd_tc.cu` (K4), which take the block weights packed by
-`pack_tc_weights` and skip tiles without weight. f32 runs
-`csrc/fused_decode.cu` and `csrc/fused_decode_bwd.cu` on the CUDA cores
-(exact f32 FMAs; tensor cores would add a TF32 rounding point), with the
-block weights packed by `pack_f32_weights`. Both f32 kernels first build,
-on the device, the list of live shading groups (`csrc/decode_live.cuh`;
-`live_groups_plain` is its plain version) and decode only those: the dense
-decode of a scene lays its rows out [R, SR, K], and ~1% of them carry a
-weight, scattered over every ray. K4 f32 takes dW as a split-K product over
-scratch rows written by its first phase, in batches of F32_CAP_ROWS live
-rows. A spec past a route's limits (`kernel_takes`) raises; it never runs
-on the other route.
+Three routes on the card, picked from the spec (`route`), never on an
+error. bf16 (the main paths) runs the tensor-core kernels
+`csrc/fused_decode_tc.cu` (K3) and `csrc/fused_decode_bwd_tc.cu` (K4),
+which take the block weights packed by `pack_tc_weights` and skip tiles
+without weight. f32 runs `csrc/fused_decode.cu` and
+`csrc/fused_decode_bwd.cu` on the CUDA cores (exact f32 FMAs; tensor cores
+would add a TF32 rounding point), with the block weights packed by
+`pack_f32_weights`. Both f32 kernels first build, on the device, the list
+of live shading groups (`csrc/decode_live.cuh`; `live_groups_plain` is its
+plain version) and decode only those: the dense decode of a scene lays its
+rows out [R, SR, K], and ~1% of them carry a weight, scattered over every
+ray. K4 f32 takes dW as a split-K product over scratch rows written by its
+first phase, in batches of F32_CAP_ROWS live rows. A spec past those tuned
+kernels' limits (`kernel_takes`: H, depth, K, layer widths) takes the
+general kernels `csrc/fused_decode_any.cu` (K3) and
+`csrc/fused_decode_bwd_any.cu` (K4), in either rounding: any widths, any
+depth and any K, on the CUDA cores, the weights as `pack_any_weights` lays
+them out. Each wrapper counts its launches per route in
+`launches_by_route`.
 """
 from __future__ import annotations
 
@@ -199,7 +204,8 @@ def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
     # PE backward in the interleaved layout: g_x = [feat | PE(feat) | PE(d)]
     Fi, Dd, Ff, Fd = spec.Fi, spec.Dd, spec.Ff, spec.Fd
     g_feat = g_h[:, :Fi]
-    pe = g_h[:, Fi:Fi + 2 * Ff * Fi].reshape(-1, Fi, Ff, 2)
+    if Ff > 0:
+        pe = g_h[:, Fi:Fi + 2 * Ff * Fi].reshape(-1, Fi, Ff, 2)
     for f in range(Ff):
         b = feat * (2.0 ** f)
         g_feat = g_feat + (2.0 ** f) * (pe[..., f, 0] * torch.cos(b)
@@ -368,13 +374,14 @@ def pack_tc_weights(Ws: List[torch.Tensor], spec: DecodeSpec) -> torch.Tensor:
 
 
 def kernel_takes(spec: DecodeSpec, backward: bool = False) -> bool:
-    """True when the route of this spec can run it on the card, the forward
-    (and, with `backward`, the backward too). Both routes: H a multiple of
-    32 from 32 to 256, 1 to MAX_LAYERS block layers, whole K-groups per
-    64-row tile (64 % K == 0). f32 (csrc/fused_decode.cu,
-    fused_decode_bwd.cu): each kernel's shared memory within one block's.
-    bf16 (the tensor-core kernels): every padded layer input at most
-    TC_MAX_IN, and each kernel's shared memory within one block's."""
+    """True when the tuned kernels of this spec's rounding take it, the
+    forward (and, with `backward`, the backward too); elsewhere the general
+    kernels run it (`route`). Both tuned routes: H a multiple of 32 from 32
+    to 256, 1 to MAX_LAYERS block layers, whole K-groups per 64-row tile
+    (64 % K == 0). f32 (csrc/fused_decode.cu, fused_decode_bwd.cu): each
+    kernel's shared memory within one block's. bf16 (the tensor-core
+    kernels): every padded layer input at most TC_MAX_IN, and each
+    kernel's shared memory within one block's."""
     common = not (spec.H % 32 or spec.H < 32 or spec.H > 256 or spec.L1 < 1
                   or spec.L3 < 1 or spec.L1 + spec.L3 > MAX_LAYERS
                   or F32_ROWS % spec.K)
@@ -404,24 +411,6 @@ def _check(feat, dists, extras, w, spec: DecodeSpec):
                 f"{t.device}")
     if M % spec.K:
         raise ValueError(f"fused_decode: M={M} is not a multiple of K")
-
-
-def _refuse(spec: DecodeSpec, backward: bool):
-    if kernel_takes(spec, backward):
-        return
-    s = "s do" if backward else " does"
-    if spec.bf16:
-        raise ValueError(
-            f"fused_decode: the tensor-core kernel{s} not take {spec} "
-            f"(bf16 route; needs 64 % K == 0, H % 32 == 0, 32 <= H <= 256, "
-            f"L1, L3 >= 1, L1 + L3 <= {MAX_LAYERS}, every layer input "
-            f"padded to {TC_KC} at most {TC_MAX_IN} wide, tiles within "
-            f"{SMEM_BYTES} bytes of shared memory)")
-    raise ValueError(
-        f"fused_decode: the CUDA kernel{s} not take {spec} (f32 route; "
-        f"needs 64 % K == 0, H % 32 == 0, 32 <= H <= 256, L1, L3 >= 1, "
-        f"L1 + L3 <= {MAX_LAYERS}, tiles within {SMEM_BYTES} bytes of "
-        f"shared memory)")
 
 
 def _device_weights(params: Dict, spec: DecodeSpec, dev):
@@ -480,7 +469,6 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
     """K3 for CUDA tensors, the plain version for CPU tensors."""
     if feat.device.type == "cpu":
         return fused_decode_plain(feat, dists, extras, w, params, spec)
-    _refuse(spec, backward=False)
     M = feat.shape[0]
     dev = feat.device
     Ws, bs, wa, ba = _device_weights(params, spec, dev)
@@ -488,7 +476,17 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
                        device=dev)
     alpha = torch.empty((M // spec.K, 1), dtype=torch.float32, device=dev)
     p = _build.ptr
-    if spec.bf16:
+    r = route(spec)
+    if r == "general":
+        grid, nws, _smem = any_plan(spec, M)
+        ws = torch.empty(max(nws, 1), dtype=torch.float32, device=dev)
+        Wp, bias = pack_any_weights(Ws, False), torch.cat(bs)
+        err = _any_lib("fused_decode_any_launch")(
+            p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
+            M, *_dims(spec), float(spec.neg_slope), int(spec.bf16), grid,
+            p(ws), p(fagg), p(alpha), _build.stream_handle(dev))
+        _build.check(err, "fused_decode (general)")
+    elif spec.bf16:
         Wt, bias = pack_tc_weights(Ws, spec), torch.cat(bs)
         err = _tc_lib("fused_decode_tc_launch")(
             p(feat), p(dists), p(extras), p(w), p(Wt), p(bias), p(wa), p(ba),
@@ -503,7 +501,7 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
             M, *_dims(spec), float(spec.neg_slope), *[p(t) for t in live],
             p(fagg), p(alpha), _build.stream_handle(dev))
         _build.check(err, "fused_decode")
-    _count(fused_decode, spec)
+    _count(fused_decode, r)
     return fagg, alpha
 
 
@@ -512,22 +510,30 @@ def _dims(spec: DecodeSpec):
             spec.L1, spec.L3)
 
 
-def _count(wrapper, spec: DecodeSpec):
-    """One launch of `wrapper`'s kernel, on the route of `spec`."""
+def _count(wrapper, route_name: str):
+    """One launch of `wrapper`'s kernel, on `route_name`."""
     wrapper.launches += 1
-    wrapper.launches_by_route[route(spec)] += 1
+    wrapper.launches_by_route[route_name] += 1
 
 
-def route(spec: DecodeSpec) -> str:
-    """The kernel family a CUDA call with this spec runs."""
+ROUTES = ("tensor_core", "cuda_core", "general")
+
+
+def route(spec: DecodeSpec, backward: bool = False) -> str:
+    """The kernel family a CUDA call with this spec runs: the tuned kernels
+    of its rounding (the tensor cores for bf16, the CUDA cores for f32)
+    where they take it (`kernel_takes`; with `backward`, K4's route),
+    else the general kernels."""
+    if not kernel_takes(spec, backward):
+        return "general"
     return "tensor_core" if spec.bf16 else "cuda_core"
 
 
 def reset_launches():
-    """Set every decode launch count (both wrappers, both routes) to 0."""
+    """Set every decode launch count (both wrappers, every route) to 0."""
     for f in (fused_decode, fused_decode_bwd):
         f.launches = 0
-        f.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
+        f.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 _TC_ARGS = {
@@ -567,6 +573,76 @@ def f32_smem_bytes_built(spec: DecodeSpec) -> Tuple[int, int, int]:
     _f32_lib("fused_decode_bwd_smem")(*_dims(spec), ctypes.byref(a),
                                       ctypes.byref(b))
     return k3, a.value, b.value
+
+
+_ANY_PLAN = [ctypes.c_longlong] + [_CI] * 9 + [
+    ctypes.POINTER(_CI), ctypes.POINTER(ctypes.c_longlong),
+    ctypes.POINTER(_CI)]
+_ANY_ARGS = {
+    "fused_decode_any_workspace": _ANY_PLAN,
+    "fused_decode_any_launch": [_VP] * 8 + [ctypes.c_longlong] + [_CI] * 9
+    + [_CF, _CI, _CI] + [_VP] * 4,
+    "fused_decode_bwd_any_workspace": _ANY_PLAN,
+    "fused_decode_bwd_any_launch": [_VP] * 10 + [ctypes.c_longlong]
+    + [_CI] * 9 + [_CF, _CI, _CI] + [_VP] * 7,
+}
+
+
+def _any_lib(name: str):
+    lib = "fused_decode_bwd_any" if name.startswith("fused_decode_bwd") \
+        else "fused_decode_any"
+    return _argtypes(getattr(_build.load(lib), name), _ANY_ARGS[name])
+
+
+def any_plan(spec: DecodeSpec, M: int, backward: bool = False
+             ) -> Tuple[int, int, int]:
+    """(grid, workspace floats, shared memory bytes) of a general-kernel
+    launch at M rows, as the built kernel plans it: a tile's state lies in
+    shared memory when it fits (workspace 0 for K3, the per-CTA partials
+    for K4), else in the workspace."""
+    grid, ws, smem = _CI(0), ctypes.c_longlong(0), _CI(0)
+    name = ("fused_decode_bwd_any_workspace" if backward
+            else "fused_decode_any_workspace")
+    err = _any_lib(name)(M, *_dims(spec), ctypes.byref(grid),
+                         ctypes.byref(ws), ctypes.byref(smem))
+    _build.check(err, "fused_decode (general, plan)")
+    return grid.value, ws.value, smem.value
+
+
+def pack_any_weights(Ws: List[torch.Tensor], backward: bool
+                     ) -> torch.Tensor:
+    """The block weights as the general kernels read them, one f32 buffer:
+    each W_l [in_l, H] row-major, layer after layer, then with `backward`
+    each W_l^T [H, in_l]."""
+    fwd = [W.reshape(-1) for W in Ws]
+    bwd = [W.t().reshape(-1) for W in Ws] if backward else []
+    return torch.cat(fwd + bwd).contiguous()
+
+
+def _bwd_any(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
+             g_fagg, g_alpha):
+    """K4 on the general route (csrc/fused_decode_bwd_any.cu): one call
+    that zeroes the per-CTA partials, launches the tile kernel and sums
+    the partials in order. Returns (dparams, (g_feat, g_dists, g_extras,
+    g_w))."""
+    M, dev = feat.shape[0], feat.device
+    grid, nws, _smem = any_plan(spec, M, backward=True)
+    ws = torch.empty(max(nws, 1), dtype=torch.float32, device=dev)
+    dparams = torch.empty(param_count(spec), dtype=torch.float32, device=dev)
+    out = (torch.empty_like(feat), torch.empty_like(dists),
+           torch.empty_like(extras), torch.empty_like(w))
+    # the packed weights and biases stay referenced until the launch: a
+    # temporary's block would go back to the allocator and could be
+    # reused by a later op queued before the kernel
+    Wp, bias = pack_any_weights(Ws, True), torch.cat(bs)
+    p = _build.ptr
+    err = _any_lib("fused_decode_bwd_any_launch")(
+        p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
+        p(g_fagg), p(g_alpha), M,
+        *_dims(spec), float(spec.neg_slope), int(spec.bf16), grid, p(ws),
+        *[p(t) for t in out], p(dparams), _build.stream_handle(dev))
+    _build.check(err, "fused_decode_bwd (general)")
+    return dparams, out
 
 
 class _FusedDecode(torch.autograd.Function):
@@ -610,7 +686,7 @@ def fused_decode(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
 
 
 fused_decode.launches = 0
-fused_decode.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
+fused_decode.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def param_count(spec: DecodeSpec) -> int:
@@ -633,11 +709,12 @@ def fused_decode_bwd(feat, dists, extras, w, params: Dict, spec: DecodeSpec,
     if feat.device.type == "cpu":
         return fused_decode_bwd_plain(feat, dists, extras, w, params, spec,
                                       g_fagg, g_alpha)
-    _refuse(spec, backward=True)
     Ws, bs, wa, ba = _device_weights(params, spec, feat.device)
-    dparams, rows = (_bwd_tc if spec.bf16 else _bwd_f32)(
+    r = route(spec, backward=True)
+    dparams, rows = {"general": _bwd_any, "tensor_core": _bwd_tc,
+                     "cuda_core": _bwd_f32}[r](
         feat, dists, extras, w, Ws, bs, wa, ba, spec, g_fagg, g_alpha)
-    _count(fused_decode_bwd, spec)
+    _count(fused_decode_bwd, r)
     return (*rows, _split_params(dparams, params, spec))
 
 
@@ -721,7 +798,7 @@ def _bwd_f32(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
 
 
 fused_decode_bwd.launches = 0
-fused_decode_bwd.launches_by_route = {"tensor_core": 0, "cuda_core": 0}
+fused_decode_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flops(M: int, spec: DecodeSpec) -> int:

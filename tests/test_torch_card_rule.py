@@ -6,7 +6,8 @@ card's rule for the kernels (ROADMAP "Rules for the port").
   eval_step / train_step do: integers equal, pixels, the loss and the
   gradients within 2e-4; and train_scene runs on it.
 - On CUDA the decode takes K3 (and K4 under a gradient) whenever the config
-  lies inside the fused envelope and the kernels' limits, and serving takes
+  lies inside the fused envelope (the general kernels past the tuned
+  kernels' limits), and serving takes
   K2 whenever it computes the march, whatever the fused flags say; outside
   the envelope the card runs the unfused torch decode (JAX's XLA branch).
   On the CPU the flags decide, as in JAX. The card is faked by passing a
@@ -26,7 +27,6 @@ from pointnerf_tpu.config import tiny_test_config
 from pointnerf_tpu.models.aggregator import aggregate as j_aggregate
 from pointnerf_tpu.models.points import SampledPoints as JSP
 from pointnerf_tpu.train import step as js
-from pointnerf_tpu_torch import SliceNotPorted
 from pointnerf_tpu_torch import config as tc
 from pointnerf_tpu_torch.convert import params_from_jax, train_state_from_jax
 from pointnerf_tpu_torch.models import aggregator as ta
@@ -119,27 +119,26 @@ def _agg(**kw):
 def test_decode_route_on_the_card(bf16):
     """decode_takes_kernel: the kernels inside the envelope whatever the
     flag on CUDA, the flag on the CPU, the unfused decode outside the
-    envelope, and a refusal inside the envelope past the port kernels'
-    limits, whatever the flag."""
+    envelope. Inside the envelope past the tuned kernels' limits (H = 512,
+    K = 6) the card takes the general kernels, whatever the flag: no spec
+    is refused."""
+    from pointnerf_tpu_torch.ops.fused_decode import route
     pick = ta.decode_takes_kernel
     for flag in (True, False):
-        assert pick(_agg(fused_decode=flag), 4, bf16, CUDA, backward=False)
-        assert pick(_agg(fused_decode=flag), 4, bf16, CUDA, backward=True)
-        assert pick(_agg(fused_decode=flag), 4, bf16, CPU, False) == flag
+        assert pick(_agg(fused_decode=flag), CUDA)
+        assert pick(_agg(fused_decode=flag), CPU) == flag
         for outside in (dict(act_super=0), dict(act_type="ReLU"),
                         dict(shading_feature_mlp_layer2=1),
                         dict(agg_intrp_order=1)):
-            assert not pick(_agg(fused_decode=flag, **outside), 4, bf16,
-                            CUDA, backward=True)
-            assert not pick(_agg(fused_decode=flag, **outside), 4, bf16, CPU,
-                            backward=True)
+            assert not pick(_agg(fused_decode=flag, **outside), CUDA)
+            assert not pick(_agg(fused_decode=flag, **outside), CPU)
     for flag in (True, False):
         for agg, K in ((_agg(fused_decode=flag, shading_feature_num=512), 4),
                        (_agg(fused_decode=flag), 6)):
-            for backward in (False, True):
-                with pytest.raises(SliceNotPorted, match="fused envelope"):
-                    pick(agg, K, bf16, CUDA, backward=backward)
-            assert pick(agg, K, bf16, CPU, backward=True) == flag
+            assert pick(agg, CUDA)
+            spec = ta.decode_spec(agg, K, bf16=bf16)
+            assert route(spec) == route(spec, backward=True) == "general"
+            assert pick(agg, CPU) == flag
 
 
 def test_march_route_on_the_card():
@@ -195,8 +194,7 @@ def test_card_route_runs_the_kernels_with_the_flags_off(interpret_pallas,
     monkeypatch.setattr(ta, "fused_decode", dec)
     monkeypatch.setattr(tr, "fused_march", march)
     monkeypatch.setattr(ta, "decode_takes_kernel",
-                        lambda c, K, b, _d, backward: real_pick_d(
-                            c, K, b, CUDA, backward))
+                        lambda c, _d: real_pick_d(c, CUDA))
     monkeypatch.setattr(tr, "march_takes_kernel",
                         lambda c, _d, train: real_pick_m(c, CUDA, train))
     _oj, card = _render_both(cfg)
@@ -346,8 +344,7 @@ def test_feedforward_step_takes_the_f32_decode_kernels(monkeypatch):
     monkeypatch.setattr(fd, "fused_decode_bwd", bwd)
     monkeypatch.setattr(tr, "fused_march", march)
     monkeypatch.setattr(ta, "decode_takes_kernel",
-                        lambda c, K, b, _d, backward: real_pick_d(
-                            c, K, b, CUDA, backward))
+                        lambda c, _d: real_pick_d(c, CUDA))
     monkeypatch.setattr(tr, "march_takes_kernel",
                         lambda c, _d, train: real_pick_m(c, CUDA, train))
     card_loss = run()

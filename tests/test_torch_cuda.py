@@ -963,3 +963,178 @@ def test_feedforward_step_launches_the_f32_kernels(dev):
     assert bool(torch.isfinite(items["loss_total"]))
     k = "mvsnet.cost_regularization.conv0.conv.weight"
     assert not torch.equal(new.params["mvs"][k], state.params["mvs"][k])
+
+
+# the general kernels (csrc/fused_decode_any.cu, csrc/fused_decode_bwd_any.cu):
+# specs past the tuned kernels' limits, in both roundings. In bf16 each
+# output and gradient is held on its mean error and on its largest, each
+# relative to the plain version's scale, at bars that lie under the
+# control (the f32 plain version in place of the bf16 one). Readings on an
+# H100 80GB HBM3 at 700 W, of these cases: K4's
+# worst mean 5.7e-03 (nine layers; 2.1e-05 at most elsewhere), worst
+# largest 7.7e-02 (nine layers; 1.0e-03 elsewhere); K3's largest 6.7e-04
+K3_BF16_MAX_TOL = {"fagg": 3e-2, "alpha": 1e-2}
+GENERAL_K4_BF16_TOL = 1e-2
+GENERAL_K4_BF16_MAX_TOL = 0.15
+GENERAL_CASES = {
+    "h48": dict(H=48),                          # not a multiple of 32
+    "h320": dict(H=320, L1=1, L3=1),            # past 256 columns
+    "k6": dict(K=6),                            # 64 % K != 0
+    "deep9": dict(H=64, L1=5, L3=4),            # nine block layers
+    "fi100": dict(Fi=100, H=64),                # x1 = 760: past 320 (bf16)
+                                                # and f32 shared memory
+    "k100": dict(H=40, K=100, L1=1, L3=1, G=30),  # a tile of one group
+    "small": dict(Fi=4, Dd=3, E=0, Ff=0, Fd=0, H=20, L1=1, L3=1),
+}
+
+
+def _general_inputs(dev, H=256, K=8, L1=2, L3=2, Fi=32, Dd=6, E=7, Ff=3,
+                    Fd=5, G=301, bf16=True, seed=21, dead_from=None):
+    """Decode inputs, weights and upstream gradients of a spec past the
+    tuned kernels' limits; groups from `dead_from` on get w == 0 and zero
+    upstream gradients."""
+    from pointnerf_tpu_torch.ops.fused_decode import DecodeSpec, layer_inputs
+    spec = DecodeSpec(Fi=Fi, Dd=Dd, E=E, Ff=Ff, Fd=Fd, H=H, K=K, L1=L1,
+                      L3=L3, neg_slope=0.01, bf16=bf16)
+    M = G * K
+    rng = np.random.RandomState(seed)
+    ins = [rng.normal(0, s, (M, n)).astype(np.float32)
+           for s, n in ((0.5, Fi), (0.05, Dd), (0.5, E))]
+    w = (rng.rand(M, 1) * (rng.rand(M, 1) > 0.3)).astype(np.float32)
+    gf = rng.normal(0, 1, (G, H)).astype(np.float32)
+    ga = rng.normal(0, 1, (G, 1)).astype(np.float32)
+    if dead_from is not None:
+        w[dead_from * K:] = 0.0
+        gf[dead_from:] = 0.0
+        ga[dead_from:] = 0.0
+    g = torch.Generator().manual_seed(seed)
+
+    def dense(n_in):
+        return {"w": (torch.randn((n_in, H), generator=g)
+                      * (2.0 / n_in) ** 0.5).to(dev),
+                "b": (torch.randn((H,), generator=g) * 0.1).to(dev)}
+    dims = layer_inputs(spec)
+    params = {"block1": [dense(n) for n in dims[:L1]],
+              "block3": [dense(n) for n in dims[L1:]],
+              "alpha": [{"w": (torch.randn((H, 1), generator=g)
+                               * 0.1).to(dev),
+                         "b": torch.zeros((1,)).to(dev)}]}
+    t = [torch.from_numpy(a).to(dev) for a in ins + [w]]
+    return (t, params, spec, torch.from_numpy(gf).to(dev),
+            torch.from_numpy(ga).to(dev))
+
+
+def _rel_max(a, b):
+    s = float(b.abs().max()) if b.numel() else 0.0
+    e = float((a - b).abs().max()) if b.numel() else 0.0
+    return e / s if s > 0 else e
+
+
+def _hold_general(ins, params, spec, gf, ga):
+    """K3 and K4 on the general route against their plain versions: f32
+    within 2e-4 of each output's or gradient's max|plain|; bf16 on the
+    mean error (K3_BF16_TOL, GENERAL_K4_BF16_TOL) and on the largest
+    (K3_BF16_MAX_TOL, GENERAL_K4_BF16_MAX_TOL), each bar under its
+    control. Returns the kernels' outputs."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    assert fd.route(spec) == "general"
+    assert fd.route(spec, backward=True) == "general"
+    n3 = fd.fused_decode.launches_by_route["general"]
+    n4 = fd.fused_decode_bwd.launches_by_route["general"]
+    fk = fd.fused_decode(*ins, params, spec)
+    gk = fd.fused_decode_bwd(*ins, params, spec, gf, ga)
+    assert fd.fused_decode.launches_by_route["general"] == n3 + 1
+    assert fd.fused_decode_bwd.launches_by_route["general"] == n4 + 1
+    fp = fd.fused_decode_plain(*ins, params, spec)
+    gp = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, spec, gf, ga))
+    torch.cuda.synchronize()
+    if not spec.bf16:
+        for a, b in zip(list(fk) + tree_leaves(gk), list(fp) + gp):
+            assert _rel_max(a, b) <= 2e-4
+        return fk, gk
+    f32 = spec._replace(bf16=False)
+    fc = fd.fused_decode_plain(*ins, params, f32)
+    gc = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, f32, gf, ga))
+    for name, a, b, c in zip(("fagg", "alpha"), fk, fp, fc):
+        assert _mean_rel(a, b) <= K3_BF16_TOL < _mean_rel(c, b), name
+        assert _rel_max(a, b) <= K3_BF16_MAX_TOL[name], name
+    live = [(a, b, c) for a, b, c in zip(tree_leaves(gk), gp, gc)
+            if b.numel()]
+    assert max(_mean_rel(a, b) for a, b, _c in live) <= GENERAL_K4_BF16_TOL \
+        < max(_mean_rel(c, b) for _a, b, c in live)
+    assert max(_rel_max(a, b) for a, b, _c in live) \
+        <= GENERAL_K4_BF16_MAX_TOL < max(_rel_max(c, b) for _a, b, c in live)
+    return fk, gk
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", sorted(GENERAL_CASES))
+def test_general_decode_matches_plain(dev, case, bf16):
+    _hold_general(*_general_inputs(dev, bf16=bf16, **GENERAL_CASES[case]))
+
+
+@pytest.mark.parametrize("case", ["k6", "small"])
+def test_general_decode_dead_tiles_are_zero(dev, case):
+    """Groups without weight and upstream gradient give exactly 0 in every
+    output row they own."""
+    kw = dict(GENERAL_CASES[case])
+    G = kw.pop("G", 301)
+    K = kw.get("K", 8)
+    ins, params, spec, gf, ga = _general_inputs(dev, G=G, dead_from=G // 3,
+                                                **kw)
+    (fagg, alpha), (g_feat, g_dists, g_extras, g_w, _gp) = _hold_general(
+        ins, params, spec, gf, ga)
+    g0 = -(-(G // 3) // (64 // K)) * (64 // K)   # the first dead tile
+    assert not bool(fagg[G // 3:].any()) and not bool(alpha[G // 3:].any())
+    for t in (g_feat, g_dists, g_extras, g_w):
+        assert not bool(t[g0 * K:].any())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_general_decode_bwd_bit_identical(dev, bf16):
+    """Every gradient is the same bits in two calls (per-CTA partials
+    summed in CTA order, no atomics)."""
+    from pointnerf_tpu_torch.ops.fused_decode import fused_decode_bwd
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    ins, params, spec, gf, ga = _general_inputs(dev, bf16=bf16,
+                                                **GENERAL_CASES["k6"])
+    a = tree_leaves(fused_decode_bwd(*ins, params, spec, gf, ga))
+    b = tree_leaves(fused_decode_bwd(*ins, params, spec, gf, ga))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_general_decode_state_in_shared_and_global_memory(dev):
+    """The tile state lies in shared memory where it fits (the small spec)
+    and in the workspace where it does not (a 760-wide first layer): both
+    hold."""
+    from pointnerf_tpu_torch.ops.fused_decode import any_plan
+    for case, smem in (("small", True), ("fi100", False)):
+        ins, params, spec, gf, ga = _general_inputs(dev,
+                                                    **GENERAL_CASES[case])
+        M = ins[0].shape[0]
+        for backward in (False, True):
+            _grid, _ws, sm = any_plan(spec, M, backward)
+            assert (sm > 0) == smem, (case, backward)
+        _hold_general(ins, params, spec, gf, ga)
+
+
+def test_general_autograd_launches_both_kernels(dev):
+    """The autograd Function at a general spec launches general K3 forward
+    and general K4 backward, and its gradients are K4's."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.optim import tree_leaves, tree_map
+    ins, params, spec, gf, ga = _general_inputs(dev, **GENERAL_CASES["h48"])
+    gk = tree_leaves(fd.fused_decode_bwd(*ins, params, spec, gf, ga))
+    xs = [t.clone().requires_grad_() for t in ins]
+    p = tree_map(lambda t: t.clone().requires_grad_(), params)
+    n3 = fd.fused_decode.launches_by_route["general"]
+    n4 = fd.fused_decode_bwd.launches_by_route["general"]
+    f, a = fd.fused_decode(*xs, p, spec)
+    got = torch.autograd.grad((f * gf).sum() + (a * ga).sum(),
+                              xs + tree_leaves(p))
+    assert fd.fused_decode.launches_by_route["general"] == n3 + 1
+    assert fd.fused_decode_bwd.launches_by_route["general"] == n4 + 1
+    for x, y in zip(got, gk):
+        assert torch.equal(x, y)

@@ -24,7 +24,9 @@ from pointnerf_tpu.models.renderer import RayBatch
 from pointnerf_tpu.train.step import eval_step, refresh_grid
 from pointnerf_tpu_torch import config as tc
 from pointnerf_tpu_torch.convert import params_from_jax, point_cloud_from_numpy
+from pointnerf_tpu_torch.models import aggregator as ta
 from pointnerf_tpu_torch.models import renderer as tr
+from pointnerf_tpu_torch.ops.fused_decode import route
 from pointnerf_tpu_torch.train import step as ts
 
 TOL = 2e-4
@@ -167,22 +169,18 @@ def test_out_of_slice_configs_raise():
     # flags say, so the flags-off config is accepted there too
     tr.check_envelope(plain, torch.device("cuda"))
     tr.check_envelope(plain, torch.device("cuda"), train=True)
-    # past K3's own limits the card refuses up front, naming the slice,
+    # past the tuned kernels' limits the card takes the general K3 and K4,
     # whatever the flag: inside the envelope the card never runs the
-    # kernel's plain twin
+    # kernel's plain twin, and no spec is refused
     tr.check_envelope(cfg, torch.device("cuda"))
     wide = cfg.replace(agg=dataclasses.replace(cfg.agg,
                                                shading_feature_num=512))
-    with pytest.raises(NotImplementedError, match="fused envelope"):
-        tr.check_envelope(wide, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="fused envelope"):
-        tr.check_envelope(wide.replace(agg=dataclasses.replace(
-            wide.agg, fused_decode=False)), torch.device("cuda"))
-    # the f32 K4 keeps a tile's activations and one layer's g_z in shared
-    # memory (every layer's input goes to scratch in device memory), as the
-    # bf16 (tensor-core) K4 does: eight 256-wide layers train on both
-    # routes. A first layer 620 wide (point_features_dim 80) fits K3 f32 but
-    # not K4 f32, so in f32 the card serves it and refuses to train it
+    tr.check_envelope(wide, torch.device("cuda"))
+    tr.check_envelope(wide.replace(agg=dataclasses.replace(
+        wide.agg, fused_decode=False)), torch.device("cuda"), train=True)
+    # eight 256-wide layers train on both tuned routes; a first layer 620
+    # wide (point_features_dim 80) fits K3 f32 but not K4 f32, so in f32
+    # the card serves it on the tuned K3 and trains it on the general K4
     deep = tc.bench_config()
     deep = deep.replace(
         agg=dataclasses.replace(deep.agg, fused_decode=True,
@@ -198,8 +196,10 @@ def test_out_of_slice_configs_raise():
         deep32.agg, point_features_dim=80, shading_feature_mlp_layer1=2,
         shading_feature_mlp_layer3=2))
     tr.check_envelope(wide32, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match=r"K3, K4.*fused envelope"):
-        tr.check_envelope(wide32, torch.device("cuda"), train=True)
+    tr.check_envelope(wide32, torch.device("cuda"), train=True)
+    spec = ta.decode_spec(wide32.agg, wide32.query.K, bf16=False)
+    assert route(spec) == "cuda_core"
+    assert route(spec, backward=True) == "general"
 
 
 def test_camera_and_gather_match_jax():
