@@ -7,9 +7,11 @@ Phases:
   1. the card's name and power limit (nvidia-smi);
   2. build the eight kernel sources of pointnerf_tpu_torch/csrc (one nvcc
      per source, in parallel) and print the build time and ptxas summary:
-     K1, K2, and K3 and K4 on two routes each — bf16 on the tensor-core
-     kernels (fused_decode_tc.cu, fused_decode_bwd_tc.cu), f32 on the
-     CUDA-core ones (fused_decode.cu, fused_decode_bwd.cu);
+     K1 (knn_select.cu: its run, warp and wide paths, the wide one for
+     rows of more than 512 candidates), K2, and K3 and K4 on two routes
+     each — bf16 on the tensor-core kernels (fused_decode_tc.cu,
+     fused_decode_bwd_tc.cu), f32 on the CUDA-core ones (fused_decode.cu,
+     fused_decode_bwd.cu) — and the general K3 / K4;
   3. the scene of both main paths — a 65,536-point sphere_scene (seed 0),
      its grid with the prebuilt neighbor tables, random aggregator weights
      from a seed — at bench_config with knn_select="pallas",
@@ -227,10 +229,16 @@ Phases:
      on) from the states the timed steps left, card vs CPU with the same
      draws: the losses and each group's gradients (from the Adam moments)
      at bars from readings beside their control (the CPU with an f32
-     decode, or the card with TF32 convolutions; D's hinge loss, which
-     neither moves apart, is printed beside both and held to no bar: D's
-     gradients carry D's check); (f) K3 and K4 bf16 on the recorded
-     inputs of a CNN step, at their bars;
+     decode, or the card with TF32 convolutions); the GAN step is split
+     where the roundings enter: the aggregator's and the points'
+     gradients on the whole step (control: an f32 decode), and every loss
+     and every gradient of the generator and of D on the step with the
+     card's feature images and the card's leaky-ReLU branches fed to
+     both sides, the adversarial term and the penalty on (control: the
+     card with TF32 convolutions; gan_fixed_parity); (f) K3 and K4 bf16
+     on the recorded inputs of a CNN step, at
+     their bars, K4's largest errors per tile of TC_ROWS_BWD rows beside a
+     live tile left out (hold_k4_tc_tiles);
  24. import: phase 3's scene and weights as a reference-format
      `net_ray_marching.pth` built by hand (the "module." prefix, [1, N, *]
      point tensors, Linear pairs at even Sequential indices), saved under
@@ -279,7 +287,8 @@ Phases:
  28. video: render_video_from_checkpoint on the dataset phase's run
      directory, VIDEO_FRAMES spiral frames of 800 x 800 as PNG (K3 f32 and
      K2 once a chunk); frame 0 equal to render_full_frame at its pose; the
-     image and video libraries of the host printed (none installed); K3
+     image and video libraries of the host printed (this script installs
+     none); K3
      f32 at the llff step's, eval chunk's and a video chunk's shapes and
      K4 f32 at the llff step's against their plain versions, K2 bit-equal
      on the llff eval chunk and the video chunk;
@@ -313,22 +322,57 @@ Phases:
      set to 0 just before each setting's counted serve and steps and read
      just after; the card-vs-CPU requests and the captures of the kernel
      checks' inputs run outside those windows;
- 31. the kernels JSON line (one row per kernel of a source: K2 has a row
+ 31. scannet_tables: phase 26's ScanNet scene with its color frames
+     re-encoded as JPEG (Pillow) under build/scannet_tables, read by the
+     loader through Pillow (a train item's first-touch and kept-frame
+     times printed), trained at scene_preset("scannet/scene241") with the
+     JAX package's production query — prebuild_neighbors, no shell cut,
+     knn_select "pallas", widths kept (P = 26: QP = 702, SR = 24, K = 8,
+     H = 256, bf16), the tables sized by refresh_grid from num_dil (first
+     max_d TABLES_MAX_D) — through train_dataset_scene (TABLES_STEPS steps
+     and an eval frame) and test_dataset_scene: every step launches K1 (on
+     its wide path), K3 and K4 once, every eval chunk K1, K3 and K2 once;
+     the first batch's loss falls, the two PSNRs agree; the tables' bytes
+     (and what JAX's default max_d = 4 max_o would need), s/step, s per
+     eval frame and peak memory printed; K1 bit-equal to its plain version
+     at K = 8 and 24 on a train step's and an eval chunk's inputs (QP =
+     702), K3 / K4 bf16 at their bars and K2 bit-equal there; a 512-ray
+     request of the test frame card vs CPU, the trained density scaled
+     by TABLES_DENSITY_SCALE so that the colors move with the decode
+     (integers equal; colors within phase 5's bar beside two controls
+     that pass it, the CPU with an f32 decode and with K - 1 neighbors,
+     and their mean error at most AGG_COLOR_SHARE of the f32 decode's;
+     tables_parity); then tables of
+     the same cloud at P = 30, 32 and 40 (QP 810, 864, 1,080) and K1
+     bit-equal at K = 8 and 24 on a 9,216-ray request's inputs at each,
+     with times, plain times and bounds;
+ 32. mvsnerf: a seeded random cost volume at MVSNeRF's widths (128
+     planes, 8 channels, 1/4 of 640 x 512) and 3 views, ReferenceMVSNeRF
+     v2 at the JAX defaults (D = 8, W = 256) with weights from a seed; the
+     counts set to 0, 4 requests of 3,600 rays at 128 samples through
+     render_mvsnerf (K2 once a request, on its tiled kernel, no other
+     kernel; rays/s); K2 bit-equal to the plain march on the
+     [3600, 128, 4] input recorded from a request served outside
+     torch.no_grad (K2 all the same: the card's rule); a 512-ray request card vs CPU (the plain march
+     there) within MVSNERF_TOL;
+ 33. the kernels JSON line (one row per kernel of a source: K1 has a row
+     for its run and warp paths and one for its wide path, K2 a row
      for its tiled kernel and one for its wide kernel, K3 and K4 a
      tensor-core row, a CUDA-core row and a general row, counted by route
      on every path, where each path's K2 launches all take one kernel, the
      tiled one at C = 3 and the wide one at C = 128; launches per
      path: serve, train, maintenance, dataset, flags_off, hybrid (phases
      14-16), loaders, mvs (phases 21-22), n2d (phase 23), import, edit,
-     scannet, llff, video (phases 24-28), whole_agg (phase 30); each
-     kernel's numbers on the maintenance path's probe and eval chunks, on
+     scannet, llff, video (phases 24-28), whole_agg (phase 30),
+     scannet_tables (phase 31), mvsnerf (phase 32); each kernel's numbers on the maintenance path's probe and eval chunks, on
      the flags-off path's train step and request, at the hybrid's and the
      fine pass's shapes, on the feed-forward step and the dtu_ft eval
      chunk, on the neural2d step and the feature requests, and on the
      import and edit requests, the scannet step and eval chunk, the llff
-     step and eval chunk and the video chunk; the general rows at H = 512
-     and beside them K = 6 and f32), the card line, and the final status
-     line.
+     step and eval chunk and the video chunk, the scannet_tables step,
+     eval chunk and wider tables, and the MVSNeRF request; the general rows
+     at H = 512 and beside them K = 6 and f32), the card line, and the
+     final status line.
 
 Each bf16 bar is also held against a control: the same comparison with the
 f32 plain version in place of the bf16 one, which must land above the bar,
@@ -339,8 +383,9 @@ so the largest error of a sound kernel is of the control's order. Their
 largest error is held apart, tensor by tensor, which catches a fault in a
 few rows: K3's at fixed bars set from readings over many chunks, with a
 control (a live tile zeroed) above them (hold_k3_max), the tuned K4's
-against that of the plain version summed in f64 (hold_max), the general
-K4's at a fixed bar from readings with a control (a live tile left out).
+against that of the plain version summed in f64 (hold_max) except on the
+neural2d step, where it and the general K4's are held per tile at fixed
+bars from readings with a control (a live tile left out).
 
 Any failure exits non-zero before the status line. Without a CUDA device,
 or without the pointnerf_tpu_torch package beside it, it exits 1.
@@ -357,6 +402,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 # tolerances of the kernel-vs-plain comparisons on the card
 K2_TOL = 1e-5          # march: the PERF.md parity bar
@@ -790,7 +836,8 @@ def check_k1(args, kw):
     import torch
     from pointnerf_tpu_torch.ops.knn_select import (SLOTS_PER_BLOCK,
                                                     knn_select,
-                                                    knn_select_plain)
+                                                    knn_select_plain,
+                                                    path_for)
     nbr_xyz, nbr_pid, dslot, centers, ok = args
     K, r2 = kw["K"], kw["r2"]
     C, QP = centers.shape[0], nbr_pid.shape[1]
@@ -804,8 +851,9 @@ def check_k1(args, kw):
     if not torch.equal(fin, torch.isfinite(d2_k)):
         fail("K1: kernel and plain disagree on which winners are valid")
     err = float((d2_k[fin] - d2_p[fin]).abs().max()) if fin.any() else 0.0
-    log(f"K1 knn_select C={C} QP={QP} K={K}: pid mismatches {n_bad} "
-        f"(must be 0), max |d2 err| {err:.3e} (must be 0)")
+    log(f"K1 knn_select C={C} QP={QP} K={K} ({path_for(K, QP)} path): pid "
+        f"mismatches {n_bad} (must be 0), max |d2 err| {err:.3e} (must be "
+        f"0)")
     if n_bad or err != 0.0:
         fail("K1 disagrees with its plain version")
     ms = graph_ms(lambda: knn_select(*args, **kw))
@@ -1027,15 +1075,18 @@ MAIN_ROUTES = {"knn_select": "runs", "fused_decode": "tensor_core",
                "fused_decode_bwd": "tensor_core"}
 
 
-def kernel_routes(kernels, path: str, march: str = "tiled"):
+def kernel_routes(kernels, path: str, march: str = "tiled",
+                  k1: str = "runs"):
     """The launches of a main-path run by route; fails unless every one
-    went to the route of MAIN_ROUTES, and K2's to `march`."""
+    went to the route of MAIN_ROUTES, K1's to `k1` (the wide path on the
+    tables of the reference ScanNet scenes) and K2's to `march`."""
+    want = {**MAIN_ROUTES, "knn_select": k1}
     routes = {n: dict(kernels[n].launches_by_route) for n in MAIN_ROUTES}
     for n, r in routes.items():
-        if r[MAIN_ROUTES[n]] != kernels[n].launches \
+        if r[want[n]] != kernels[n].launches \
                 or sum(r.values()) != kernels[n].launches:
             fail(f"{path} path: {n} launches went to another route than "
-                 f"{MAIN_ROUTES[n]}: {r}")
+                 f"{want[n]}: {r}")
     routes["fused_march"] = march_routes(kernels, path, march)
     return routes
 
@@ -1055,7 +1106,10 @@ def same_integers(o_card, o_cpu):
     """Fail unless two renders agree on every integer output."""
     import torch
     for f in ("ray_valid", "ray_mask", "decode_dropped"):
-        if not torch.equal(getattr(o_card, f).cpu(), getattr(o_cpu, f)):
+        a, b = getattr(o_card, f), getattr(o_cpu, f)
+        if a is None and b is None:       # the dense decode drops nothing
+            continue
+        if a is None or b is None or not torch.equal(a.cpu(), b):
             fail(f"{f} differs between the card and the CPU")
     pk, pc_ = o_card.neighbor_pidx.cpu(), o_cpu.neighbor_pidx
     bad_rows = (pk != pc_).any(-1).nonzero()[:, 0].tolist()
@@ -4007,22 +4061,61 @@ N2D_FEAT_TOL = 3e-5
 # style 2.1e-05 / 7.3e-05, stylevec 2.0e-05 / 9.6e-05, d 4.7e-05 / 8.5e-04.
 # The states differ run to run (the payload gather's backward adds with
 # atomics), so where the two lie within a decade the bar sits near their
-# geometric mean, at least 1.8x from each: CNN head, GAN loss_total,
-# recon, adversarial, head, style and stylevec.
-# No control moves D's hinge loss apart from the card's readings (up to
-# 9.3e-07; TF32 by 3.0e-06 to 7.7e-06, an f32 decode by less than the
-# card), so a bar on it could not tell a fault from rounding: it is printed
-# beside both controls and held to no bar, and D's gradients carry D's
-# check with a control
+# geometric mean, at least 1.8x from each (the CNN head). The GAN step's
+# losses, head, style, stylevec and D are held on the split below
 N2D_TOL = {"cnn": {"loss_total": (1e-5, "f32"), "mlp": (2e-3, "f32"),
                    "points": (1.5e-3, "f32"), "head": (1.2e-3, "f32")},
-           "gan": {"loss_total": (9e-6, "tf32"),
-                   "loss_recon": (1.8e-6, "tf32"),
-                   "loss_g_adv": (1e-5, "tf32"),
-                   "loss_gp": (1e-4, "tf32"), "mlp": (4e-3, "f32"),
-                   "points": (4e-3, "f32"), "head": (5.5e-5, "tf32"),
-                   "style": (4e-5, "tf32"), "stylevec": (4.5e-5, "tf32"),
-                   "d": (3e-4, "tf32")}}
+           "gan": {"mlp": (4e-3, "f32"), "points": (4e-3, "f32")}}
+# The GAN step is held in parts split where the roundings enter, each part
+# beside the control it fails (PERF.md §6; readings on an H100 80GB
+# HBM3 at 700 W through scripts/parity_readings.py --phase n2d). On the
+# whole step the decode's roundings reach the generator through the two
+# feature images: the head gradient read up to 3.8e-05 against an
+# f32-decode control down to 1.2e-05 (an earlier run: 8.7e-05 against
+# 9.5e-05), and the TF32 controls of loss_recon (down to 9.6e-07) and
+# loss_gp (4.6e-05) fell below their bars. In bf16 the card's and the
+# CPU's feature images differ as much as an f32 decode moves them (2.4e-03
+# to 4.7e-03 of sum |CPU| both), so the images are printed and the
+# decode's side is held by the aggregator's and the points' gradients of
+# the whole step (N2D_TOL). The rest is held on the step with the card's
+# feature images fed to both sides (gan_fixed_parity). There D's leaky
+# ReLUs took another branch on the card than on the CPU in about 1 state
+# of 20 — a pre-activation rounded across 0, in the penalty's double
+# backward (loss_gp 9.9e-04) or in D's forward —, which moved D's update
+# and the generator's adversarial gradient by 20x (head 3.4e-05, style
+# 5.0e-05, stylevec 5.6e-05, TF32 controls down to 7.3e-05). So the card's
+# branches are fed to the other sides too (`lrelu_branches`: each leaky
+# ReLU of the heads takes the card's x >= 0 mask, in call order), and a
+# branch then moves nothing but by its own rounding. Held there, relative
+# (losses) or sum |err| / sum |CPU| (gradients), beside the card with TF32
+# convolutions on the same images and branches, over 40 trained states
+# (20 with the branches fed, 20 before, in which no branch flipped), the
+# highest reading / the lowest control: loss_total 1.08e-06 / 2.95e-05,
+# loss_recon 4.4e-07 / 1.39e-06, loss_g_adv 9.1e-07 / 2.85e-05, loss_gp
+# 7.8e-06 / 6.9e-05, loss_d 7.0e-07 / 1.59e-05, head 1.37e-06 / 1.04e-04,
+# style 1.02e-06 / 3.44e-05, stylevec 1.11e-06 / 4.36e-05, d 1.27e-06 /
+# 2.76e-04; each bar near their geometric mean
+N2D_GAN_FIXED_TOL = {"loss_total": 5.5e-6, "loss_recon": 8e-7,
+                     "loss_g_adv": 5e-6, "loss_gp": 2.3e-5, "loss_d": 3.3e-6,
+                     "head": 1.2e-5, "style": 6e-6, "stylevec": 7e-6,
+                     "d": 1.9e-5}
+# the tensor-core K4 in bf16 on a neural2d step, its largest errors
+# (hold_k4_tc_tiles): row gradients per tile of TC_ROWS_BWD rows, max
+# |kernel - plain| / max |plain| over the tile's rows, that max floored at
+# TC_K4_BF16_TILE_FLOOR of the tensor's; the control, the tile that holds
+# the tensor's max |plain| left out, reads 1. dW / db relative to
+# max|plain|, the control the median live tile left out. Readings on an
+# H100 80GB HBM3 at 700 W (n2d_path per trained state, as
+# scripts/parity_readings.py --phase n2d drives it; PERF.md §6): unfloored
+# over 80 states g_feat up to 0.300, g_dists 0.311, g_extras 0.373, g_w
+# 0.024; floored over 20 more g_feat 0.273, g_dists 0.191, g_extras 0.333
+# — their largest errors sit in tiles of large gradients, so their bar
+# stays near the geometric mean of 0.373 and 1 — and g_w 0.0026, held at
+# 0.05; dW / db up to 9.2e-05 (dblock3) over 80 states, controls from
+# 5.55e-04
+TC_K4_BF16_TILE_FLOOR = 0.1
+TC_K4_BF16_TILE_TOL = {None: 0.6, "g_w": 0.05}
+TC_K4_BF16_DW_TOL = 2.2e-4
 
 
 def n2d_config():
@@ -4263,11 +4356,13 @@ def n2d_step_parity(kind, heads, state, st, grid, cfg):
     """One step of `kind` ("cnn" or "gan") from `state` (the state the
     timed steps left) on the card and on the CPU (plain versions) with the
     same draws; the GAN step with the penalty on (gp_every 1). The losses
-    and each group's gradients (from the moments, `step_grads`) are held
-    at their bars beside a control (N2D_TOL): where the decode's roundings
-    lead, the CPU with an f32 decode; where the convolutions' lead, the
-    card with them in TF32 (`tf32_convolutions`). D's hinge loss, which
-    neither control moves apart, is printed and held to no bar."""
+    and each group's gradients (from the moments, `step_grads`) are
+    printed, and held at their bars beside a control (N2D_TOL): where the
+    decode's roundings lead, the CPU with an f32 decode; where the
+    convolutions' lead, the card with them in TF32 (`tf32_convolutions`).
+    On the GAN step the convolution-led ones are held with the card's
+    feature images and leaky-ReLU branches on both sides
+    (`gan_fixed_parity`)."""
     import torch
     from pointnerf_tpu_torch.train import neural2d as n2
     from pointnerf_tpu_torch.train.neural2d import augment_draws
@@ -4284,58 +4379,152 @@ def n2d_step_parity(kind, heads, state, st, grid, cfg):
                                                   compute_dtype="f32"))
     grid_c = type(grid)(*[None if t is None else t.cpu() for t in grid])
     st_c = type(st)(*[t.cpu() for t in st])
-    res = {}
+    res, images = {}, {}
+    real_render = n2.render_rays
     # the heads run through functional_call with the state's parameters, so
-    # one module serves both devices
-    for side, c, dev in (("card", cfg, card), ("cpu", cfg, cpu),
-                         ("f32", cfg32, cpu), ("tf32", cfg, card)):
+    # one module serves both devices; the "_fixed" sides (GAN only) render
+    # nothing and take the card's feature images instead, and the leaky
+    # ReLUs' branches of "card_fixed" (`lrelu_branches`)
+    sides = [("card", cfg, card), ("cpu", cfg, cpu), ("f32", cfg32, cpu),
+             ("tf32", cfg, card)]
+    if kind == "gan":
+        sides += [(f"{s}_fixed", cfg, dev) for s, dev in (
+            ("card", card), ("cpu", cpu), ("tf32", card))]
+    branches = []
+    for side, c, dev in sides:
         on_card = dev == card
         if kind == "gan":
-            step = n2.make_gan_step(c, None, N2D_PATCH, heads["disc"],
-                                    generator=heads["gen"],
-                                    vectorizer=heads["vec"], gp_every=1)
+            step = n2.make_gan_step(
+                c, None, N2D_PATCH, heads["disc"], generator=heads["gen"],
+                vectorizer=heads["vec"], gp_every=1)
         else:
             step = n2.make_neural2d_step(c, heads["cnn"], N2D_PATCH)
         s0 = state if on_card else state_to(state, cpu)
         args = (s0, st if on_card else st_c, grid if on_card else grid_c,
                 b_card if on_card else b_cpu, gt.to(dev),
                 0 if kind == "cnn" else 1)
-        with (tf32_convolutions() if side == "tf32"
-              else contextlib.nullcontext()):
-            if kind == "gan":
-                new, items = step(*args, draws={
-                    k: (v.to(dev) if torch.is_tensor(v) else v)
-                    for k, v in draws.items()})
-            else:
-                new, items = step(*args, u=draws["render"].to(dev))
+        seen = images.setdefault(side, [])
+
+        def render(*a, _seen=seen, _dev=dev, _side=side, **k):
+            if "_fixed" in _side:
+                img = images["card"][len(_seen)].to(_dev)
+                _seen.append(img)
+                return types.SimpleNamespace(coarse_raycolor=img)
+            out = real_render(*a, **k)
+            _seen.append(out.coarse_raycolor.detach())
+            return out
+        n2.render_rays = render
+        try:
+            with (tf32_convolutions() if side.startswith("tf32")
+                  else contextlib.nullcontext()), (
+                    lrelu_branches(branches, side == "card_fixed")
+                    if "_fixed" in side else contextlib.nullcontext()):
+                if kind == "gan":
+                    new, items = step(*args, draws={
+                        k: (v.to(dev) if torch.is_tensor(v) else v)
+                        for k, v in draws.items()})
+                else:
+                    new, items = step(*args, u=draws["render"].to(dev))
+        finally:
+            n2.render_rays = real_render
         res[side] = ({k: float(v) for k, v in items.items()},
                      step_grads(s0, new))
     out = {}
     quantities = [k for k in res["cpu"][0] if k.startswith("loss_")] + list(
         res["cpu"][1])
     for k in quantities:
-        if k.startswith("loss_"):
-            ref = res["cpu"][0][k]
-            if ref == 0:
-                fail(f"n2d {kind} step: the CPU's {k} is 0")
-            r = {s: abs(res[s][0][k] - ref) / abs(ref)
-                 for s in ("card", "f32", "tf32")}
-            what = f"n2d {kind} step card vs CPU {k}, relative"
-        else:
-            r = {s: _sum_rel(res[s][1][k], res["cpu"][1][k])
-                 for s in ("card", "f32", "tf32")}
-            what = (f"n2d {kind} step card vs CPU {k} gradients, sum |err| "
-                    f"/ sum |CPU|")
+        r = {s: step_rel(res, s, "cpu", k) for s in ("card", "f32", "tf32")}
+        what = f"n2d {kind} step card vs CPU {quantity_name(k)}"
         log(f"{what} (printed): {r['card']:.3e}; the CPU with an f32 decode "
             f"{r['f32']:.3e}, the card with TF32 convolutions "
             f"{r['tf32']:.3e}")
         out[k] = r
-        if k == "loss_d":
+        if k not in N2D_TOL[kind]:
             continue
         bar, ctl_side = N2D_TOL[kind][k]
         hold_bf16(what, r["card"], r[ctl_side], bar,
                   "the CPU with an f32 decode" if ctl_side == "f32"
                   else "the card with TF32 convolutions")
+    if kind == "gan":
+        out["fixed"] = gan_fixed_parity(res, images)
+    return out
+
+
+def step_rel(res, side, ref_side, k):
+    """A quantity of one parity step against another's: a loss relative,
+    a group's gradients sum |err| / sum |ref|."""
+    if k.startswith("loss_"):
+        ref = res[ref_side][0][k]
+        if ref == 0:
+            fail(f"n2d step: the reference side's {k} is 0")
+        return abs(res[side][0][k] - ref) / abs(ref)
+    return _sum_rel(res[side][1][k], res[ref_side][1][k])
+
+
+def quantity_name(k):
+    return (f"{k}, relative" if k.startswith("loss_")
+            else f"{k} gradients, sum |err| / sum |CPU|")
+
+
+@contextlib.contextmanager
+def lrelu_branches(masks: list, record: bool):
+    """The heads' leaky ReLUs (`neural_render._lrelu`) inside the block
+    append each call's branch mask x >= 0 to `masks` (record) or take the
+    recorded ones in call order instead of their own: the card's branches
+    on another side, so that a pre-activation rounded across 0 moves
+    nothing but by its rounding."""
+    import torch
+    from pointnerf_tpu_torch.models import neural_render as nr
+    real, it = nr._lrelu, iter(list(masks))
+
+    def lrelu(x):
+        if record:
+            m = x >= 0
+            masks.append(m.detach())
+        else:
+            m = next(it, None)
+            if m is None or m.shape != x.shape:
+                fail("lrelu_branches: the leaky ReLUs ran in another order "
+                     "than on the recorded side")
+            m = m.to(x.device)
+        return torch.where(m, x, 0.2 * x)
+    nr._lrelu = lrelu
+    try:
+        yield
+    finally:
+        nr._lrelu = real
+    if not record and next(it, None) is not None:
+        fail("lrelu_branches: recorded branches were left unused")
+
+
+def gan_fixed_parity(res, images):
+    """The GAN step with the card's feature images and leaky-ReLU branches
+    fed to both sides, card vs CPU: the losses and the generator's and D's
+    gradients at N2D_GAN_FIXED_TOL, each beside the card with TF32
+    convolutions on the same images and branches; the feature images card
+    vs CPU printed (the comment above N2D_GAN_FIXED_TOL)."""
+    import torch
+    if not all(torch.equal(a, b)
+               for a, b in zip(images["card_fixed"], images["card"])):
+        fail("n2d gan step: the fixed-image step did not take the card's "
+             "feature images")
+    img = (sum(float((a.cpu() - b).abs().sum())
+               for a, b in zip(images["card"], images["cpu"]))
+           / sum(float(b.abs().sum()) for b in images["cpu"]))
+    f32 = (sum(float((a - b).abs().sum())
+               for a, b in zip(images["f32"], images["cpu"]))
+           / sum(float(b.abs().sum()) for b in images["cpu"]))
+    log(f"n2d gan step feature images card vs CPU, sum |err| / sum |CPU| "
+        f"(printed): {img:.3e}; the CPU with an f32 decode {f32:.3e}")
+    what = "the card's feature images and branches on both sides"
+    out = {}
+    for k, bar in N2D_GAN_FIXED_TOL.items():
+        r = {s: step_rel(res, f"{s}_fixed", "cpu_fixed", k)
+             for s in ("card", "tf32")}
+        hold_bf16(f"n2d gan step card vs CPU {quantity_name(k)}, {what}",
+                  r["card"], r["tf32"], bar,
+                  "the card with TF32 convolutions")
+        out[k] = r
     return out
 
 
@@ -4404,7 +4593,8 @@ def n2d_path(kernels):
             "fused_decode": check_k3([(recorded["fused_decode"], {})],
                                      what="neural2d step")["bf16"],
             "fused_decode_bwd": check_k4(
-                recorded["fused_decode_bwd"])["bf16"]}
+                recorded["fused_decode_bwd"],
+                hold_largest=hold_k4_tc_tiles)["bf16"]}
     return counts, routes, checks, nums
 
 
@@ -5118,8 +5308,8 @@ def video_path(kernels, data_root: str, run_dir: str, cfg):
             have[m] = True
         except Exception:
             have[m] = False
-    log(f"video: image and video libraries on this host (none installed "
-        f"by this script): {have}")
+    log(f"video: image and video libraries on this host (this script "
+        f"installs none): {have}")
     return counts, routes, mid
 
 
@@ -5373,40 +5563,51 @@ def agg_serve_and_step(params, pc, st, grid, cfg, kernels, reqs, tbatch,
     return serve_s, step_s, losses, state
 
 
-def general_tile(w, K: int):
-    """(rows per tile of the general kernels, the median live tile)."""
+def general_tile(w, K: int, T=None):
+    """(rows per tile — by default the general kernels' —, the median live
+    tile)."""
     import torch
-    T = max(1, 64 // K) * K
+    T = T or max(1, 64 // K) * K
     live = torch.nn.functional.pad((w.reshape(-1) != 0),
                                    (0, -w.shape[0] % T)).view(-1, T).any(1)
     idx = live.nonzero().reshape(-1)
     return T, int(idx[idx.numel() // 2])
 
 
-def tile_rel_max(a, b, T: int) -> float:
+def tile_rel_max(a, b, T: int, floor: float = 0.0) -> float:
     """The largest, over tiles of T rows, of max |a - b| / max |b| in the
-    tile (inf where b is zero and a is not)."""
+    tile, that max taken at least `floor` (inf where it is zero and a - b
+    is not)."""
     import torch
     pad = -a.shape[0] % T
     e = torch.nn.functional.pad((a - b).abs().reshape(a.shape[0], -1),
                                 (0, 0, 0, pad)).view(-1, T * a[0].numel())
     s = torch.nn.functional.pad(b.abs().reshape(b.shape[0], -1),
                                 (0, 0, 0, pad)).view(-1, T * b[0].numel())
-    e, s = e.amax(1), s.amax(1)
+    e, s = e.amax(1), s.amax(1).clamp(min=floor)
     r = torch.where(s > 0, e / s.clamp(min=1e-30),
                     torch.where(e > 0, float("inf"), 0.0))
     return float(r.max()) if r.numel() else 0.0
 
 
-def k4_tile_control(args, sp, names, plain, out):
-    """The controls of the general K4's largest errors: the median live
-    tile left out. Row gradients: `tile_rel_max` of the kernel's output
-    with that tile's rows zeroed. dW / db: the largest |plain backward of
-    that tile alone| / max|plain|, the share the tile would leave out."""
+def widest_tile(b, T: int) -> int:
+    """The tile of T rows that holds max |b|."""
+    return int(b.abs().reshape(b.shape[0], -1).amax(1).argmax()) // T
+
+
+def k4_tile_control(args, sp, names, plain, out, T=None, floor_share=0.0):
+    """The controls of K4's largest errors: a live tile (of T rows, by
+    default the general kernels') left out. Row gradients: `tile_rel_max`
+    of the kernel's output with that tile's rows zeroed — the median live
+    tile's, or with a `floor_share` (each tile's max|plain| floored at
+    that share of the tensor's) the tile that holds the tensor's max|plain|
+    (`widest_tile`), which a floored tile under the median's could not
+    stand for. dW / db: the largest |plain backward of the median tile
+    alone| / max|plain|, the share the tile would leave out."""
     from pointnerf_tpu_torch.ops.fused_decode import fused_decode_bwd_plain
     feat, dists, extras, w, params, _spec, g_fagg, g_alpha = args
     K = sp.K
-    T, t = general_tile(w, K)
+    T, t = general_tile(w, K, T)
     r0, r1 = t * T, min((t + 1) * T, w.shape[0])
     _, tile = decode_grad_leaves(fused_decode_bwd_plain(
         feat[r0:r1], dists[r0:r1], extras[r0:r1], w[r0:r1], params, sp,
@@ -5414,30 +5615,45 @@ def k4_tile_control(args, sp, names, plain, out):
     ctl = {}
     for i, (n, a, b) in enumerate(zip(names, tile, plain)):
         if i < 4:
+            z0, z1 = r0, r1
+            if floor_share > 0:
+                tw = widest_tile(b, T)
+                z0, z1 = tw * T, min((tw + 1) * T, b.shape[0])
             z = out[i].clone()
-            z[r0:r1] = 0
-            ctl[n] = tile_rel_max(z, b, T)
+            z[z0:z1] = 0
+            ctl[n] = tile_rel_max(z, b, T,
+                                  floor_share * float(b.abs().max()))
         else:
             ctl[n] = float(a.abs().max()) / max(float(b.abs().max()), 1e-30)
     return ctl
 
 
-def hold_k4_tiles(what: str, args, sp, names, out, plain):
-    """The general K4's largest-error rule in bf16 (for `check_k4`): each
-    row gradient's largest error per tile of the kernel (`tile_rel_max`)
-    within GENERAL_K4_BF16_TILE_TOL, each dW / db's of its max|plain|
-    within GENERAL_K4_BF16_DW_TOL, and each control (`k4_tile_control`: a
-    live tile left out) above its bar. Returns {name: (reading, control)}."""
-    T = general_tile(args[3], sp.K)[0]
-    got = {n: (tile_rel_max(x, p, T) if i < 4 else
+def hold_k4_tiles(what: str, args, sp, names, out, plain, T=None,
+                  tile_tol=GENERAL_K4_BF16_TILE_TOL,
+                  dw_tol=GENERAL_K4_BF16_DW_TOL, floor_share=0.0):
+    """K4's largest-error rule in bf16 (for `check_k4`): each row
+    gradient's largest error per tile of T rows (`tile_rel_max`; by default
+    the general kernels' tile; each tile's max|plain| floored at
+    `floor_share` of the tensor's) within `tile_tol` (or its entry for the
+    tensor in a dict, None the default), each dW / db's of its
+    max|plain| within `dw_tol`, and each control (`k4_tile_control`: a
+    live tile left out) above its bar. The general K4 at the general bars;
+    the tuned one through `hold_k4_tc_tiles`. Returns {name: (reading,
+    control)}."""
+    T = general_tile(args[3], sp.K, T)[0]
+    got = {n: (tile_rel_max(x, p, T, floor_share * float(p.abs().max()))
+               if i < 4 else
                float((x - p).abs().max()) / max(float(p.abs().max()), 1e-30))
            for i, (n, x, p) in enumerate(zip(names, out, plain))}
-    ctl = k4_tile_control(args, sp, names, plain, out)
-    bars = {n: (GENERAL_K4_BF16_TILE_TOL if i < 4 else GENERAL_K4_BF16_DW_TOL)
+    ctl = k4_tile_control(args, sp, names, plain, out, T, floor_share)
+    bars = {n: ((tile_tol.get(n, tile_tol[None]) if isinstance(tile_tol, dict)
+                 else tile_tol) if i < 4 else dw_tol)
             for i, n in enumerate(names)}
+    floor = (f", floored at {floor_share:g} of the tensor's max |plain|"
+             if floor_share else "")
     log(f"{what}: largest errors [bar] (control: a live tile left out) — "
-        f"rows per tile of {T}, max |err| / max |plain| in the tile; dW / db "
-        f"of max|plain|: " + ", ".join(
+        f"rows per tile of {T}, max |err| / max |plain| in the tile{floor}; "
+        f"dW / db of max|plain|: " + ", ".join(
             f"{n} {got[n]:.3e} [{bars[n]:.0e}] ({ctl[n]:.3e})" for n in names))
     bad = [n for n in names if not got[n] <= bars[n]]
     if bad:
@@ -5446,6 +5662,18 @@ def hold_k4_tiles(what: str, args, sp, names, out, plain):
     if bad:
         fail(f"{what}: the bar of {bad} does not tell the control apart")
     return {n: (got[n], ctl[n]) for n in names}
+
+
+def hold_k4_tc_tiles(what: str, args, sp, names, out, plain):
+    """The tensor-core K4's largest-error rule in bf16 on a neural2d step:
+    `hold_k4_tiles` over its own tiles (TC_ROWS_BWD rows), each tile's
+    max|plain| floored at TC_K4_BF16_TILE_FLOOR of the tensor's, at the
+    TC_K4_BF16_* bars."""
+    from pointnerf_tpu_torch.ops.fused_decode import TC_ROWS_BWD
+    return hold_k4_tiles(what, args, sp, names, out, plain, T=TC_ROWS_BWD,
+                         tile_tol=TC_K4_BF16_TILE_TOL,
+                         dw_tol=TC_K4_BF16_DW_TOL,
+                         floor_share=TC_K4_BF16_TILE_FLOOR)
 
 
 def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
@@ -5540,6 +5768,433 @@ def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
         + f"); launches of the counted serves and steps {counts}, routes "
         f"{routes}")
     return (counts, routes), checks
+
+
+# ---- phase 31: the reference ScanNet scene on prebuilt tables (K1's wide
+# path) with JPEG frames; phase 32: the MVSNeRF volume renderer ------------
+TABLES_DIR = "scannet_tables"
+TABLES_STEPS = 8
+TABLES_MAX_D = 4096      # the first build; refresh_grid sizes it from num_dil
+TABLES_WIDE_P = (30, 32, 40)   # QP 810 (scene101), 864 (tt/family), 1,080
+TABLES_WIDE_K = (8, 24)        # K as the presets, and one past the run path
+JPEG_QUALITY = 95
+MVSNERF_PLANES = 128           # MVSNeRF's depth planes
+MVSNERF_C = 8                  # its volume's channels
+MVSNERF_WH = (640, 512)        # the views; the volume at 1/4 of them
+MVSNERF_VIEWS = 3
+MVSNERF_SAMPLES = 128
+MVSNERF_NEAR_FAR = (2.2, 3.8)  # around MVS_RING's radius
+MVSNERF_TOL = 1e-5             # card vs CPU colors: the march's bar
+# the scannet_tables request card vs CPU: the trained density scaled by
+# this (tables_parity). Readings on an H100 80GB HBM3 at 700 W (PERF.md
+# §6), card / f32 decode / K - 1 neighbors, the colors' max |err|: as
+# trained 2.98e-07 / 1.43e-06 / 1.19e-07 (the rays' opacity ~1e-4, the
+# colors the background's), x 1000 8.3e-07 / 1.13e-03 / 6.07e-05 (opacity
+# 0.108)
+TABLES_DENSITY_SCALE = 1000.0
+
+
+def tables_config():
+    """scene_preset("scannet/scene241") with the JAX package's production
+    query: prebuilt tables, no shell cut, knn_select="pallas" (P = 26:
+    QP = 702), at most TABLES_STEPS steps with one eval at the end."""
+    from pointnerf_tpu_torch.presets import scene_preset
+    cfg = scene_preset(SCANNET_PRESET)
+    return cfg.replace(
+        query=dataclasses.replace(cfg.query, prebuild_neighbors=True,
+                                  shell_layered=False, knn_select="pallas",
+                                  max_d=TABLES_MAX_D),
+        train=dataclasses.replace(cfg.train, maximum_step=TABLES_STEPS,
+                                  test_freq=TABLES_STEPS,
+                                  save_iter_freq=TABLES_STEPS,
+                                  print_freq=TABLES_STEPS))
+
+
+def jpeg_scannet_scene(src: str, dst: str):
+    """Phase 26's ScanNet scene (written first where it is missing) with its
+    color frames re-encoded as JPEG (Pillow, quality JPEG_QUALITY), as
+    ScanNet ships them; depth, poses and intrinsics copied."""
+    from PIL import Image
+    if not os.path.isdir(os.path.join(src, "color")):
+        write_scannet_scene(src)
+    shutil.rmtree(dst, ignore_errors=True)
+    for d in ("depth", "pose", "intrinsic"):
+        shutil.copytree(os.path.join(src, d), os.path.join(dst, d))
+    os.makedirs(os.path.join(dst, "color"))
+    for f in sorted(os.listdir(os.path.join(src, "color"))):
+        with Image.open(os.path.join(src, "color", f)) as im:
+            im.convert("RGB").save(os.path.join(
+                dst, "color", os.path.splitext(f)[0] + ".jpg"),
+                quality=JPEG_QUALITY)
+
+
+def check_k1_at(args, kw, what: str, Ks=TABLES_WIDE_K):
+    """check_k1 at each K of `Ks` on one recorded K1 input; the first K's
+    numbers, with the others' under "K<k>"."""
+    out = {}
+    for K in Ks:
+        log(f"K1 on the {what}, K = {K}")
+        out[K] = check_k1(args, {**kw, "K": K})
+    res = dict(out[Ks[0]])
+    res.update({f"K{k}": {n: v for n, v in out[k].items()
+                          if n != "run_stats"} for k in Ks[1:]})
+    return res
+
+
+def scannet_tables_path(kernels, build: str):
+    """Phase 31 (module docstring). Returns (counts, routes, checks)."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.data.scannet import ScannetDataset
+    from pointnerf_tpu_torch.config import DataConfig
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.ops.knn_select import path_for
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train.step import eval_step, refresh_grid
+    from pointnerf_tpu_torch.train.step import train_step
+    root = os.path.join(build, TABLES_DIR)
+    t0 = time.perf_counter()
+    jpeg_scannet_scene(os.path.join(build, "scannet", SCANNET_SCAN),
+                       os.path.join(root, SCANNET_SCAN))
+    ds = ScannetDataset(DataConfig(dataset_name="scannet_ft", data_root=root,
+                                   scan=SCANNET_SCAN), split="train")
+    t_get = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        ds.get_item(1, random_sample="random", random_sample_size=56)
+        t_get.append(time.perf_counter() - t1)
+    log(f"scannet_tables scene: {SCANNET_FRAMES} JPEG color frames of "
+        f"{SCANNET_WH[0]} x {SCANNET_WH[1]} (quality {JPEG_QUALITY}) under "
+        f"{root} in {time.perf_counter() - t0:.2f} s; get_item first touch "
+        f"{t_get[0]:.4f} s (Pillow's decode), kept frame {t_get[1]:.4f} s")
+    cfg = tables_config()
+    q = cfg.query
+    QP = int(np.prod(q.kernel_size)) * q.P
+    log(f"scannet_tables config ({SCANNET_PRESET}, the production query): "
+        f"P={q.P} (QP {QP}, K1 path {path_for(q.K, QP)}) SR={q.SR} K={q.K} "
+        f"H={cfg.agg.shading_feature_num}, prebuild_neighbors "
+        f"{q.prebuild_neighbors}, shell_layered {q.shell_layered}, knn_select "
+        f"{q.knn_select}, first max_d {q.max_d}, compute "
+        f"{cfg.train.compute_dtype}; JAX's default max_d = 4 x max_o = "
+        f"{4 * q.max_o} rows would hold {4 * q.max_o * QP * 16 / 1e9:.2f} GB "
+        f"of tables (scene101's P = 30 at its max_o "
+        f"{4 * 2000000 * 27 * 30 * 16 / 1e9:.2f} GB)")
+    rec = FirstBatchRecorder(cfg, kernels, TRAIN_KERNELS, RENDER_KERNELS,
+                             record_step=TABLES_STEPS // 2)
+    reset_counts(kernels)
+    rec.install()
+    try:
+        with tempfile_dir(build) as run_dir:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _state, _st, hist = td.train_dataset_scene(
+                "scannet_ft", root, SCANNET_SCAN, run_dir,
+                max_steps=TABLES_STEPS, cfg=cfg, resume=False,
+                device=IO_DEVICE)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m = td.test_dataset_scene("scannet_ft", root, SCANNET_SCAN,
+                                      run_dir, cfg=cfg, save_images=False,
+                                      device=IO_DEVICE)
+            torch.cuda.synchronize()
+            t_test = time.perf_counter() - t0
+    finally:
+        rec.restore()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: w.launches for k, w in kernels.items()}
+    routes = kernel_routes(kernels, "scannet_tables", k1="wide")
+    n_chunks = -(-SCANNET_WH[0] * SCANNET_WH[1] // 9216)
+    want = {"knn_select": TABLES_STEPS + 2 * n_chunks,
+            "fused_decode": TABLES_STEPS + 2 * n_chunks,
+            "fused_decode_bwd": TABLES_STEPS, "fused_march": 2 * n_chunks}
+    if counts != want:
+        fail(f"scannet_tables launches {counts}, expected {want} (each step "
+             f"K1, K3, K4 once; each of two eval frames' {n_chunks} chunks "
+             f"K1, K3, K2 once)")
+    grids = [d for e, d in rec.log if e == "grid"]
+    state0, st, grid, batch, _cfg = rec.first
+    max_d = grid.nbr_pid.shape[0]
+    tables = max_d * QP * 16
+    losses = torch.stack(rec.losses).float().cpu()
+    first, last = rec.first_batch_losses()
+    psnr = hist["eval"][-1]["psnr"] if hist["eval"] else float("nan")
+    steps = rec.times["train_step"]
+    log(f"scannet_tables: grid builds (max_d asked, used, points) {grids}; "
+        f"{int(grid.num_dil)} dilated cells, tables of {max_d} rows x {QP} "
+        f"candidates = {tables / 1e9:.3f} GB; {TABLES_STEPS} steps of "
+        f"{cfg.train.random_sample_size ** 2} rays and an eval frame in "
+        f"{t_train:.2f} s, test_dataset_scene {t_test:.2f} s (host clock); "
+        f"s/step mean {sum(steps) / len(steps):.4f} (first "
+        f"{steps[0]:.4f}), eval frame {rec.times['eval_frame'][0]:.2f} s; "
+        f"peak memory {peak:.2f} GiB; losses "
+        f"{[round(float(v), 6) for v in losses]}, the first batch's "
+        f"{first:.6f} -> {last:.6f}; PSNR train eval {psnr:.4f}, "
+        f"test_dataset_scene {m['psnr']:.4f}; launches {counts}, routes "
+        f"{routes}")
+    if not bool(torch.isfinite(losses).all()) or not last < first:
+        fail(f"scannet_tables: the loss is not finite and falling ({first} "
+             f"-> {last})")
+    if not abs(m["psnr"] - psnr) <= 0.01:
+        fail(f"scannet_tables: test_dataset_scene PSNR {m['psnr']} differs "
+             f"from the training eval's {psnr}")
+    if rec.step_inputs is None or "eval_chunk" not in rec.captured:
+        fail("scannet_tables: the step's or the eval chunk's inputs were not "
+             "recorded")
+    params = rec.last.params
+    # a train step's K1 inputs (outside the counted window), and a 512-ray
+    # request of the test frame card vs CPU at phase 5's bars
+    with recording_kernels() as seen:
+        train_step(rec.last, st, grid, batch, cfg)
+    all_recorded(seen, "a scannet_tables train step", ("knn_select",))
+    step_k1 = seen["knn_select"]
+    del seen
+    item = ScannetDataset(ds.cfg, split="test").get_item(
+        0, random_sample="random", random_sample_size=96, seed=3)
+    chunk = ray_batch_from_numpy(item, cfg, device=IO_DEVICE)
+    b512 = type(chunk)(*[None if t is None else t[:512] if t.dim() and
+                         t.shape[0] == 96 * 96 else t for t in chunk])
+    with torch.no_grad():
+        checks = {"scannet_tables_step": {
+            "knn_select_wide": check_k1_at(*step_k1, "scannet_tables train "
+                                           "step (QP 702)"),
+            "fused_decode": check_k3([(rec.step_inputs["fused_decode"], {})],
+                                     what="scannet_tables step")["bf16"],
+            "fused_decode_bwd": check_k4(
+                rec.step_inputs["fused_decode_bwd"])["bf16"]},
+            "scannet_tables_eval_chunk": {
+                "knn_select_wide": check_k1_at(
+                    *rec.captured["eval_chunk"]["knn_select"],
+                    "scannet_tables eval chunk (QP 702)"),
+                "fused_decode": check_k3(
+                    [rec.captured["eval_chunk"]["fused_decode"]],
+                    what="scannet_tables eval chunk")["bf16"],
+                "fused_march": check_k2(
+                    *rec.captured["eval_chunk"]["fused_march"], tol=0.0)}}
+    del rec, step_k1, state0
+    torch.cuda.empty_cache()
+    tables_parity(params, st, grid, cfg, b512)
+    del grid
+    torch.cuda.empty_cache()
+    # K1 at the other reference scenes' widths and past 1,024: tables of the
+    # same cloud at P = 30, 32 and 40, the inputs of a 9,216-ray request
+    for P in TABLES_WIDE_P:
+        cp = cfg.replace(query=dataclasses.replace(cfg.query, P=P))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gp, _ = refresh_grid(params["points"], st, cp, max_d=max_d)
+        torch.cuda.synchronize()
+        t_grid = time.perf_counter() - t0
+        with recording_kernels() as seen:
+            eval_step({"mlp": params["mlp"], "points": params["points"]}, st,
+                      gp, chunk, cp)
+        all_recorded(seen, f"a request at P = {P}", ("knn_select",))
+        qp = 27 * P
+        log(f"scannet_tables tables at P = {P}: QP {qp}, {max_d} rows = "
+            f"{max_d * qp * 16 / 1e9:.3f} GB, built in {t_grid:.2f} s, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        with torch.no_grad():
+            checks[f"scannet_tables_qp{qp}"] = {
+                "knn_select_wide": check_k1_at(
+                    *seen["knn_select"], f"request at P = {P} (QP {qp})")}
+        del gp, seen
+        torch.cuda.empty_cache()
+    return counts, routes, checks
+
+
+def tables_parity(params, st, grid, cfg, b_card):
+    """A request card vs CPU on the scannet_tables scene, the trained
+    weights' density (the alpha branch's last layer) scaled by
+    TABLES_DENSITY_SCALE: at the scene's voxel size (0.008) the trained
+    density leaves the rays nearly clear, so their colors sit at the
+    background and no decode fault would show (both controls under phase
+    5's bar at scale 1). Integers equal (K1's wide path on the card and
+    its plain version choose the same neighbors); the colors of the rays
+    that hit within phase 5's bar, beside two controls that must pass it,
+    the CPU with an f32 decode and with one neighbor fewer (K - 1, a fault
+    of K1); and, as phase 30 holds them, their mean |card - CPU| at most
+    AGG_COLOR_SHARE of mean |card - f32 decode| (the control, the f32
+    decode's own distance from the CPU, a share near 1). Returns the
+    readings."""
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from pointnerf_tpu_torch.train.step import eval_step
+    mlp = dict(params["mlp"])
+    mlp["alpha"] = [dict(layer) for layer in mlp["alpha"]]
+    mlp["alpha"][-1] = {k: v * TABLES_DENSITY_SCALE
+                        for k, v in mlp["alpha"][-1].items()}
+    pc_c, st_c, grid_c = cpu_scene(params["points"], st, grid, cfg)
+    mlp_c = tree_map(lambda t: t.cpu(), mlp)
+    b_cpu = type(b_card)(*[None if t is None else t.cpu() for t in b_card])
+    o_card = eval_step({"mlp": mlp, "points": params["points"]}, st, grid,
+                       b_card, cfg)
+
+    def cpu(c):
+        return eval_step({"mlp": mlp_c, "points": pc_c}, st_c, grid_c, b_cpu,
+                         c)
+    o_cpu = cpu(cfg)
+    same_integers(o_card, o_cpu)
+    hit = o_cpu.ray_mask
+    if not bool(hit.any()):
+        fail("scannet_tables: no ray of the parity request hits the scene")
+    o_less = cpu(cfg.replace(query=dataclasses.replace(cfg.query,
+                                                       K=cfg.query.K - 1)))
+    o_f32 = cpu(cfg.replace(train=dataclasses.replace(cfg.train,
+                                                      compute_dtype="f32")))
+    col, ref = o_card.coarse_raycolor.cpu()[hit], o_cpu.coarse_raycolor[hit]
+    c32, cless = o_f32.coarse_raycolor[hit], o_less.coarse_raycolor[hit]
+    err, ctl, ctl_less = (float((a - ref).abs().max())
+                          for a in (col, c32, cless))
+    den = mean_rel(col, c32)
+    share, share_ctl = (mean_rel(a, ref) / den if den > 0 else float("inf")
+                        for a in (col, c32))
+    opacity = 1.0 - o_cpu.coarse_is_background[hit]
+    log(f"scannet_tables card vs CPU, {b_card.raydir.shape[0]} rays of the "
+        f"test frame, density x {TABLES_DENSITY_SCALE:g}: integers equal, "
+        f"{int(hit.sum())} rays hit, their opacity mean "
+        f"{float(opacity.mean()):.4f} (min {float(opacity.min()):.4f})")
+    hold_bf16("scannet_tables card vs CPU colors of the rays that hit, max "
+              "|err|", err, ctl, COLOR_BF16_TOL)
+    hold_bf16("scannet_tables card vs CPU colors of the rays that hit, max "
+              "|err|", err, ctl_less, COLOR_BF16_TOL,
+              "the CPU with K - 1 neighbors")
+    hold_bf16("scannet_tables card vs CPU colors, mean |err| over mean "
+              "|card - f32 decode|", share, share_ctl, AGG_COLOR_SHARE,
+              "the f32 decode's")
+    return {"max_abs_err": err, "f32_control": ctl, "k_minus_1": ctl_less,
+            "share": share, "opacity": float(opacity.mean())}
+
+
+def mvsnerf_scene(device):
+    """A seeded random cost volume at MVSNeRF's widths, MVSNERF_VIEWS views
+    of the cluster's ring (random images), and ReferenceMVSNeRF v2 at the
+    JAX defaults (D = 8, W = 256) with weights from a seed."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.mvs.mvsnerf import ReferenceMVSNeRF
+    g = torch.Generator().manual_seed(0)
+    W, H = MVSNERF_WH
+    vol = torch.randn((MVSNERF_PLANES, H // 4, W // 4, MVSNERF_C),
+                      generator=g)
+    imgs = torch.rand((MVSNERF_VIEWS, H, W, 3), generator=g)
+    Ks, w2cs = [], []
+    for v in range(MVSNERF_VIEWS):
+        th = 0.35 * (v - 1)
+        c = np.array([MVS_RING["radius"] * np.sin(th), MVS_RING["height"],
+                      -MVS_RING["radius"] * np.cos(th)])
+        fwd = -c / np.linalg.norm(c)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        rot = np.stack([right, down, fwd])
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = rot, -rot @ c
+        w2cs.append(w2c)
+        f = MVS_RING["focal"]
+        Ks.append([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1]])
+    Ks = torch.tensor(np.asarray(Ks), dtype=torch.float32)
+    w2cs = torch.tensor(np.asarray(w2cs), dtype=torch.float32)
+    torch.manual_seed(1)
+    dec = ReferenceMVSNeRF(net_type="v2", D=8, W=256,
+                           n_views=MVSNERF_VIEWS).eval()
+    mv = lambda t: t.to(device)  # noqa: E731
+    return (dec.to(device), mv(vol), mv(imgs), mv(Ks), mv(w2cs))
+
+
+def mvsnerf_rays(w2cs, Ks, n: int, seed: int):
+    """`n` rays through random pixels of the reference view (view 0)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    W, H = MVSNERF_WH
+    dev = w2cs.device
+    pix = torch.stack([torch.rand(n, generator=g) * W,
+                       torch.rand(n, generator=g) * H, torch.ones(n)], -1)
+    c2w = torch.linalg.inv(w2cs[0].cpu().double())
+    d = (pix.double() @ torch.linalg.inv(Ks[0].cpu().double()).T) \
+        @ c2w[:3, :3].T
+    return c2w[:3, 3].float().to(dev), d.float().to(dev)
+
+
+def mvsnerf_path(kernels):
+    """Phase 32 (module docstring). Returns (counts, routes, checks)."""
+    import torch
+    from pointnerf_tpu_torch.mvs import mvsnerf as mn
+    dec, vol, imgs, Ks, w2cs = mvsnerf_scene("cuda")
+    near, far = MVSNERF_NEAR_FAR
+    reqs = [mvsnerf_rays(w2cs, Ks, N_RAYS, seed=i) for i in range(N_REQUESTS)]
+    # the march's inputs of the first request, for K2's check; served
+    # outside torch.no_grad (the decoder's parameters require grad), where
+    # the card's rule still takes K2
+    real, seen = mn.fused_march, []
+
+    def rec(*a):
+        seen.append(a)
+        return real(*a)
+    mn.fused_march = rec
+    try:
+        mn.render_mvsnerf(dec, vol, imgs, Ks, w2cs, *reqs[0], near, far,
+                          n_samples=MVSNERF_SAMPLES)
+    finally:
+        mn.fused_march = real
+    if len(seen) != 1:
+        fail(f"an MVSNeRF request outside torch.no_grad called K2 "
+             f"{len(seen)} times")
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    with torch.no_grad():
+        for i, (campos, raydir) in enumerate(reqs):
+            before = kernels["fused_march"].launches
+            outs.append(mn.render_mvsnerf(dec, vol, imgs, Ks, w2cs, campos,
+                                          raydir, near, far,
+                                          n_samples=MVSNERF_SAMPLES))
+            if kernels["fused_march"].launches != before + 1:
+                fail(f"MVSNeRF request {i} launched K2 "
+                     f"{kernels['fused_march'].launches - before} times")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in kernels.items()}
+    routes = {n: dict(kernels[n].launches_by_route)
+              for n in ("knn_select", "fused_decode", "fused_decode_bwd")}
+    routes["fused_march"] = march_routes(kernels, "mvsnerf")
+    if any(counts[n] for n in ("knn_select", "fused_decode",
+                               "fused_decode_bwd")):
+        fail(f"an MVSNeRF request launched another kernel than K2: {counts}")
+    for i, (rgb, depth, w) in enumerate(outs):
+        if rgb.shape != (N_RAYS, 3) or w.shape != (N_RAYS, MVSNERF_SAMPLES) \
+                or not all(bool(torch.isfinite(t).all())
+                           for t in (rgb, depth, w)):
+            fail(f"MVSNeRF request {i}: outputs not finite or misshapen")
+    n = N_REQUESTS * N_RAYS
+    log(f"mvsnerf: {N_REQUESTS} requests x {N_RAYS} rays x {MVSNERF_SAMPLES} "
+        f"samples (ReferenceMVSNeRF v2, D = 8, W = 256; volume "
+        f"{tuple(vol.shape)}, {MVSNERF_VIEWS} views of {MVSNERF_WH[0]} x "
+        f"{MVSNERF_WH[1]}) in {dt:.4f} s = {n / dt:.1f} rays/s (host clock, "
+        f"synchronized); opacity of the rays: mean "
+        f"{float(outs[0][2].sum(-1).mean()):.4f}; launches {counts}, routes "
+        f"{routes}")
+    dist, valid, feats, _bg = seen[0]
+    log(f"mvsnerf K2 at [{dist.shape[0]}, {dist.shape[1]}, "
+        f"{feats.shape[-1]}]")
+    checks = {"mvsnerf_request": {"fused_march": check_k2(seen[0], {},
+                                                          tol=0.0)}}
+    # a 512-ray request card vs CPU (the plain march there, as JAX marches)
+    campos, raydir = mvsnerf_rays(w2cs, Ks, 512, seed=99)
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        o_card = mn.render_mvsnerf(dec, vol, imgs, Ks, w2cs, campos, raydir,
+                                   near, far, n_samples=MVSNERF_SAMPLES)
+        dec_c = mvsnerf_scene(cpu)[0]
+        o_cpu = mn.render_mvsnerf(dec_c, vol.cpu(), imgs.cpu(), Ks.cpu(),
+                                  w2cs.cpu(), campos.cpu(), raydir.cpu(),
+                                  near, far, n_samples=MVSNERF_SAMPLES)
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(o_card, o_cpu)]
+    log(f"mvsnerf card vs CPU, 512 rays: max |err| rgb {errs[0]:.3e}, depth "
+        f"{errs[1]:.3e}, weights {errs[2]:.3e} (bar {MVSNERF_TOL} on rgb and "
+        f"weights; depth printed)")
+    if not (errs[0] <= MVSNERF_TOL and errs[2] <= MVSNERF_TOL):
+        fail("mvsnerf: the card's request disagrees with the CPU's")
+    return counts, routes, checks
 
 
 def main() -> None:
@@ -5665,12 +6320,24 @@ def main() -> None:
     # phase 30: the whole aggregator
     whole_agg, agg_checks = whole_aggregator_path(kernel_wrappers(), params,
                                                   pc, st, grid, reqs, cfg)
+    # phases 31-32: the reference ScanNet scene on prebuilt tables (K1's
+    # wide path) with JPEG frames, and the MVSNeRF volume renderer
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    t0 = time.perf_counter()
+    st_counts, st_routes, st_checks = scannet_tables_path(kernel_wrappers(),
+                                                          build)
+    t1 = time.perf_counter()
+    mn_counts, mn_routes, mn_checks = mvsnerf_path(kernel_wrappers())
+    log(f"phases 31-32 wall seconds: scannet_tables {t1 - t0:.2f}, mvsnerf "
+        f"{time.perf_counter() - t1:.2f}")
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
     # kernels (bf16) and the CUDA-core kernels (f32), counted by route
-    meta = {"knn_select": ("knn_select", None, "knn_select.cu",
+    meta = {"knn_select": ("knn_select", "narrow", "knn_select.cu",
                            "pointnerf_tpu/ops/pallas_knn.py:89"),
+            "knn_select_wide": ("knn_select", "wide", "knn_select.cu",
+                                "pointnerf_tpu/ops/pallas_knn.py:89"),
             "fused_decode": ("fused_decode", "tensor_core",
                              "fused_decode_tc.cu",
                              "pointnerf_tpu/ops/pallas_decode.py:404"),
@@ -5705,6 +6372,9 @@ def main() -> None:
     for row_name in ("fused_decode_any", "fused_decode_bwd_any"):
         results[row_name] = {**agg_checks["h512"][row_name],
                              "k6": agg_checks["k6"][row_name]}
+    # K1's wide path at the scannet_tables eval chunk (QP = 702)
+    results["knn_select_wide"] = st_checks["scannet_tables_eval_chunk"][
+        "knn_select_wide"]
     # K2's wide kernel at the shapes it runs at: a feature request, C = 128
     results["fused_march_wide"] = n2_checks.pop("n2d_request")[
         "fused_march_wide"]
@@ -5724,13 +6394,18 @@ def main() -> None:
              "loaders": (ld_counts, ld_routes),
              "mvs": (mv_counts, mv_routes),
              "n2d": (n2_counts, n2_routes), **io_paths,
-             "whole_agg": whole_agg}
+             "whole_agg": whole_agg,
+             "scannet_tables": (st_counts, st_routes),
+             "mvsnerf": (mn_counts, mn_routes)}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]
-        # launches over the main paths' runs, of this source's route
-        by_path = {p: (c[wrapper] if route_name is None
-                       else rts[wrapper].get(route_name, 0))
+        # launches over the main paths' runs, of this source's route; K1's
+        # run and warp paths together ("narrow"), its wide path apart (only
+        # the scannet_tables path's rows are wider than 512)
+        by_path = {p: (c[wrapper] - rts.get(wrapper, {}).get("wide", 0)
+                       if route_name == "narrow"
+                       else rts.get(wrapper, {}).get(route_name, 0))
                    for p, (c, rts) in paths.items()}
         row = {"name": row_name, "route": "cuda", "source": csrc + src,
                "replaces": rep, "launches": sum(by_path.values()),
@@ -5741,7 +6416,7 @@ def main() -> None:
         for k in ("host_us", "run_stats", "gemm_chain_ms", "M", "live_rows",
                   "live_group_rows", "live_tile_rows", "eval_chunk",
                   "bench_request", "bench_step", "f32", "k6",
-                  "fresh_state"):
+                  "fresh_state", "K24"):
             if k in r:
                 row[k] = r[k]
         # the same comparison and timing on the maintenance path's dense
@@ -5758,7 +6433,7 @@ def main() -> None:
                 hy.setdefault(kind, {})[n.replace("_fine", "")] = v
         for kind, res in ({"maintenance_" + k: v for k, v in chunks.items()}
                           | fo_checks | hy | mv_checks | n2_checks
-                          | io_checks).items():
+                          | io_checks | st_checks | mn_checks).items():
             if row_name in res:
                 row[kind] = {k: v for k, v in res[row_name].items()
                              if k not in ("gemm_chain_ms", "run_stats")}

@@ -181,6 +181,16 @@ def neural_render_from_flax(module, tree, device: DeviceLike = None):
     return out
 
 
+def mvsnerf_from_flax(module, tree, device: DeviceLike = None):
+    """An MVSNeRF decoder's flax parameter tree (numpy leaves; the "params"
+    of `pointnerf_tpu.mvs.mvsnerf.ReferenceMVSNeRF`, `MVSNeRFDecoder` or a
+    decoder variant) -> {state_dict name: tensor} of the port's module
+    (`mvs/mvsnerf.py`, whose submodules carry flax's names): Dense kernels
+    [in, out] -> Linear's [out, in], LayerNorm scale -> weight. Raises
+    unless the names and shapes are the module's."""
+    return neural_render_from_flax(module, tree, device)
+
+
 def _neural2d_groups(tree, heads, dev):
     """The neural2d parameter groups of a JAX tree (numpy leaves):
     "mlp" and "points" as in train_state_from_jax, "style" a tensor, and

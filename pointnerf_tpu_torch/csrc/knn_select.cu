@@ -13,7 +13,7 @@
 // written as pid -1 / d2 +inf.
 //
 // Bound on the H100: bytes. The function needs each distinct table row once
-// (3*QP floats + QP ints, 3,888 B at QP = 243), the slots' centers, dslot
+// (3*QP floats + QP ints, 3,888 B at QP = 243, 11,232 B at QP = 702), the slots' centers, dslot
 // and ok, and the [C, K] outputs; ~10 flops per candidate. On the main path
 // (C = 36,352 slots, 19,781 of which select, reading 8,112 distinct rows)
 // that is ~31.6 MB, 0.0103 ms at 3.35 TB/s. Reading one row per selecting
@@ -46,6 +46,23 @@
 // lexicographically across the warp with shuffles; the owner lane retires
 // its winner.
 //
+// Design, QP > 512 (the wide path, knn_select_wide_warp_kernel, any K): a
+// row no longer fits the run path's register staging (CH <= 16 chunks of
+// 32) or the warp path's MAXC per lane, so the row is streamed in fixed
+// chunks of kChunk = 512 candidates and each chunk merged into a running
+// top-K. A warp per slot holds a chunk in registers (16 candidates a lane)
+// and merges it with the running list, kept sorted in device memory ([C, K]
+// in the output and a scratch buffer of the same shape, alternating so the
+// last chunk writes the output): K rounds, each taking the smaller of the
+// list's head and the chunk's warp minimum, the list's head on a tie. Every
+// candidate of an earlier chunk sits before every candidate of a later
+// one, so the list-first tie keeps the plain version's order, ties to the
+// lowest candidate, across chunk edges. The run path's sharing of a staged
+// row across a run of slots is left out here: at the reference ScanNet
+// scene ~4% of the slots select and their runs average 1.0 slot, and a
+// run kernel that carried its lists across the chunks measured slower than
+// this one (PERF.md, Findings).
+//
 // Both paths are built with -fmad=false and written with
 // __fsub_rn/__fmul_rn/__fadd_rn: the plain PyTorch twin rounds each product
 // and sum, and a contracted FMA would move d2 by one ulp and flip near-ties.
@@ -66,6 +83,8 @@ constexpr int kWarps = kThreads / 32;
 // at least 512, one row at QP = 512)
 constexpr int kPool = kSlots * 16 > 512 ? kSlots * 16 : 512;
 constexpr int kNoPos = 0x7fffffff;
+constexpr int kMaxRow = 512;           // the most candidates of the run and
+                                       // warp paths' rows; wider: the wide path
 
 __device__ __forceinline__ float dist2(float x, float y, float z, float cx,
                                        float cy, float cz) {
@@ -369,6 +388,123 @@ __global__ void knn_select_warp_kernel(const float* __restrict__ nbr_xyz,
   }
 }
 
+// ---- the wide path (QP > 512) ---------------------------------------------
+
+constexpr int kChunk = 512;            // candidates a chunk of a wide row
+
+// One warp per slot, any K: each chunk of the row in registers, merged with
+// the running list (sorted, K entries) of the previous chunks into the
+// other buffer.
+__global__ void knn_select_wide_warp_kernel(
+    const float* __restrict__ nbr_xyz, const int* __restrict__ nbr_pid,
+    const int* __restrict__ dslot, const float* __restrict__ centers,
+    const uint8_t* __restrict__ ok, int C, int QP, int K, float r2,
+    int* __restrict__ out_pid, float* __restrict__ out_d2,
+    int* __restrict__ tmp_pid, float* __restrict__ tmp_d2) {
+  constexpr int CH = kChunk / 32;
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (c >= C) return;  // the whole warp leaves together
+  const size_t o = (size_t)c * K;
+  const int slot = dslot[c];
+  if (!(ok[c] != 0 && slot >= 0)) {
+    for (int k = lane; k < K; k += 32) {
+      out_pid[o + k] = -1;
+      out_d2[o + k] = CUDART_INF_F;
+    }
+    return;
+  }
+  const float* xs = nbr_xyz + (size_t)slot * 3 * QP;
+  const int* ps = nbr_pid + (size_t)slot * QP;
+  const float cx = centers[3 * c], cy = centers[3 * c + 1],
+              cz = centers[3 * c + 2];
+  const int nch = (QP + kChunk - 1) / kChunk;
+
+  for (int j = 0; j < nch; ++j) {
+    const int q0 = j * kChunk;
+    // the last chunk writes the output
+    const bool to_out = ((nch - 1 - j) & 1) == 0;
+    int* dp = to_out ? out_pid : tmp_pid;
+    float* dd2 = to_out ? out_d2 : tmp_d2;
+    const int* sp = to_out ? tmp_pid : out_pid;
+    const float* sd2 = to_out ? tmp_d2 : out_d2;
+    float d[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int q = q0 + lane + 32 * i;
+      float v = CUDART_INF_F;
+      if (q < QP) {
+        const float x = xs[q];
+        const float dd = dist2(x, xs[QP + q], xs[2 * QP + q], cx, cy, cz);
+        bool good = x < kDead;
+        if (r2 > 0.f) good = good && (dd <= r2);
+        v = good ? dd : CUDART_INF_F;
+      }
+      d[i] = v;
+    }
+    int p = 0;  // the running list's head
+    for (int k = 0; k < K; ++k) {
+      float bv = CUDART_INF_F;
+      int bi = kNone;
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        if (d[i] < bv) {  // strict: the earlier candidate keeps a tie
+          bv = d[i];
+          bi = q0 + lane + 32 * i;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, off);
+        const int oi = __shfl_xor_sync(kFull, bi, off);
+        if (ov < bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      // the list's head, from earlier chunks: it wins a tie
+      const float hd = j > 0 ? sd2[o + p] : CUDART_INF_F;
+      if (!(bv < CUDART_INF_F)) {
+        // the chunk has nothing left: the rest comes from the list
+        for (int kk = k + lane; kk < K; kk += 32) {
+          const int src = p + kk - k;
+          dp[o + kk] = j > 0 ? sp[o + src] : -1;
+          dd2[o + kk] = j > 0 ? sd2[o + src] : CUDART_INF_F;
+        }
+        break;
+      }
+      if (hd <= bv) {
+        if (lane == 0) {
+          dp[o + k] = sp[o + p];
+          dd2[o + k] = hd;
+        }
+        ++p;
+      } else {
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+          if (q0 + lane + 32 * i == bi) d[i] = CUDART_INF_F;
+        if (lane == 0) {
+          dp[o + k] = ps[bi];
+          dd2[o + k] = bv;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+int launch_wide(const float* nbr_xyz, const int* nbr_pid, const int* dslot,
+                const float* centers, const uint8_t* ok, int C, int QP, int K,
+                float r2, int* out_pid, float* out_d2, int* tmp_pid,
+                float* tmp_d2, cudaStream_t s) {
+  if (tmp_pid == nullptr || tmp_d2 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  knn_select_wide_warp_kernel<<<(C + 7) / 8, 256, 0, s>>>(
+      nbr_xyz, nbr_pid, dslot, centers, ok, C, QP, K, r2, out_pid, out_d2,
+      tmp_pid, tmp_d2);
+  return 0;
+}
+
 template <int MAXK, int CH>
 int launch_runs(const float* nbr_xyz, const int* nbr_pid, const int* dslot,
                 const float* centers, const uint8_t* ok, int C, int QP, int K,
@@ -393,15 +529,25 @@ int launch_runs(const float* nbr_xyz, const int* nbr_pid, const int* dslot,
 
 // route: the register top-K's capacity of the run path (8 or 16, K <=
 // route), or 0 for the warp path (any K <= QP). The wrapper picks it from K
-// (ops/knn_select.py `route_for`).
+// (ops/knn_select.py `route_for`). Rows of more than kMaxRow = 512
+// candidates take the wide path at any route, its warp kernel keeping the
+// running lists in the output and in tmp_pid / tmp_d2 ([C, K], given only
+// for rows that wide).
 extern "C" int knn_select_launch(const float* nbr_xyz, const int* nbr_pid,
                                  const int* dslot, const float* centers,
                                  const uint8_t* ok, int C, int QP, int K,
                                  float r2, int route, int* out_pid,
-                                 float* out_d2, void* stream) {
+                                 float* out_d2, int* tmp_pid, float* tmp_d2,
+                                 void* stream) {
   if (C == 0) return 0;
-  if (K <= 0 || K > QP || QP > 512) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || K > QP) return (int)cudaErrorInvalidValue;
+  if (route > 0 && K > route) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (QP > kMaxRow) {
+    const int e = launch_wide(nbr_xyz, nbr_pid, dslot, centers, ok, C, QP, K,
+                              r2, out_pid, out_d2, tmp_pid, tmp_d2, s);
+    return e ? e : (int)cudaGetLastError();
+  }
   int err = 0;
   // the run path's instances: top-K capacity (route) x row chunks
   using Launch = int (*)(const float*, const int*, const int*, const float*,

@@ -1,8 +1,8 @@
 """Scene data for the PyTorch port (counterpart of `pointnerf_tpu/data/`):
 the dataset registry and its loaders. Datasets register by name; items are
 dicts of numpy arrays that the drivers turn into ray batches. Every loader
-of the JAX package is registered; frames are read as PNG, and a JPEG frame
-raises `not_ported` in the loader that meets it."""
+of the JAX package is registered; frames are read as PNG, or as JPEG
+through Pillow where a scene ships JPEG (ScanNet, LLFF)."""
 from __future__ import annotations
 
 DATASET_REGISTRY = {}

@@ -8,8 +8,8 @@ forward) convention. Frames come from `images/` or `images_{factor}/`,
 every 8th is a test frame, the focal length is rescaled by the frames'
 width, and near/far are the bounds' extremes times 0.9 and 1.1.
 
-Frames are read with the port's PNG reader; a JPEG frame raises (the
-downsampled `images_4/` and `images_8/` of the public release are PNG).
+Frames are read by extension (`utils/visualizer.read_image`): JPEG through
+Pillow as imageio.v2.imread reads it, PNG with the port's PNG reader.
 """
 from __future__ import annotations
 
@@ -19,10 +19,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .. import not_ported
 from ..camera import get_dtu_raydir
 from ..config import DataConfig
-from ..utils.visualizer import read_png
+from ..utils.visualizer import read_image
 from . import register_dataset
 
 
@@ -37,13 +36,6 @@ def llff_to_opencv(pose_3x5: np.ndarray):
     c2w[:3, 2] = -R[:, 2]
     c2w[:3, 3] = t
     return c2w
-
-
-def read_frame(path: str) -> np.ndarray:
-    """A PNG frame as read_png gives it; a JPEG frame raises."""
-    if path.lower().endswith((".jpg", ".jpeg")):
-        raise not_ported(f"JPEG frames ({path})", "Queue 1, datasets")
-    return read_png(path)
 
 
 @register_dataset("llff_ft")
@@ -68,7 +60,7 @@ class LlffDataset:
         keep = [i for i in range(n)
                 if (i in test_ids) == (self.split != "train")]
         self.images = np.stack([
-            read_frame(paths[i]).astype(np.float32) / 255.0
+            read_image(paths[i]).astype(np.float32) / 255.0
             for i in keep])[..., :3]
         self.poses = np.stack([llff_to_opencv(poses[i]) for i in keep])
         H, W, f = poses[0][:, 4]

@@ -8,12 +8,13 @@ frame. `load_init_points` unprojects every `step`-th frame's sensor depth,
 resized to the color frame's size by nearest-neighbor sampling
 (`resize_nearest`, OpenCV's INTER_NEAREST index rule in numpy).
 
-Frames are read with the port's PNG reader; a JPEG color frame raises.
-The train split keeps each color frame it has decoded (uint8, 3.8 MB at
-1296 x 968), since its items are drawn again and again and the numpy PNG
-decoder takes a few tenths of a second on a frame whose rows carry the
-Average or Paeth filter; the test split reads each frame once a pass and
-keeps none.
+Color frames are read by extension (`utils/visualizer.read_image`): JPEG,
+ScanNet's own `color/*.jpg`, through Pillow as imageio.v2.imread reads it,
+PNG with the port's PNG reader; depth with the PNG reader. The train split
+keeps each color frame it has decoded (uint8, 3.8 MB at 1296 x 968), since
+its items are drawn again and again and the numpy PNG decoder takes a few
+tenths of a second on a frame whose rows carry the Average or Paeth
+filter; the test split reads each frame once a pass and keeps none.
 """
 from __future__ import annotations
 
@@ -23,10 +24,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .. import not_ported
 from ..camera import get_dtu_raydir
 from ..config import DataConfig
-from ..utils.visualizer import read_png
+from ..utils.visualizer import read_image, read_png
 from . import register_dataset
 
 
@@ -79,10 +79,7 @@ class ScannetDataset:
     def _color(self, i) -> np.ndarray:
         if i in self._frames:
             return self._frames[i]
-        path = self._color_path(i)
-        if path.endswith(".jpg"):
-            raise not_ported(f"JPEG frames ({path})", "Queue 1, datasets")
-        img = read_png(path)
+        img = read_image(self._color_path(i))
         if self.split == "train":
             self._frames[i] = img
         return img

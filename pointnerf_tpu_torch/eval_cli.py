@@ -2,8 +2,8 @@
 
 Counterpart of `pointnerf_tpu/eval_cli.py`: pairs rendered and
 ground-truth images by sorted filename and writes one txt file per metric
-plus `scores.txt`. Images are read with the port's PNG reader (8-bit PNG;
-JPEG has no decoder here and raises). Usage:
+plus `scores.txt`. Images are read by extension (8-bit PNG with the port's
+PNG reader, JPEG through Pillow). Usage:
 
     python -m pointnerf_tpu_torch.eval_cli --pred runs/x/images --gt DIR \
         [--metrics psnr ssim rmse lpips lpips_proxy] [--out DIR]
@@ -17,14 +17,14 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .utils.metrics import lpips_fn, lpips_proxy, psnr, rmse, ssim
-from .utils.visualizer import read_png
+from .utils.visualizer import read_image
 
 _EXT = (".png", ".jpg", ".jpeg")
 
 
 def load_image(path: str) -> np.ndarray:
     """An image file as [H, W, 3] float32 in [0, 1]."""
-    im = read_png(path).astype(np.float32) / 255.0
+    im = read_image(path).astype(np.float32) / 255.0
     if im.ndim == 2:
         im = np.repeat(im[..., None], 3, -1)
     return im[..., :3]

@@ -25,13 +25,12 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import DeviceLike, not_ported, resolve_device
+from .. import DeviceLike, resolve_device
 from ..camera import w2pers
 from ..config import (PointNeRFConfig, effective_ray_generator,
                       generator_kwargs)
 from ..ops.fused_march import fused_march
 from ..ops.grid import PointGrid
-from ..ops.knn_select import MAX_QP
 from ..ops.query import (_xla_cumprod, generate_shading_points, knn_query,
                          query_points, refine_ray_generation)
 from .aggregator import aggregate
@@ -140,24 +139,11 @@ def check_envelope(cfg: PointNeRFConfig, device: torch.device,
                    train: bool = False) -> None:
     """Raise before any work for a config the port does not take: a
     fused_march flag on a render the march kernel does not compute
-    (`march_takes_kernel`, ValueError, as JAX raises), or on CUDA a KNN on
-    K1's route past its QP = 512 candidates. Every decode layout and
-    every spec inside the fused envelope runs on both devices
-    (`aggregator.decode_takes_kernel`)."""
+    (`march_takes_kernel`, ValueError, as JAX raises). Every decode layout
+    and every spec inside the fused envelope runs on both devices
+    (`aggregator.decode_takes_kernel`), and K1 takes a table row of any
+    width."""
     march_takes_kernel(cfg, device, train)
-    check_knn_envelope(cfg.query, device)
-
-
-def check_knn_envelope(q, device: torch.device) -> None:
-    """On CUDA, refuse a query on K1's route (prebuilt tables, NN > 0, no
-    shell cut) whose table rows hold more than K1's MAX_QP candidates:
-    `refresh_grid` calls it before it builds the tables."""
-    qp = int(np.prod(q.kernel_size)) * q.P
-    if (device.type == "cuda" and q.prebuild_neighbors and q.NN > 0
-            and not q.shell_layered and qp > MAX_QP):
-        raise not_ported(f"the KNN select kernel at QP={qp} (kernel_size "
-                         f"{tuple(q.kernel_size)} x P={q.P})",
-                         "Queue 2, K1 at QP > 512")
 
 
 def compute_ray_dist(sample_loc_pers, ray_valid, vsize_z: float,

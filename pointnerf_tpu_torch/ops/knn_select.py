@@ -5,11 +5,15 @@ Replaces `pointnerf_tpu/ops/pallas_knn.py::pallas_knn_select`. On CUDA
 tensors `knn_select` launches `csrc/knn_select.cu`; on CPU tensors it runs
 `knn_select_plain`, the plain PyTorch version of the same function, which is
 also what `chip_smoke.py` holds the kernel against on the card. The kernel
-has two paths, picked by K (`route_for`): for K <= 16 the run path (a block
-stages the table row of each run of consecutive slots in shared memory once,
-four lanes per slot keep register top-K lists that merge with shuffles), for
-larger K the warp path (a warp per slot, K shuffle reductions). Both give the
-plain version's bits.
+has three paths (`path_for`): for rows of at most `MAX_ROW` = 512
+candidates, by K (`route_for`), the run path for K <= 16 (a block stages the
+table row of each run of consecutive slots in shared memory once, four lanes
+per slot keep register top-K lists that merge with shuffles) and the warp
+path for larger K (a warp per slot, K shuffle reductions); for wider rows
+(QP > 512, the ScanNet and Tanks-and-Temples presets' P = 26-32) the wide
+path, which streams each row in chunks of 512 candidates and merges each
+into a running top-K, a warp per slot with the running list in device
+memory, at any K. All give the plain version's bits.
 
 Contract (both versions): nbr_xyz [D, 3*QP] f32 coordinate-major rows,
 nbr_pid [D, QP] i32, dslot [C] i32 (row per slot, -1 none), centers [C, 3]
@@ -28,14 +32,23 @@ from . import _build
 DEAD = 1.0e7
 # slots per block of the kernel's run path (csrc/knn_select.cu kSlots)
 SLOTS_PER_BLOCK = 64
-ROUTES = ("runs", "warp")
-MAX_QP = 512           # candidates a slot's table row may hold
+ROUTES = ("runs", "warp", "wide")
+# the most candidates a row of the run and warp paths holds; wider rows take
+# the wide path (csrc/knn_select.cu kMaxRow)
+MAX_ROW = 512
 
 
 def route_for(K: int) -> int:
-    """The kernel path for K: the register top-K's capacity of the run path
-    (8 or 16, at least K), or 0 for the warp path (any K <= QP)."""
+    """The kernel's code for K: the register top-K's capacity of the run
+    paths (8 or 16, at least K), or 0 for the warp kernels (any K <= QP)."""
     return 8 if K <= 8 else 16 if K <= 16 else 0
+
+
+def path_for(K: int, QP: int) -> str:
+    """The path a launch takes, as counted in `launches_by_route`."""
+    if QP > MAX_ROW:
+        return "wide"
+    return "runs" if route_for(K) else "warp"
 
 
 def knn_select_plain(nbr_xyz, nbr_pid, dslot, centers, ok, K: int,
@@ -66,7 +79,8 @@ def _lib():
     if f.argtypes is None:
         vp = ctypes.c_void_p
         f.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_int, vp, vp, vp]
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int, vp, vp, vp,
+                      vp, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -86,9 +100,8 @@ def _check(nbr_xyz, nbr_pid, dslot, centers, ok, K):
             raise ValueError(
                 f"knn_select: {name} must be a contiguous {dt} {shape} tensor "
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 0 < K <= QP or QP > MAX_QP:
-        raise ValueError(f"knn_select: needs 0 < K <= QP <= {MAX_QP}, got "
-                         f"K={K} QP={QP}")
+    if not 0 < K <= QP:
+        raise ValueError(f"knn_select: needs 0 < K <= QP, got K={K} QP={QP}")
 
 
 def knn_select(nbr_xyz, nbr_pid, dslot, centers, ok, K: int, r2: float):
@@ -100,13 +113,18 @@ def knn_select(nbr_xyz, nbr_pid, dslot, centers, ok, K: int, r2: float):
     pid = torch.empty((C, K), dtype=torch.int32, device=centers.device)
     d2 = torch.empty((C, K), dtype=torch.float32, device=centers.device)
     p = _build.ptr
-    route = route_for(K)
+    route, path = route_for(K), path_for(K, QP)
+    # the wide kernel's second [C, K] list buffer
+    tmp = ((torch.empty_like(pid), torch.empty_like(d2))
+           if path == "wide" else None)
     err = _lib()(p(nbr_xyz), p(nbr_pid), p(dslot), p(centers),
                  p(ok.view(torch.uint8)), C, QP, K, float(r2), route, p(pid),
-                 p(d2), _build.stream_handle(centers.device))
+                 p(d2), p(tmp[0]) if tmp else None,
+                 p(tmp[1]) if tmp else None,
+                 _build.stream_handle(centers.device))
     _build.check(err, "knn_select")
     knn_select.launches += 1
-    knn_select.launches_by_route["runs" if route else "warp"] += 1
+    knn_select.launches_by_route[path] += 1
     return pid, d2
 
 

@@ -5,7 +5,9 @@ Counterpart of `pointnerf_tpu/utils/visualizer.py` (`to8b`, `Visualizer`
 with `gen_video`). Losses may be device tensors: they are held as they
 are and read back once per print. PNG files are written (`write_png`) and
 read (`read_png`, 8- and 16-bit) with the standard library (zlib + struct),
-so no image package is needed. A video is a directory of numbered PNG
+so no image package is needed for them. JPEG frames are decoded by Pillow
+(`read_jpeg`), as imageio.v2.imread decodes them; `read_image` takes
+either by the file's extension. A video is a directory of numbered PNG
 frames unless the caller asks for a container, which needs imageio.
 """
 from __future__ import annotations
@@ -146,6 +148,32 @@ def read_png(path: str) -> np.ndarray:
         img = img.reshape(H, W, c, 2).astype(np.uint16)
         img = (img[..., 0] << 8) | img[..., 1]
     return img[..., 0] if c == 1 else img
+
+
+JPEG_EXT = (".jpg", ".jpeg")
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """A JPEG file as imageio.v2.imread returns it: Pillow's decode of its
+    first frame as it is, uint8 [H, W] for grey and [H, W, 3] (4 for CMYK)
+    for colour, the EXIF orientation tag not applied (imageio's pillow
+    plugin leaves it unless asked). Raises ImportError, naming Pillow and
+    the file, where Pillow does not import: there is no other decoder."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: JPEG frames are decoded by Pillow, "
+                          f"which does not import here ({e})") from e
+    with Image.open(path) as im:
+        im.seek(0)
+        return np.array(im)
+
+
+def read_image(path: str) -> np.ndarray:
+    """A frame by its extension: JPEG through `read_jpeg`, else `read_png`."""
+    if path.lower().endswith(JPEG_EXT):
+        return read_jpeg(path)
+    return read_png(path)
 
 
 class Visualizer:

@@ -12,9 +12,10 @@ the bars of FF_TOL were set.
 
 --phase n2d: for each state runs chip_smoke's n2d_path anew: its CNN,
 StyleGAN2 and GAN steps (the payload gather's backward adds with atomics,
-so each run's trained states differ), the feature requests, and one CNN
-and one GAN step card vs CPU from the trained states. This is how the
-bars of N2D_TOL were set.
+so each run's trained states differ), the feature requests, one CNN and
+one GAN step card vs CPU from the trained states, and K3 / K4 bf16 on a
+recorded CNN step. This is how the bars of N2D_TOL, N2D_GAN_FIXED_TOL
+and TC_K4_BF16_* were set.
 
 Each reading is printed beside its control and bar. A reading beyond its
 bar, or a control under it, is printed, not fatal, so that one run reads

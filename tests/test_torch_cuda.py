@@ -87,9 +87,9 @@ def _run_inputs(QP, seed=0, D=60, C=1500):
 def _hold_k1(dev, args, K, r2):
     from pointnerf_tpu_torch.ops.knn_select import (knn_select,
                                                     knn_select_plain,
-                                                    route_for)
+                                                    path_for)
     args = [a.to(dev) for a in args]
-    route = "runs" if route_for(K) else "warp"
+    route = path_for(K, args[1].shape[1])
     n = dict(knn_select.launches_by_route)
     pk, dk = knn_select(*args, K=K, r2=r2)
     pp, dp = knn_select_plain(*args, K, r2)
@@ -122,6 +122,37 @@ def test_knn_select_runs_overflow_the_pool(dev):
     args[2][:] = torch.arange(700, dtype=torch.int32) % 300
     args[4][:] = True
     _hold_k1(dev, args, 8, 0.0)
+
+
+def _wide_inputs(QP, seed=0, D=60, C=1500):
+    """`_run_inputs` at a row wider than 512 candidates, with exact d2 ties
+    planted across the 512-candidate chunk edges (candidates 0-15 copied
+    to 505-520, as many as the row holds, and past 1,036 to 1,020-1,035)
+    and a dense row (row 7, every candidate live) read by the first run."""
+    args = _run_inputs(QP, seed=seed, D=D, C=C)
+    g = torch.Generator().manual_seed(seed)
+    base = args[0].view(D, 3, QP)
+    n = min(16, QP - 505)
+    base[:, :, 505:505 + n] = base[:, :, 0:n]
+    if QP > 1036:
+        base[:, :, 1020:1036] = base[:, :, 0:16]
+    base[7] = torch.rand((3, QP), generator=g) * 0.2
+    return args
+
+
+@pytest.mark.parametrize("QP", [513, 702, 810, 864, 1080])
+@pytest.mark.parametrize("K", [1, 8, 16, 17, 24, "QP"])
+def test_knn_select_wide_matches_plain(dev, QP, K):
+    """The wide path (QP > 512: a warp per slot, its list in device memory
+    across the 512-candidate chunks) bit-equal to the plain version, with
+    and without the r2 cut, ties across chunk edges, dead and invalid
+    slots, an all-dead row and a dense one."""
+    K = QP if K == "QP" else K
+    args = _wide_inputs(QP, seed=QP + K)
+    for r2 in (0.0, 0.004):
+        pk = _hold_k1(dev, args, K, r2)
+        assert bool((pk >= 0).any())
+        assert bool((pk[60:180][(args[2][60:180] == 5).to(dev)] == -1).all())
 
 
 @pytest.mark.parametrize("SR", [1, 31, 80, 129])
@@ -956,9 +987,11 @@ def test_feedforward_step_launches_the_f32_kernels(dev):
     new, items = step(state, batch)
     torch.cuda.synchronize()
     assert fd.fused_decode.launches_by_route == {"tensor_core": 0,
-                                                 "cuda_core": 1}
+                                                 "cuda_core": 1,
+                                                 "general": 0}
     assert fd.fused_decode_bwd.launches_by_route == {"tensor_core": 0,
-                                                     "cuda_core": 1}
+                                                     "cuda_core": 1,
+                                                     "general": 0}
     assert fused_march.launches == 0
     assert bool(torch.isfinite(items["loss_total"]))
     k = "mvsnet.cost_regularization.conv0.conv.weight"

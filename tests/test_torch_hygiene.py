@@ -37,7 +37,8 @@ MODULES = [
     "pointnerf_tpu_torch.mvs.mvsnet", "pointnerf_tpu_torch.mvs.filter",
     "pointnerf_tpu_torch.mvs.points_init",
     "pointnerf_tpu_torch.mvs.torch_import",
-    "pointnerf_tpu_torch.mvs.masking", "pointnerf_tpu_torch.train.feedforward",
+    "pointnerf_tpu_torch.mvs.masking", "pointnerf_tpu_torch.mvs.mvsnerf",
+    "pointnerf_tpu_torch.train.feedforward",
     "pointnerf_tpu_torch.data.dtu", "pointnerf_tpu_torch.data.dtu_ft",
     "pointnerf_tpu_torch.models.neural_render",
     "pointnerf_tpu_torch.train.neural2d",

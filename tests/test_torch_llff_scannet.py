@@ -10,7 +10,9 @@ with its own PNG reader and a numpy nearest resize):
   write_png's 16-bit files read back by both; write_png's row filters, 8-
   and 16-bit, read back by both;
 - the ScanNet train split decodes a frame once and keeps it;
-- a JPEG frame raises not_ported, naming the file."""
+- a JPEG frame loads where Pillow imports and, where it does not, raises
+  an ImportError naming Pillow and the file (the JPEG cases themselves are
+  in tests/test_torch_jpeg.py)."""
 import os
 import struct
 import zlib
@@ -21,7 +23,6 @@ import pytest
 from pointnerf_tpu.config import DataConfig as JDataConfig
 from pointnerf_tpu.data.llff import LlffDataset as JLlff
 from pointnerf_tpu.data.scannet import ScannetDataset as JScannet
-from pointnerf_tpu_torch import SliceNotPorted
 from pointnerf_tpu_torch.config import DataConfig as TDataConfig
 from pointnerf_tpu_torch.data.llff import LlffDataset as TLlff
 from pointnerf_tpu_torch.data.scannet import ScannetDataset as TScannet
@@ -181,19 +182,28 @@ def test_scannet_items_and_init_points_match_jax(tmp_path, split):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_jpeg_frames_raise_not_ported(tmp_path):
+def test_jpeg_frames_raise_not_ported(tmp_path, monkeypatch):
+    """JPEG frames were refused before Pillow decoded them; now a scene with
+    a JPEG frame loads as JAX's loader loads it, and where Pillow does not
+    import the loaders raise, naming Pillow and the file."""
+    import sys
     _llff_scene(str(tmp_path / "fern"), jpg_frame=3)
-    with pytest.raises(SliceNotPorted, match=r"JPEG frames .*IMG_0003\.jpg"):
-        TLlff(TDataConfig(data_root=str(tmp_path), scan="fern"),
-              split="train", factor=4)
     _scannet_scene(str(tmp_path / "scene0000_00"), jpg=True)
+    lcfg = dict(data_root=str(tmp_path), scan="fern")
+    t_ds = TLlff(TDataConfig(**lcfg), split="train", factor=4)
+    np.testing.assert_array_equal(
+        t_ds.images, JLlff(JDataConfig(**lcfg), split="train",
+                           factor=4).images)
     cfg = TDataConfig(data_root=str(tmp_path), scan="scene0000_00")
-    with pytest.raises(SliceNotPorted, match=r"Queue 1, datasets"):
+    _items_equal(TScannet(cfg, split="train"),
+                 JScannet(JDataConfig(data_root=str(tmp_path),
+                                      scan="scene0000_00"), split="train"))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match=r"IMG_0003\.jpg.*Pillow"):
+        TLlff(TDataConfig(**lcfg), split="train", factor=4)
+    with pytest.raises(ImportError, match=r"color/1\.jpg.*Pillow"):
         TScannet(cfg, split="train")
-    ds = TScannet(cfg, split="test")          # frames 0 and 5: PNG
-    assert len(ds) == 2
-    with pytest.raises(SliceNotPorted, match=r"color/1\.jpg"):
-        TScannet(cfg, split="train", step=1)
+    assert len(TScannet(cfg, split="test")) == 2    # frames 0 and 5: PNG
 
 
 @pytest.mark.parametrize("depth", [8, 16])

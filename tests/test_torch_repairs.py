@@ -1,5 +1,4 @@
-"""Two faults of the port against the JAX package, each with a planted
-case.
+"""A fault of the port against the JAX package, with a planted case.
 
 - Leaky ReLU at exactly 0: jax.nn.leaky_relu and flax's nn.leaky_relu are
   where(x >= 0, x, s x), slope 1 at 0, where torch's F.leaky_relu has slope
@@ -7,35 +6,25 @@ case.
   pre-activation of exactly 0 on every row; the gradients into it are held
   against JAX's at 2e-4 of scale, in the unfused decode
   (models/aggregator._act) and in the MVS embedding's premlp
-  (mvs/points_init.MvsPointsInit.embed_points).
-- K1 past QP = 512: on the card a query on K1's route (prebuilt tables,
-  NN > 0, no shell cut) whose table rows hold more than 512 candidates is
-  refused by check_envelope and before refresh_grid builds a grid, not by
-  the kernel's wrapper at the first render. The card is faked by passing a
-  CUDA device to the checks, as tests/test_torch_card_rule.py does."""
+  (mvs/points_init.MvsPointsInit.embed_points)."""
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from pointnerf_tpu.models.aggregator import aggregate as j_aggregate
 from pointnerf_tpu.models.points import SampledPoints as JSP
 from pointnerf_tpu.mvs import points_init as jpi
-from pointnerf_tpu_torch import SliceNotPorted
-from pointnerf_tpu_torch import config as tc
 from pointnerf_tpu_torch.convert import mvs_variables_from_jax, params_from_jax
 from pointnerf_tpu_torch.models import aggregator as ta
-from pointnerf_tpu_torch.models import renderer as tr
 from pointnerf_tpu_torch.models.points import SampledPoints as TSP
 from pointnerf_tpu_torch.mvs import points_init as tpi
 from test_torch_decode import _case
 from test_torch_mvs import F_DIM, H, V, W, cams, jax_mvs_variables
 
 TOL = 2e-4
-CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 
 
 def _close(got, ref, what):
@@ -132,42 +121,3 @@ def test_premlp_leaky_relu_gradient_at_zero():
         ref = jg[f"premlp_{i}"]["kernel" if leaf == "weight" else "bias"]
         ref = np.asarray(ref).T if leaf == "weight" else np.asarray(ref)
         _close(tvars["params"][k].grad.numpy(), ref, k)
-
-
-def _knn_cfg(P, **query):
-    cfg = tc.tiny_test_config()
-    return cfg.replace(query=dataclasses.replace(cfg.query, **{
-        "P": P, "prebuild_neighbors": True, "shell_layered": False,
-        "knn_select": "pallas", **query}))
-
-
-def test_k1_past_qp_512_is_refused_before_any_work():
-    """3^3 voxels x P = 19 is QP = 513: refused on the card by
-    check_envelope and by refresh_grid before the build; P = 18 (QP 486) and
-    the bucket, shell-layered and NN = 0 branches pass; the CPU takes the
-    plain versions, which have no such limit."""
-    from pointnerf_tpu_torch.models.points import make_point_cloud
-    from pointnerf_tpu_torch.train import step as ts
-    bad = _knn_cfg(19)
-    for check in (lambda c: tr.check_envelope(c, CUDA),
-                  lambda c: tr.check_knn_envelope(c.query, CUDA)):
-        with pytest.raises(SliceNotPorted, match="Queue 2, K1 at QP > 512"):
-            check(bad)
-        check(_knn_cfg(18))
-        for q in (dict(prebuild_neighbors=False), dict(shell_layered=True),
-                  dict(NN=0)):
-            check(_knn_cfg(19, **q))
-    tr.check_envelope(bad, CPU)
-
-    class CudaXyz(torch.Tensor):
-        """A CPU tensor that reports a CUDA device (the refusal must come
-        before the build touches it)."""
-        @property
-        def device(self):
-            return CUDA
-    pc, st = make_point_cloud(np.zeros((8, 3), np.float32),
-                              torch.Generator().manual_seed(0), bad.points,
-                              bad.agg.point_features_dim, device="cpu")
-    fake = pc._replace(xyz=pc.xyz.as_subclass(CudaXyz))
-    with pytest.raises(SliceNotPorted, match="Queue 2, K1 at QP > 512"):
-        ts.refresh_grid(fake, st, bad)
