@@ -11,7 +11,9 @@ Phases:
      rows of more than 512 candidates), K2, and K3 and K4 on two routes
      each — bf16 on the tensor-core kernels (fused_decode_tc.cu,
      fused_decode_bwd_tc.cu), f32 on the CUDA-core ones (fused_decode.cu,
-     fused_decode_bwd.cu) — and the general K3 / K4;
+     fused_decode_bwd.cu) — and the general K3 / K4
+     (fused_decode_any.cu, fused_decode_bwd_any.cu: tensor cores for bf16,
+     the CUDA cores for f32, both on the live-group list);
   3. the scene of both main paths — a 65,536-point sphere_scene (seed 0),
      its grid with the prebuilt neighbor tables, random aggregator weights
      from a seed — at bench_config with knn_select="pallas",
@@ -316,9 +318,24 @@ Phases:
      recorded step from the fresh and from the trained state, in bf16 and
      in f32 (f32 within 2e-4 of scale; K3 bf16 as phase 3 holds K3; K4
      bf16 on its mean, control the f32 plain version, and on its largest
-     errors — row gradients per tile at GENERAL_K4_BF16_TILE_TOL, dW / db
-     at GENERAL_K4_BF16_DW_TOL, control a live tile left out), two K4 calls
-     bit-equal in each rounding, with times and bounds. The counts are
+     errors split where its roundings enter, each beside a live tile left
+     out (hold_general_k4): its phase-A scratch at every rounding point
+     within bf16's rounding of f64 from the scratch's previous values, row
+     gradients per tile at GENERAL_K4_BF16_TILE_TOL and dW / db / dwa / dba
+     at GENERAL_K4_BF16_DW_TOL against their f64 values from the scratch),
+     two K4 calls
+     bit-equal in each rounding, with times and bounds; the kernels' plans
+     printed (tensor cores in bf16, CUDA cores in f32, the tile in shared
+     memory, no workspace), each time beside its plain version's, its
+     bound, its share of the bound and the first general kernels'
+     (FIRST_GENERAL_MS), failing
+     unless each time of that table is below its plain version's and the
+     bf16 ones at H = 512 are GENERAL_SPEEDUP times below those; and the
+     general K3 / K4 in f32 at H = GENERAL_DENSE_H (seeded weights) on the
+     dataset path's recorded train step (M = 2,304,000 dense rows, ~1%
+     live): within 2e-4 of scale of the plain versions run on the live
+     groups' rows, dead groups exactly 0, their live lists equal to the
+     plain version's, two K4 calls bit-equal, time beside bound. The counts are
      set to 0 just before each setting's counted serve and steps and read
      just after; the card-vs-CPU requests and the captures of the kernel
      checks' inputs run outside those windows;
@@ -5461,15 +5478,43 @@ AGG_QUERY = {"trilinear": dict(radius_limit_scale=1.0)}
 # (PERF.md §6): at most 0.12 over the distance kernels (sh_intrp), 0.26
 # with block3 absent
 AGG_COLOR_SHARE = 0.5
-# the general K4 in bf16, its largest errors (the control: one live tile
-# left out). Row gradients per tile of the kernel, max |kernel - plain| /
-# max |plain| over the tile's rows (a tile left out reads 1); dW / db
-# relative to max|plain| (a tile's share). Readings on an H100 80GB HBM3
-# at 700 W, H = 512 and K = 6 from the fresh and the trained state
-# (PERF.md §6): rows up to 1.07e-02 (g_dists, fresh), dW / db up to
-# 1.8e-06, their controls down to 4.6e-05 (dalpha, K = 6, trained)
+# the general K4 in bf16, its largest errors (hold_general_k4), each
+# beside its control, a live tile of the kernel left out, against their
+# f64 values from the kernel's own phase-A scratch: row gradients per tile
+# of the kernel (T live rows), max |kernel - reference| / max |reference|
+# in the tile (a tile left out reads 1); dW / db / dwa / dba of max
+# |reference|. Readings on an H100 80GB HBM3 at 700 W (PERF.md §6), H =
+# 512 and K = 6: the first general kernel (CUDA cores, against the f32
+# plain version) rows up to 1.07e-02, dW / db up to 1.8e-06, controls from
+# 4.6e-05; the tensor-core one from the fresh and the trained state rows
+# up to 1.9e-06, dW / db / dwa / dba up to 3.1e-07, controls from 3.0e-04
+# (and over 2 x 3 more trained states, scripts/parity_readings.py --phase
+# general, dW / db up to 2.2e-07, controls from 3.7e-04)
 GENERAL_K4_BF16_TILE_TOL = 0.05
 GENERAL_K4_BF16_DW_TOL = 1.5e-5
+# the general K4's rounding points in bf16 (hold_general_k4): each layer
+# output and each rounded g_z of its scratch against its value in f64 from
+# the scratch's previous ones, |kernel - f64| / (2^-8 |f64| + the f32 sum's
+# error bound), where 2^-8 is bf16's unit roundoff and the bound is
+# GENERAL_SUM_SLACK x (n + 2) 2^-24 x the sum of the terms' magnitudes (n
+# terms; the factor covers a tensor core's accumulation, which need not
+# round to nearest): a correct kernel reads at most 1, a value off by a
+# share of itself reads ~2^8 (the control, a live tile's values zeroed).
+# Read up to 0.9946 (the last layer's g_z), controls from 218
+GENERAL_SUM_SLACK = 4.0
+# the first general kernels (the CUDA cores, tile state in a global
+# workspace, no live list) on the same phase-30 inputs, ms on an H100 80GB
+# HBM3 at 700 W (PERF.md §6): printed beside this run's; every time listed
+# must be below its plain version's, and the bf16 ones at H = 512 at most
+# 1 / GENERAL_SPEEDUP of theirs
+FIRST_GENERAL_MS = {("h512", "K3", "bf16"): 72.9627,
+                    ("h512", "K3", "f32"): 72.9288,
+                    ("k6", "K3", "bf16"): 20.6236,
+                    ("h512", "K4", "bf16"): 426.4606,
+                    ("h512", "K4", "f32"): 426.5757,
+                    ("k6", "K4", "bf16"): 88.7805}
+GENERAL_SPEEDUP = 10.0
+GENERAL_DENSE_H = 512     # the dataset step's width for the general f32 check
 
 
 def agg_config(cfg, agg_kw=None, query_kw=None):
@@ -5564,8 +5609,8 @@ def agg_serve_and_step(params, pc, st, grid, cfg, kernels, reqs, tbatch,
 
 
 def general_tile(w, K: int, T=None):
-    """(rows per tile — by default the general kernels' —, the median live
-    tile)."""
+    """(rows per tile — by default 64 // K whole groups of the layout, 60
+    rows at K = 6 —, the median live tile)."""
     import torch
     T = T or max(1, 64 // K) * K
     live = torch.nn.functional.pad((w.reshape(-1) != 0),
@@ -5597,7 +5642,7 @@ def widest_tile(b, T: int) -> int:
 
 def k4_tile_control(args, sp, names, plain, out, T=None, floor_share=0.0):
     """The controls of K4's largest errors: a live tile (of T rows, by
-    default the general kernels') left out. Row gradients: `tile_rel_max`
+    default `general_tile`'s) left out. Row gradients: `tile_rel_max`
     of the kernel's output with that tile's rows zeroed — the median live
     tile's, or with a `floor_share` (each tile's max|plain| floored at
     that share of the tensor's) the tile that holds the tensor's max|plain|
@@ -5628,26 +5673,26 @@ def k4_tile_control(args, sp, names, plain, out, T=None, floor_share=0.0):
     return ctl
 
 
-def hold_k4_tiles(what: str, args, sp, names, out, plain, T=None,
-                  tile_tol=GENERAL_K4_BF16_TILE_TOL,
-                  dw_tol=GENERAL_K4_BF16_DW_TOL, floor_share=0.0):
+def hold_k4_tiles(what: str, args, sp, names, out, plain, tile_tol, dw_tol,
+                  T=None, floor_share=0.0):
     """K4's largest-error rule in bf16 (for `check_k4`): each row
     gradient's largest error per tile of T rows (`tile_rel_max`; by default
-    the general kernels' tile; each tile's max|plain| floored at
+    `general_tile`'s; each tile's max|plain| floored at
     `floor_share` of the tensor's) within `tile_tol` (or its entry for the
     tensor in a dict, None the default), each dW / db's of its
-    max|plain| within `dw_tol`, and each control (`k4_tile_control`: a
-    live tile left out) above its bar. The general K4 at the general bars;
-    the tuned one through `hold_k4_tc_tiles`. Returns {name: (reading,
-    control)}."""
+    max|plain| within `dw_tol` (the same), and each control
+    (`k4_tile_control`: a live tile left out) above its bar. The general K4 through
+    `hold_general_k4`, the tuned one through `hold_k4_tc_tiles`. Returns
+    {name: (reading, control)}."""
     T = general_tile(args[3], sp.K, T)[0]
     got = {n: (tile_rel_max(x, p, T, floor_share * float(p.abs().max()))
                if i < 4 else
                float((x - p).abs().max()) / max(float(p.abs().max()), 1e-30))
            for i, (n, x, p) in enumerate(zip(names, out, plain))}
     ctl = k4_tile_control(args, sp, names, plain, out, T, floor_share)
-    bars = {n: ((tile_tol.get(n, tile_tol[None]) if isinstance(tile_tol, dict)
-                 else tile_tol) if i < 4 else dw_tol)
+    def bar(tol, n):
+        return tol.get(n, tol[None]) if isinstance(tol, dict) else tol
+    bars = {n: bar(tile_tol if i < 4 else dw_tol, n)
             for i, n in enumerate(names)}
     floor = (f", floored at {floor_share:g} of the tensor's max |plain|"
              if floor_share else "")
@@ -5664,16 +5709,342 @@ def hold_k4_tiles(what: str, args, sp, names, out, plain, T=None,
     return {n: (got[n], ctl[n]) for n in names}
 
 
+def general_k4_chain(sp, args, rows, acts, gzs):
+    """Phase A's roundings and every output in f64 from the general K4's
+    own scratch (`general_bwd_scratch`: rows, acts, gzs): the forward layer
+    by layer from each scratch input, the backward from each scratch g_zr
+    with the kernel's branches (the signs of its layer outputs). Returns
+    ({rounding point: (kernel, f64 value, slack)}, {row gradient name: its
+    f64 value on the live rows}, {dW / db / dwa / dba name: (f64 value, its
+    per-row terms' sum over a row range as a function)}), names as
+    `decode_grad_leaves`'."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (build_x, layer_inputs,
+                                                      prep_weights)
+    feat, dists, extras, w, params, _sp, g_fagg, g_alpha = args
+    d64 = torch.float64
+    L, H, K, E, slope = sp.L1 + sp.L3, sp.H, sp.K, sp.E, sp.neg_slope
+    u = 2.0 ** -24
+
+    def r16(t):
+        return t.float().to(torch.bfloat16).to(d64)
+
+    def slack(n, terms):
+        return GENERAL_SUM_SLACK * (n + 2) * u * terms
+
+    Ws, bs, wa, ba = [[t.to(d64) for t in x] if isinstance(x, list)
+                      else x.to(d64) for x in prep_weights(params, sp)]
+    A = [a.to(d64) for a in acts]
+    Gz = [g.to(d64) for g in gzs]
+    ins = layer_inputs(sp)
+    x1 = ins[0]
+    pts = {}
+    x0 = build_x(r16(feat[rows]), r16(dists[rows]), sp)
+    pe = torch.zeros_like(x0)       # sinf / cosf: 2 ulp of a value <= 1
+    pe[:, sp.Fi:] = 8 * u
+    pe[:, sp.Fi + 2 * sp.Ff * sp.Fi:] = 0 if sp.Fd == 0 else 8 * u
+    pts["layer 0 input (the PE)"] = (A[0][:, :x1], x0, pe)
+    for l in range(L):
+        x, n = A[l][:, :ins[l]], ins[l]
+        z = x @ Ws[l] + bs[l]
+        s = slack(n, x.abs() @ Ws[l].abs() + bs[l].abs())
+        pts[f"layer {l} output"] = (A[l + 1][:, :H],
+                                    torch.where(z > 0, z, z * slope),
+                                    (1 + 2.0 ** -8) * s)
+        if l + 1 == sp.L1 and E:
+            pts[f"layer {l + 1} input's extras"] = (
+                A[l + 1][:, H:H + E], r16(extras[rows]),
+                torch.zeros_like(A[l + 1][:, H:H + E]))
+    pads = [a[:, (ins[l] if l < L else H):] for l, a in enumerate(A)] \
+        + [g[:, H:] for g in Gz]
+    if any(bool(p.any()) for p in pads):
+        fail("the general K4's scratch holds a nonzero pad")
+    # the heads, from the kernel's last output h
+    h = A[L][:, :H]
+    grp = torch.div(rows, K, rounding_mode="floor")
+    gf, ga, wr = g_fagg[grp].to(d64), g_alpha[grp].to(d64), r16(w[rows])
+    za = h @ wa.reshape(-1, 1) + ba
+    sig = torch.sigmoid(za - 1.0)
+    g_za = ga * wr * sig
+    dza = 2 * slack(H, h.abs() @ wa.abs().reshape(-1, 1) + ba.abs()) \
+        + 2 * u * (za - 1.0).abs()
+    e_za = (ga * wr).abs() * (0.25 * dza + 8 * u * sig)
+    g_h = gf * wr + g_za * wa
+    e_h = e_za * wa.abs() + 8 * u * ((gf * wr).abs() + (g_za * wa).abs())
+    row_ref = {"g_w": (h * gf).sum(1, keepdim=True)
+               + torch.nn.functional.softplus(za - 1.0) * ga}
+    grads = {}
+    for l in reversed(range(L)):
+        g_z = g_h * torch.where(A[l + 1][:, :H] > 0, 1.0, slope)
+        pts[f"layer {l} g_z"] = (Gz[l][:, :H], g_z,
+                                 (1 + 2.0 ** -8) * (e_h + 2 * u * g_z.abs()))
+        x, gzr = A[l][:, :ins[l]], Gz[l][:, :H]
+        grads[l] = (x, gzr, g_z)
+        gx = gzr @ Ws[l].t()
+        e_h = slack(H, gzr.abs() @ Ws[l].abs().t())
+        if l == sp.L1:
+            row_ref["g_extras"] = gx[:, H:H + E]
+        g_h, e_h = gx[:, :H], e_h[:, :H]
+    # the PE backward of the layer-0 input gradient gx
+    fr, dr = (r16(t[rows]).requires_grad_() for t in (feat, dists))
+    with torch.enable_grad():
+        row_ref["g_feat"], row_ref["g_dists"] = torch.autograd.grad(
+            build_x(fr, dr, sp), (fr, dr), gx)
+    leaves = {}
+    for i, name in enumerate(("block1", "block3")):
+        for j in range(sp.L1 if i == 0 else sp.L3):
+            x, gzr, g_z = grads[j + (sp.L1 if i else 0)]
+            leaves[f"d{name}[{j}].w"] = (
+                x.t() @ gzr, lambda a, b, x=x, gzr=gzr: x[a:b].t() @ gzr[a:b])
+            leaves[f"d{name}[{j}].b"] = (
+                g_z.sum(0), lambda a, b, g_z=g_z: g_z[a:b].sum(0))
+    hz = h * g_za
+    leaves["dalpha[0].w"] = (hz.sum(0).reshape(H, 1),
+                             lambda a, b: hz[a:b].sum(0).reshape(H, 1))
+    leaves["dalpha[0].b"] = (g_za.sum(0), lambda a, b: g_za[a:b].sum(0))
+    return pts, row_ref, leaves
+
+
+def hold_general_k4(what: str, args, sp, names, out, plain):
+    """The general K4's largest-error rule in bf16 (for `check_k4`), split
+    where its roundings enter, each reading beside its control (a live tile
+    of the kernel — T live rows, the median one — left out): its scratch
+    (`general_bwd_scratch`, all live rows in one batch; its row gradients
+    the same bits as `out`'s) within
+    GENERAL_SUM_SLACK's rounding bound of `general_k4_chain`'s f64 values at
+    every rounding point; the row gradients per tile at
+    GENERAL_K4_BF16_TILE_TOL against their f64 values from that scratch,
+    on the live rows (every other row exactly 0; the distance from the
+    plain version summed in f64 fed the kernel's leaky-ReLU branches
+    printed beside it); `out`'s dW / db / dwa / dba at
+    GENERAL_K4_BF16_DW_TOL of max|f64| against phases B and C's function in
+    f64 on that scratch (batches move only their f32 sums). Returns
+    {name: (reading, control)}."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (any_plan,
+                                                      fused_decode_bwd_plain,
+                                                      general_bwd_scratch)
+    feat, dists, extras, w, params, _sp, g_fagg, g_alpha = args
+    M, K, H = feat.shape[0], sp.K, sp.H
+    T = any_plan(sp, M, backward=True).T
+    res, rows, acts, gzs = general_bwd_scratch(feat, dists, extras, w,
+                                               params, sp, g_fagg, g_alpha)
+    _, kern = decode_grad_leaves(res)
+    if not all(torch.equal(a, b) for a, b in zip(kern[:4], out[:4])):
+        fail(f"{what}: the scratch's call gives other row gradients than "
+             f"the kernel's")
+    kern = kern[:4] + list(out[4:])
+    n = rows.numel()
+    t = (n // T) // 2 * T                 # the median live tile's rows
+    t1 = min(t + T, n)
+    got = {}
+
+    def held(name, reading, control, bar):
+        log(f"{what}, {name}: {reading:.3e} [bar {bar:.3g}], control "
+            f"{control:.3e}")
+        if not reading <= bar:
+            fail(f"{what}: {name} is past its bar")
+        if not control > bar:
+            fail(f"{what}: {name}'s bar does not tell the control apart")
+        got[name] = (reading, control)
+
+    with torch.no_grad():
+        pts, row_ref, leaves = general_k4_chain(sp, args, rows, acts, gzs)
+        for name, (k, ref, sl) in pts.items():
+            bound = 2.0 ** -8 * ref.abs() + sl
+            ratio = (k - ref).abs() / bound
+            ratio = torch.where(bound > 0, ratio, (k != ref).double() * 1e30)
+            ctl = (ref[t:t1].abs() / bound[t:t1]).nan_to_num(0.0)
+            held(f"rounding point {name}, |err| / bound", float(ratio.max()),
+                 float(ctl.max()), 1.0)
+        # the row gradients, on the live rows (whole groups)
+        groups = torch.div(rows[::K], K, rounding_mode="floor")
+        masks = [(a[:, :H] > 0) for a in acts[1:]]
+        sub = [x[rows] for x in (feat, dists, extras, w)]
+        _, p64 = decode_grad_leaves(fused_decode_bwd_plain(
+            *sub, params, sp, g_fagg[groups], g_alpha[groups],
+            dtype=torch.float64, masks=masks))
+        off = torch.ones(M, dtype=torch.bool, device=rows.device)
+        off[rows] = False
+        for i, name in enumerate(names[:4]):
+            if bool(kern[i][off].any()):
+                fail(f"{what}: {name} is nonzero on a row off the live list")
+            k = kern[i][rows].double()
+            if not k.numel():
+                continue                # no extras
+            log(f"{what}, {name} per tile of {T} live rows vs the f64 plain "
+                f"version fed the kernel's branches (printed): "
+                f"{tile_rel_max(k, p64[i], T):.3e}")
+            z = k.clone()
+            z[t:t1] = 0
+            held(f"{name} per tile of {T} live rows, vs f64 on the scratch",
+                 tile_rel_max(k, row_ref[name], T),
+                 tile_rel_max(z, row_ref[name], T), GENERAL_K4_BF16_TILE_TOL)
+        del p64
+        for name, k in zip(names[4:], kern[4:]):
+            ref, part = leaves[name]
+            s = max(float(ref.abs().max()), 1e-300)
+            held(f"{name} of max |f64 on the scratch|",
+                 float((k.double() - ref).abs().max()) / s,
+                 float(part(t, t1).abs().max()) / s, GENERAL_K4_BF16_DW_TOL)
+    return got
+
+
 def hold_k4_tc_tiles(what: str, args, sp, names, out, plain):
     """The tensor-core K4's largest-error rule in bf16 on a neural2d step:
     `hold_k4_tiles` over its own tiles (TC_ROWS_BWD rows), each tile's
     max|plain| floored at TC_K4_BF16_TILE_FLOOR of the tensor's, at the
     TC_K4_BF16_* bars."""
     from pointnerf_tpu_torch.ops.fused_decode import TC_ROWS_BWD
-    return hold_k4_tiles(what, args, sp, names, out, plain, T=TC_ROWS_BWD,
-                         tile_tol=TC_K4_BF16_TILE_TOL,
-                         dw_tol=TC_K4_BF16_DW_TOL,
-                         floor_share=TC_K4_BF16_TILE_FLOOR)
+    return hold_k4_tiles(what, args, sp, names, out, plain,
+                         TC_K4_BF16_TILE_TOL, TC_K4_BF16_DW_TOL,
+                         T=TC_ROWS_BWD, floor_share=TC_K4_BF16_TILE_FLOOR)
+
+
+def hold_general_times(checks):
+    """Print each general kernel's time at the phase-30 shapes beside its
+    plain version's, its bound, its share of the bound and the first
+    general kernels'
+    (FIRST_GENERAL_MS); fail where a time that table lists is not below its
+    plain version's, or a bf16 one at H = 512 not GENERAL_SPEEDUP times
+    below theirs."""
+    for name, res in checks.items():
+        for kern, row in (("K3", "fused_decode_any"),
+                          ("K4", "fused_decode_bwd_any")):
+            for label in ("bf16", "f32"):
+                r = res[row] if label == "bf16" else res[row]["f32"]
+                ms, plain, b = r["ms"], r["plain_ms"], r["bound_ms"]
+                first = FIRST_GENERAL_MS.get((name, kern, label))
+                log(f"phase 30 {name}: {kern} general {label} {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms ({plain / ms:.2f}x), bound "
+                    f"{b:.4f} ms ({r['bound_by']}; {b / ms:.2%} of it), "
+                    + (f"the first general kernel {first:.4f} ms "
+                       f"({first / ms:.1f}x faster)" if first
+                       else "the first general kernel not recorded"))
+                if first is None:
+                    continue
+                if not ms < plain:
+                    fail(f"phase 30 {name}: the general {kern} ({label}) is "
+                         f"not faster than its plain version")
+                if label == "bf16" and name == "h512" \
+                        and not ms * GENERAL_SPEEDUP <= first:
+                    fail(f"phase 30 {name}: the general {kern} (bf16) is not "
+                         f"{GENERAL_SPEEDUP:g}x faster than the first one")
+
+
+def general_dense_step(bwd_args):
+    """Phase 30 (c) on the dataset path's recorded train step (f32, dense
+    [R, SR, K] rows, ~1% live): the general K3 and K4 at H =
+    GENERAL_DENSE_H with seeded weights (its g_fagg the recorded one's
+    columns repeated), their plans (no workspace) and live lists (equal to
+    the plain version's: only the live groups are decoded), held against
+    the plain versions on the live groups' rows (within K3_F32_TOL and
+    K4_F32_TOL of each output's and gradient's scale; a dead group's
+    outputs are exactly 0 in both, and the kernels' are checked to be), two
+    K4 calls the same bits, times beside the bounds. The plain versions run
+    on the live rows alone: on all 2.3 M rows at H = 512 the f32 backward
+    would hold some 50 GB of activations. Returns the numbers."""
+    import torch
+    from pointnerf_tpu_torch.ops.fused_decode import (
+        any_plan, fused_decode, fused_decode_bwd, fused_decode_bwd_plain,
+        fused_decode_plain, layer_inputs, live_groups_plain, route)
+    feat, dists, extras, w, _p, spec, g_fagg, g_alpha = bwd_args
+    sp = spec._replace(H=GENERAL_DENSE_H)
+    M, H, K = feat.shape[0], sp.H, sp.K
+    if spec.bf16 or route(sp) != "general" \
+            or route(sp, backward=True) != "general":
+        fail(f"the dense step at H = {H} is not on the general f32 route")
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def dense(n):
+        return {"w": torch.randn((n, H), generator=g, device="cuda")
+                * (2.0 / n) ** 0.5,
+                "b": torch.randn((H,), generator=g, device="cuda") * 0.1}
+    dims = layer_inputs(sp)
+    params = {"block1": [dense(n) for n in dims[:sp.L1]],
+              "block3": [dense(n) for n in dims[sp.L1:]],
+              "alpha": [{"w": torch.randn((H, 1), generator=g,
+                                          device="cuda") * 0.1,
+                         "b": torch.zeros((1,), device="cuda")}]}
+    gf = g_fagg.repeat(1, -(-H // g_fagg.shape[1]))[:, :H].contiguous()
+    plans = (any_plan(sp, M), any_plan(sp, M, backward=True))
+    log(f"general dense step: {sp}, M={M}; K3 plan {plans[0]}; K4 plan "
+        f"{plans[1]}")
+    if any(p.ws for p in plans):
+        fail("the general kernels' dense-step plan keeps a workspace")
+    live3, live4 = live_counts(w, K), live_counts(w, K, gf, g_alpha)
+    log(f"general dense step: {live3[0]} rows carry weight; live groups x K "
+        f"= {live3[1]} rows decoded by K3 ({live3[1] / M:.4%}), {live4[1]} "
+        f"by K4 ({live4[1] / M:.4%}); 64-row tiles with a weighted row = "
+        f"{live3[2]} rows")
+    groups = live_groups_plain(w, K, gf, g_alpha).long()
+    rows = (groups[:, None] * K + torch.arange(K, device="cuda")).reshape(-1)
+    dead = torch.ones(M, dtype=torch.bool, device="cuda")
+    dead[rows] = False
+    sub = [t[rows].contiguous() for t in (feat, dists, extras, w)]
+    gsub = (gf[groups].contiguous(), g_alpha[groups].contiguous())
+    out = {"M": M, "H": H, "live_rows": live3[0],
+           "live_group_rows": live3[1]}
+    with torch.no_grad():
+        k3 = fused_decode(feat, dists, extras, w, params, sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p3 = fused_decode_plain(*sub, params, sp)
+        torch.cuda.synchronize()
+        plain3 = (time.perf_counter() - t0) * 1e3
+        e3 = max(float((a[groups] - b).abs().max())
+                 / max(float(b.abs().max()), 1e-30) for a, b in zip(k3, p3))
+        dead_g = torch.ones(M // K, dtype=torch.bool, device="cuda")
+        dead_g[groups] = False
+        zero3 = all(not bool(a[dead_g].any()) for a in k3)
+        del k3, p3
+        ms3 = cuda_ms(lambda: fused_decode(feat, dists, extras, w, params,
+                                           sp), iters=3, warmup=1)
+        names, k4 = decode_grad_leaves(fused_decode_bwd(
+            feat, dists, extras, w, params, sp, gf, g_alpha))
+        _, again = decode_grad_leaves(fused_decode_bwd(
+            feat, dists, extras, w, params, sp, gf, g_alpha))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k4, again))
+        del again
+        zero4 = all(not bool(a[dead].any()) for a in k4[:4])
+        t0 = time.perf_counter()
+        _, p4 = decode_grad_leaves(fused_decode_bwd_plain(
+            *sub, params, sp, *gsub))
+        torch.cuda.synchronize()
+        plain4 = (time.perf_counter() - t0) * 1e3
+        rel = [float(((a[rows] if i < 4 else a) - b).abs().max())
+               / max(float(b.abs().max()), 1e-30)
+               for i, (a, b) in enumerate(zip(k4, p4))]
+        del k4, p4
+        torch.cuda.empty_cache()
+        ms4 = cuda_ms(lambda: fused_decode_bwd(feat, dists, extras, w,
+                                               params, sp, gf, g_alpha),
+                      iters=3, warmup=1)
+    i = max(range(len(rel)), key=rel.__getitem__)
+    for kern, ms, plain, err, tol, bwd in (
+            ("K3", ms3, plain3, e3, K3_F32_TOL, False),
+            ("K4", ms4, plain4, rel[i], K4_F32_TOL, True)):
+        nrow, _nb, b, by = decode_bound(w, params, sp, backward=bwd)
+        log(f"general dense step {kern} f32: largest |err| / max|plain| "
+            f"{err:.3e}" + (f" ({names[i]})" if bwd else "")
+            + f" [bar {tol:.0e}]; {ms:.4f} ms, plain on the {rows.numel()} "
+            f"live rows {plain:.4f} ms (one call, host clock), bound "
+            f"{b:.4f} ms ({by}: {nrow} of {M} rows carry weight; "
+            f"{b / ms:.2%} of it)")
+        if not err <= tol:
+            fail(f"the general {kern} (f32) disagrees with its plain version "
+                 f"on the dense step")
+        out[kern] = {"max_rel_err": err, "ms": ms,
+                     "plain_live_rows_ms": plain, "bound_ms": b,
+                     "bound_by": by}
+    log(f"general dense step: dead groups exactly 0 in K3 {zero3}, K4 "
+        f"{zero4}; two K4 calls give the same bits: {same}")
+    if not (zero3 and zero4):
+        fail("the general kernels wrote nonzero outputs for a dead group")
+    if not same:
+        fail("the general K4 (f32) is not deterministic on the dense step")
+    return out
 
 
 def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
@@ -5728,9 +6099,14 @@ def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
             if {route(sp), route(sp, backward=True)} != {"general"}:
                 fail(f"phase 30 {name}: K3 / K4 ({sp}) is not on the "
                      f"general route")
-        log(f"phase 30 {name}: {spec}, K3 plan (grid, workspace floats, "
-            f"shared bytes) {any_plan(spec, M)}, K4 plan "
-            f"{any_plan(spec, M, backward=True)}")
+        for bf16 in (True, False):
+            sp = spec._replace(bf16=bf16)
+            plans = (any_plan(sp, M), any_plan(sp, M, backward=True))
+            log(f"phase 30 {name}: {sp}, K3 plan {plans[0]}, K4 plan "
+                f"{plans[1]}")
+            if any(p.ws for p in plans):
+                fail(f"phase 30 {name}: a general kernel's tile state is "
+                     f"planned in a global workspace")
         k4_fresh = capture_k4_inputs(
             create_train_state(torch.Generator(device="cuda").manual_seed(2),
                                p, pc, c), st, grid, tbatch, c)
@@ -5753,7 +6129,7 @@ def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
     for name, (cap3, k4_fresh, k4_trained) in recorded.items():
         k3 = check_k3([cap3], what=f"{name} request")
         k4 = {st_name: check_k4(args, f"{name}, {st_name} state",
-                                hold_largest=hold_k4_tiles)
+                                hold_largest=hold_general_k4)
               for st_name, args in (("fresh", k4_fresh),
                                     ("trained", k4_trained))}
         checks[name] = {"fused_decode_any": {**k3["bf16"], "f32": k3["f32"]},
@@ -5762,6 +6138,7 @@ def whole_aggregator_path(kernels, params, pc, st, grid, reqs, cfg):
                             "f32": k4["trained"]["f32"],
                             "fresh_state": k4["fresh"]}}
     del recorded
+    hold_general_times(checks)
     secs["general kernel checks"] = time.perf_counter() - t0
     log(f"phase 30 wall seconds {time.perf_counter() - t_all:.2f} ("
         + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
@@ -6294,7 +6671,13 @@ def main() -> None:
          ("eval chunk", ds.captured["eval_chunk"]["fused_decode"][0])],
         ds.step_inputs["fused_decode_bwd"])
     ds_cfg = ds.cfg
+    dense_args = ds.step_inputs["fused_decode_bwd"]
     del ds
+    # phase 30 (c)'s general f32 check on this recorded step
+    torch.cuda.empty_cache()
+    general_dense = general_dense_step(dense_args)
+    del dense_args
+    torch.cuda.empty_cache()
     query_branches(data_root, ds_cfg)
     voxel_parity()
     fo_counts, fo_routes, fo_checks = flags_off_path(kernel_wrappers())
@@ -6369,9 +6752,11 @@ def main() -> None:
     results["fused_decode_bwd_f32"] = {**f32_k4, "bench_step": k4["f32"]}
     # the general kernels at bench_config with H = 512 (bf16, the main
     # numbers; f32 beside them) and with K = 6
-    for row_name in ("fused_decode_any", "fused_decode_bwd_any"):
+    for row_name, kern in (("fused_decode_any", "K3"),
+                           ("fused_decode_bwd_any", "K4")):
         results[row_name] = {**agg_checks["h512"][row_name],
-                             "k6": agg_checks["k6"][row_name]}
+                             "k6": agg_checks["k6"][row_name],
+                             "dense_step_f32": general_dense[kern]}
     # K1's wide path at the scannet_tables eval chunk (QP = 702)
     results["knn_select_wide"] = st_checks["scannet_tables_eval_chunk"][
         "knn_select_wide"]
@@ -6416,7 +6801,7 @@ def main() -> None:
         for k in ("host_us", "run_stats", "gemm_chain_ms", "M", "live_rows",
                   "live_group_rows", "live_tile_rows", "eval_chunk",
                   "bench_request", "bench_step", "f32", "k6",
-                  "fresh_state", "K24"):
+                  "fresh_state", "K24", "dense_step_f32"):
             if k in r:
                 row[k] = r[k]
         # the same comparison and timing on the maintenance path's dense

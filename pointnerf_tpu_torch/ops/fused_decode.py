@@ -40,13 +40,18 @@ first phase, in batches of F32_CAP_ROWS live rows. A spec past those tuned
 kernels' limits (`kernel_takes`: H, depth, K, layer widths) takes the
 general kernels `csrc/fused_decode_any.cu` (K3) and
 `csrc/fused_decode_bwd_any.cu` (K4), in either rounding: any widths, any
-depth and any K, on the CUDA cores, the weights as `pack_any_weights` lays
-them out. Each wrapper counts its launches per route in
-`launches_by_route`.
+depth and any K. They decode the live groups of the same list, bf16 on the
+tensor cores and f32 on the CUDA cores, every width padded with zero
+weights to the product's granularity, a tile of T rows (64, 32 or 16)
+whose state fits shared memory (`general_plan`; `csrc/decode_any.cuh`),
+the weights as `pack_any_weights` lays them out; K4 takes dW as a split-K
+product over scratch rows, in batches of GENERAL_CAP_ROWS. Each wrapper
+counts its launches per route in `launches_by_route`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
@@ -77,6 +82,13 @@ TC_MAX_IN = 320         # widest padded layer input
 TC_PAD = 8              # bf16 row padding in shared memory
 TC_BN = 64              # K4 phase B: dW columns per CTA
 TC_SPLITS = 16          # K4 phase B: row splits of dW, summed in order
+# the general kernels (csrc/decode_any.cuh and its two users)
+GENERAL_TILES = (64, 32, 16)  # rows per tile: the largest whose state fits
+GENERAL_BLOCK = 256     # tensor cores: output columns per block
+GENERAL_CC_RING = (8, 3)  # CUDA cores: weight rows per chunk, stages
+GENERAL_CC_ROWS = 16384  # CUDA cores: T x the columns of one pass
+GENERAL_CAP_ROWS = 131072  # K4: live rows per batch of the scratch
+GENERAL_SPLITS = 16     # K4 phase B: row splits of dW, summed in order
 
 
 class DecodeSpec(NamedTuple):
@@ -164,13 +176,15 @@ def fused_decode_plain(feat, dists, extras, w, params: Dict,
 
 def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
                            spec: DecodeSpec, g_fagg, g_alpha,
-                           dtype=torch.float32):
+                           dtype=torch.float32, masks=None):
     """Plain PyTorch version of the backward, written out line for line
     after the JAX `_bwd_kernel` (autograd of `fused_decode_plain` would round
     the gradient at every bf16 cast, which JAX does not do). g_fagg [M/K, H],
     g_alpha [M/K, 1]. Returns (g_feat, g_dists, g_extras, g_w, g_params), f32,
     g_params in the layout of `params` (block1 / block3 / alpha). `dtype`
-    as for `fused_decode_plain`."""
+    as for `fused_decode_plain`. `masks`, each layer's leaky-ReLU branches
+    [M, H] (z > 0) to take in place of its own: another side's, so that a
+    pre-activation summed across 0 there moves nothing but its rounding."""
     r = lambda t: _round(t.float(), spec.bf16).to(dtype)   # noqa: E731
     feat, dists, extras, w = r(feat), r(dists), r(extras), r(w)
     Ws, bs, wa, ba = _weights_as(params, spec, dtype)
@@ -182,7 +196,8 @@ def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
             h = torch.cat([h, extras], -1)
         acts.append(h)
         zs.append(h @ Ws[i] + bs[i])
-        h = r(_leaky(zs[-1], spec.neg_slope))
+        pos = zs[-1] > 0 if masks is None else masks[i]
+        h = r(torch.where(pos, zs[-1], zs[-1] * spec.neg_slope))
     g_f = g_fagg.to(dtype).repeat_interleave(K, 0)                  # [M, H]
     g_a = g_alpha.to(dtype).reshape(-1, 1).repeat_interleave(K, 0)  # [M, 1]
     za = (h * wa).sum(-1, keepdim=True) + ba
@@ -193,7 +208,8 @@ def fused_decode_bwd_plain(feat, dists, extras, w, params: Dict,
     dWs, dbs = [None] * L, [None] * L
     g_extras = None
     for i in reversed(range(L)):
-        g_z = g_h * torch.where(zs[i] > 0, 1.0, spec.neg_slope)
+        pos = zs[i] > 0 if masks is None else masks[i]
+        g_z = g_h * torch.where(pos, 1.0, spec.neg_slope)
         dbs[i] = g_z.sum(0)
         g_zr = r(g_z)
         dWs[i] = acts[i].t() @ g_zr
@@ -478,13 +494,16 @@ def _forward(feat, dists, extras, w, params: Dict, spec: DecodeSpec):
     p = _build.ptr
     r = route(spec)
     if r == "general":
-        grid, nws, _smem = any_plan(spec, M)
-        ws = torch.empty(max(nws, 1), dtype=torch.float32, device=dev)
-        Wp, bias = pack_any_weights(Ws, False), torch.cat(bs)
+        pl = any_plan(spec, M)
+        ws = torch.empty(max(pl.grid * pl.ws, 1), dtype=torch.float32,
+                         device=dev)
+        Wp, bias = pack_any_weights(Ws, spec, pl), pack_any_bias(bs, spec, pl)
+        live = _live_scratch(M // spec.K, dev)
         err = _any_lib("fused_decode_any_launch")(
             p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
-            M, *_dims(spec), float(spec.neg_slope), int(spec.bf16), grid,
-            p(ws), p(fagg), p(alpha), _build.stream_handle(dev))
+            M, *_dims(spec), float(spec.neg_slope), int(spec.bf16),
+            pl.grid, *[p(t) for t in live], p(ws), p(fagg), p(alpha),
+            _build.stream_handle(dev))
         _build.check(err, "fused_decode (general)")
     elif spec.bf16:
         Wt, bias = pack_tc_weights(Ws, spec), torch.cat(bs)
@@ -575,16 +594,103 @@ def f32_smem_bytes_built(spec: DecodeSpec) -> Tuple[int, int, int]:
     return k3, a.value, b.value
 
 
-_ANY_PLAN = [ctypes.c_longlong] + [_CI] * 9 + [
-    ctypes.POINTER(_CI), ctypes.POINTER(ctypes.c_longlong),
-    ctypes.POINTER(_CI)]
+class GeneralPlan(NamedTuple):
+    """The general kernels' plan of a spec (`general_plan`), and with the
+    launch's fields the built kernels' (`any_plan`)."""
+    kind: str        # "tensor_cores" (bf16) or "cuda_cores"
+    T: int           # rows per tile
+    gpt: int         # K3: groups per item (T // K), or 1 when K > T
+    slabs: int       # K3: slabs of T rows per item: 1, or ceil(K / T)
+    smem: int        # shared memory bytes of K3, or of K4's phase A
+    ws: int          # workspace floats per CTA (0: the tile lies in shared)
+    Hp: int          # H padded
+    kp0: int         # layer 0's input (x1) padded
+    kpE: int         # layer L1's input (H + E) padded
+    grid: int = 0       # any_plan: CTAs of K3, or of K4's phase A
+    smem_b: int = 0     # any_plan, K4: phase B's dynamic shared memory bytes
+    dw_blocks: int = 0  # any_plan, K4: phase B's CTAs along y
+    cap: int = 0        # any_plan, K4: scratch rows a batch
+
+
+def _rup(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def general_smem(spec: DecodeSpec, kind: str, T: int, backward: bool,
+                 ws: bool = False) -> Tuple[int, int]:
+    """(shared memory bytes, workspace floats per CTA) of the general K3
+    (K4 phase A with `backward`) for a tile of T rows on `kind`, as
+    `tc_shape` and `cc_smem` in csrc/decode_any.cuh lay them out."""
+    L = spec.L1 + spec.L3
+    pad = TC_KC if kind == "tensor_cores" else F32_PAD
+    Hp = _rup(spec.H, pad)
+    kmax = max(_rup(spec.x1, pad), _rup(spec.H + spec.E, pad))
+    if kind == "tensor_cores":
+        lda, ldb, ldg, gxs = kmax + TC_PAD, min(GENERAL_BLOCK, Hp) + TC_PAD, \
+            Hp + TC_PAD, kmax + 4
+        stage = TC_KC * ldb
+        if backward:
+            stage = max(stage, min(GENERAL_BLOCK, kmax) * (TC_KC + TC_PAD))
+        u = 2 * T * lda * 2
+        if backward:
+            u = max(u, T * gxs * 4)
+        ring = u + ((T * ldg * 2 + L * T * (Hp // 32) * 4) if backward else 0)
+        ring = _rup(ring, 16)
+        return ring + TC_STAGES * stage * 2 + 3 * T * 4, 0
+    cw, ld = GENERAL_CC_ROWS // T, T + 4
+    state = kmax * ld * (2 if ws else 1)
+    if backward:
+        state += Hp * ld + L * T * -(-Hp // 32)
+    kc, stages = GENERAL_CC_RING
+    smem = 4 * ((0 if ws else state) + stages * kc * cw + 3 * T)
+    return smem, (state if ws else 0)
+
+
+def general_plan(spec: DecodeSpec, backward: bool = False) -> GeneralPlan:
+    """The general kernels' plan (`plan` in csrc/decode_any.cuh): bf16 on
+    the tensor cores with the largest tile of GENERAL_TILES whose state fits
+    a block's shared memory; else (f32, or a bf16 spec too wide for a tile
+    of 16) on the CUDA cores with the largest tile that fits and covers Hp
+    in one pass of GENERAL_CC_ROWS / T columns; else on the CUDA cores with
+    the activations in a workspace slice per CTA (T = 64), the one
+    workspace placement."""
+    def make(kind, T, ws):
+        pad = TC_KC if kind == "tensor_cores" else F32_PAD
+        smem, wsf = general_smem(spec, kind, T, backward, ws)
+        K = spec.K
+        return GeneralPlan(kind, T, T // K if K <= T else 1,
+                           1 if K <= T else -(-K // T), smem, wsf,
+                           _rup(spec.H, pad), _rup(spec.x1, pad),
+                           _rup(spec.H + spec.E, pad))
+    if spec.bf16:
+        for T in GENERAL_TILES:
+            p = make("tensor_cores", T, False)
+            if p.smem <= SMEM_BYTES:
+                return p
+    for T in GENERAL_TILES:
+        p = make("cuda_cores", T, False)
+        if p.Hp <= GENERAL_CC_ROWS // T and p.smem <= SMEM_BYTES:
+            return p
+    return make("cuda_cores", 64, True)
+
+
+def general_pads(spec: DecodeSpec, plan: GeneralPlan) -> List[int]:
+    """Each layer's padded input width kp_l under `plan`."""
+    return [plan.kp0 if i == 0 else plan.kpE if i == spec.L1 else plan.Hp
+            for i in range(spec.L1 + spec.L3)]
+
+
+_KIND = ("tensor_cores", "cuda_cores")
 _ANY_ARGS = {
-    "fused_decode_any_workspace": _ANY_PLAN,
+    "fused_decode_any_plan": [ctypes.c_longlong] + [_CI] * 10
+    + [ctypes.POINTER(_CI)],
     "fused_decode_any_launch": [_VP] * 8 + [ctypes.c_longlong] + [_CI] * 9
-    + [_CF, _CI, _CI] + [_VP] * 4,
-    "fused_decode_bwd_any_workspace": _ANY_PLAN,
+    + [_CF, _CI, _CI] + [_VP] * 8,
+    "fused_decode_bwd_any_plan": [ctypes.c_longlong] + [_CI] * 11
+    + [ctypes.POINTER(_CI)],
     "fused_decode_bwd_any_launch": [_VP] * 10 + [ctypes.c_longlong]
-    + [_CI] * 9 + [_CF, _CI, _CI] + [_VP] * 7,
+    + [_CI] * 9 + [_CF, _CI, _CI] + [_VP] * 7 + [_CI] + [_VP] * 3 + [_CI]
+    + [_VP] * 6,
 }
 
 
@@ -594,55 +700,139 @@ def _any_lib(name: str):
     return _argtypes(getattr(_build.load(lib), name), _ANY_ARGS[name])
 
 
-def any_plan(spec: DecodeSpec, M: int, backward: bool = False
-             ) -> Tuple[int, int, int]:
-    """(grid, workspace floats, shared memory bytes) of a general-kernel
-    launch at M rows, as the built kernel plans it: a tile's state lies in
-    shared memory when it fits (workspace 0 for K3, the per-CTA partials
-    for K4), else in the workspace."""
-    grid, ws, smem = _CI(0), ctypes.c_longlong(0), _CI(0)
-    name = ("fused_decode_bwd_any_workspace" if backward
-            else "fused_decode_any_workspace")
-    err = _any_lib(name)(M, *_dims(spec), ctypes.byref(grid),
-                         ctypes.byref(ws), ctypes.byref(smem))
+def any_plan(spec: DecodeSpec, M: int, backward: bool = False,
+             cap_rows=None) -> GeneralPlan:
+    """The plan of a general-kernel launch at M rows as the built kernel
+    makes it on the current card: `general_plan`'s fields and the launch's
+    (grid; for K4 phase B's shared memory and CTAs along y, and the scratch
+    rows, at most `cap_rows`, by default GENERAL_CAP_ROWS). Kept per (spec,
+    M, backward, cap, card): the grid comes from an occupancy query."""
+    return _any_plan(spec, M, backward, cap_rows or GENERAL_CAP_ROWS,
+                     torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _any_plan(spec: DecodeSpec, M: int, backward: bool, cap_rows: int,
+              _device: int):
+    K = spec.K
+    if backward:
+        out = (_CI * 11)()
+        err = _any_lib("fused_decode_bwd_any_plan")(
+            M, *_dims(spec), int(spec.bf16), cap_rows, out)
+        _build.check(err, "fused_decode_bwd (general, plan)")
+        v = list(out)
+        T = v[1]
+        return GeneralPlan(_KIND[v[0]], T, T // K if K <= T else 1,
+                           1 if K <= T else -(-K // T), v[2], v[4], v[6],
+                           v[7], v[8], grid=v[5], smem_b=v[3],
+                           dw_blocks=v[9], cap=v[10])
+    out = (_CI * 10)()
+    err = _any_lib("fused_decode_any_plan")(M, *_dims(spec), int(spec.bf16),
+                                            out)
     _build.check(err, "fused_decode (general, plan)")
-    return grid.value, ws.value, smem.value
+    v = list(out)
+    return GeneralPlan(_KIND[v[0]], *v[1:6], *v[7:10], grid=v[6])
 
 
-def pack_any_weights(Ws: List[torch.Tensor], backward: bool
+def pack_any_weights(Ws: List[torch.Tensor], spec: DecodeSpec,
+                     plan: GeneralPlan, backward: bool = False
                      ) -> torch.Tensor:
-    """The block weights as the general kernels read them, one f32 buffer:
-    each W_l [in_l, H] row-major, layer after layer, then with `backward`
-    each W_l^T [H, in_l]."""
-    fwd = [W.reshape(-1) for W in Ws]
-    bwd = [W.t().reshape(-1) for W in Ws] if backward else []
-    return torch.cat(fwd + bwd).contiguous()
+    """The block weights as the general kernels stream them under `plan`:
+    each W_l [in_l, H] zero-padded to [kp_l, Hp], layer after layer, as one
+    bf16 buffer on the tensor cores (which read W_l itself for g_z W^T) or
+    one f32 buffer on the CUDA cores, there with `backward` followed by
+    each padded W_l^T [Hp, kp_l]."""
+    padded = [torch.nn.functional.pad(W, (0, plan.Hp - spec.H,
+                                          0, kp - W.shape[0]))
+              for W, kp in zip(Ws, general_pads(spec, plan))]
+    if plan.kind == "tensor_cores":
+        return torch.cat([p.to(torch.bfloat16).reshape(-1) for p in padded])
+    bwd = [p.t().reshape(-1) for p in padded] if backward else []
+    return torch.cat([p.reshape(-1) for p in padded] + bwd).contiguous()
+
+
+def pack_any_bias(bs: List[torch.Tensor], spec: DecodeSpec,
+                  plan: GeneralPlan) -> torch.Tensor:
+    """The block biases [L][Hp], zero past H."""
+    return torch.cat([torch.nn.functional.pad(b, (0, plan.Hp - spec.H))
+                      for b in bs]).contiguous()
 
 
 def _bwd_any(feat, dists, extras, w, Ws, bs, wa, ba, spec: DecodeSpec,
-             g_fagg, g_alpha):
-    """K4 on the general route (csrc/fused_decode_bwd_any.cu): one call
-    that zeroes the per-CTA partials, launches the tile kernel and sums
-    the partials in order. Returns (dparams, (g_feat, g_dists, g_extras,
-    g_w))."""
-    M, dev = feat.shape[0], feat.device
-    grid, nws, _smem = any_plan(spec, M, backward=True)
-    ws = torch.empty(max(nws, 1), dtype=torch.float32, device=dev)
-    dparams = torch.empty(param_count(spec), dtype=torch.float32, device=dev)
+             g_fagg, g_alpha, keep=None, cap_rows=None):
+    """K4 on the general route (csrc/fused_decode_bwd_any.cu): its scratch
+    buffers (at most `cap_rows` rows, `any_plan`), then one call that
+    builds the live list and launches its phases batch by batch. Returns
+    (dparams, (g_feat, g_dists, g_extras, g_w)); a dict `keep` gets the
+    plan, the scratch and the live list."""
+    M, H, L, dev = feat.shape[0], spec.H, spec.L1 + spec.L3, feat.device
+    pl = any_plan(spec, M, backward=True, cap_rows=cap_rows)
+    dt = torch.bfloat16 if pl.kind == "tensor_cores" else torch.float32
+    P, nsl = param_count(spec), L * H + H + 1
+    live = _live_scratch(M // spec.K, dev)
+    ws = torch.empty(max(pl.grid * pl.ws, 1), dtype=torch.float32,
+                     device=dev)
+    # every layer's input, then the last layer's output
+    act = torch.empty(pl.cap * (sum(general_pads(spec, pl)) + pl.Hp),
+                      dtype=dt, device=dev)
+    gz = torch.empty(L * pl.cap * pl.Hp, dtype=dt, device=dev)
+    slices = torch.empty(pl.cap // pl.T * nsl, dtype=torch.float64,
+                         device=dev)
+    sacc = torch.empty(nsl, dtype=torch.float64, device=dev)
+    partial = torch.empty(GENERAL_SPLITS * _pad4(P), dtype=torch.float32,
+                          device=dev)
+    dparams = torch.empty(P, dtype=torch.float32, device=dev)
     out = (torch.empty_like(feat), torch.empty_like(dists),
            torch.empty_like(extras), torch.empty_like(w))
     # the packed weights and biases stay referenced until the launch: a
     # temporary's block would go back to the allocator and could be
     # reused by a later op queued before the kernel
-    Wp, bias = pack_any_weights(Ws, True), torch.cat(bs)
+    Wp = pack_any_weights(Ws, spec, pl, backward=True)
+    bias = pack_any_bias(bs, spec, pl)
     p = _build.ptr
     err = _any_lib("fused_decode_bwd_any_launch")(
         p(feat), p(dists), p(extras), p(w), p(Wp), p(bias), p(wa), p(ba),
-        p(g_fagg), p(g_alpha), M,
-        *_dims(spec), float(spec.neg_slope), int(spec.bf16), grid, p(ws),
+        p(g_fagg), p(g_alpha), M, *_dims(spec), float(spec.neg_slope),
+        int(spec.bf16), pl.grid, *[p(t) for t in live], p(ws), p(act),
+        p(gz), pl.cap, p(slices), p(sacc), p(partial), GENERAL_SPLITS,
         *[p(t) for t in out], p(dparams), _build.stream_handle(dev))
     _build.check(err, "fused_decode_bwd (general)")
+    if keep is not None:
+        keep.update(plan=pl, act=act, gz=gz, list=live[2], count=live[3])
     return dparams, out
+
+
+def general_bwd_scratch(feat, dists, extras, w, params: Dict,
+                        spec: DecodeSpec, g_fagg, g_alpha):
+    """The general K4 on CUDA tensors with what its phase A wrote, a check's
+    view of its rounding points and branches (uncounted), with a scratch
+    that takes every row in one batch (phase A's outputs do not depend on
+    the batches; dW's sums in f32 do). Returns (`fused_decode_bwd`'s
+    result, rows, acts, gzs): rows [n] int64, the n live rows in the order
+    the phases take them; acts, each layer's input [n, kp_l] and then the
+    last layer's output [n, Hp]; gzs, each layer's rounded g_z [n, Hp]; f32
+    (bf16 values in a bf16 spec)."""
+    _check(feat, dists, extras, w, spec)
+    if feat.device.type == "cpu" or route(spec, backward=True) != "general":
+        raise ValueError("general_bwd_scratch: needs CUDA tensors and a "
+                         "spec on the general route")
+    Ws, bs, wa, ba = _device_weights(params, spec, feat.device)
+    keep = {}
+    dparams, rows = _bwd_any(feat, dists, extras, w, Ws, bs, wa, ba, spec,
+                             g_fagg, g_alpha, keep,
+                             cap_rows=feat.shape[0] + GENERAL_TILES[0])
+    pl, K = keep["plan"], spec.K
+    groups = keep["list"][:int(keep["count"].item())].long()
+    n = groups.numel() * K
+    acts, off = [], 0
+    for kp in general_pads(spec, pl) + [pl.Hp]:
+        acts.append(keep["act"][off:off + n * kp].view(n, kp).float())
+        off += pl.cap * kp
+    gzs = [keep["gz"].view(-1, pl.cap, pl.Hp)[l, :n].float()
+           for l in range(spec.L1 + spec.L3)]
+    live = (groups[:, None] * K
+            + torch.arange(K, device=feat.device)).reshape(-1)
+    return ((*rows, _split_params(dparams, params, spec)), live, acts, gzs)
 
 
 class _FusedDecode(torch.autograd.Function):

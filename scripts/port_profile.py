@@ -65,7 +65,16 @@ the GAN, the generator side's and the discriminator's four passes: fake,
 real, the penalty's double backward, the G side), and per feature request
 (N_PROFILED_CHUNKS after one warm-up) with K1, K3 and K2 named.
 
-    python3 scripts/port_profile.py [--sections main dataset hybrid mvs n2d]
+General (the general decode kernels): chip_smoke's phase-30 setting
+bench_config at H = 512 (bf16) on the sphere, per request
+(N_PROFILED_CHUNKS of 3,600 rays after one warm-up) and per train step
+(N_PROFILED_STEPS after three warm-up steps on one batch), with K1, K3
+and K4 named; the kernel table shows each general kernel apart (K3's
+k3_tc and its list pass; K4's list pass, k4_rows_tc, k4_dw_tc, k4_slices,
+k4_reduce).
+
+    python3 scripts/port_profile.py [--sections main dataset hybrid mvs n2d
+                                     general]
 
 Needs one CUDA card.
 """
@@ -80,18 +89,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
 N_PROFILED_CHUNKS = 4
-SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d")  # main: serve, train,
-# probe
+SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d", "general")  # main:
+# serve, train, probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
 # fused_decode_tc_fwd (bf16) or its live-list pass (live_*<false>) and
-# fused_decode_f32 (f32), K4 the three fused_decode_bwd_tc_* launches (bf16)
-# or its live-list pass (live_*<true>) and fused_decode_bwd_f32_* (f32)
+# fused_decode_f32 (f32) or the general k3_tc / k3_cc, K4 the three
+# fused_decode_bwd_tc_* launches (bf16) or its live-list pass
+# (live_*<true>) and fused_decode_bwd_f32_* (f32) or the general k4_*
 PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel"),
                 "K3": ("fused_decode_tc_fwd", "fused_decode_f32",
-                       "live_flags<false>", "live_compact<false>"),
+                       "live_flags<false>", "live_compact<false>", "k3_tc",
+                       "k3_cc"),
                 "K4": ("fused_decode_bwd", "live_flags<true>",
-                       "live_compact<true>"),
+                       "live_compact<true>", "k4_"),
                 "K2": ("fused_march_kernel", "fused_march_wide_kernel")}
 
 
@@ -520,6 +531,48 @@ def n2d_section(cs) -> None:
         + f", everything else {rest / m:.4f} ({100 * rest / total:.1f}%)")
 
 
+def general_section(cs) -> None:
+    """Per request and per train step at phase 30's H = 512 setting."""
+    import torch
+    from pointnerf_tpu_torch.train.step import (create_train_state,
+                                                eval_step, train_step)
+    base = cs.slice_config()
+    cfg = cs.agg_config(base, *cs.AGG_GENERAL["h512"])
+    pc, st, _params, grid = cs.make_scene(base, torch.device("cuda"))
+    params = cs.agg_params(cfg)
+    p = {"mlp": params, "points": pc}
+    reqs = cs.batches(cfg, cs.N_RAYS, N_PROFILED_CHUNKS + 1, "cuda")
+    eval_step(p, st, grid, reqs[0], cfg)
+
+    def serve():
+        for b in reqs[1:]:
+            eval_step(p, st, grid, b, cfg)
+    wall, per, busy = profiled(serve)
+    total = report("general h512 request", N_PROFILED_CHUNKS, cs.N_RAYS,
+                   wall, per, busy)
+    for k in ("K1", "K3", "K2"):
+        ms = kernel_ms(per, PORT_KERNELS[k]) / N_PROFILED_CHUNKS
+        print(f"  {k}: {ms:.4f} ms each "
+              f"({100 * ms * N_PROFILED_CHUNKS / total:.1f}%)")
+    state = create_train_state(torch.Generator(device="cuda").manual_seed(2),
+                               params, pc, cfg)
+    tbatch = cs.batches(cfg, cs.N_RAYS, 1, "cuda")[0]
+    for _ in range(3):
+        state, _items = train_step(state, st, grid, tbatch, cfg)
+    box = [state]
+
+    def train():
+        for _ in range(N_PROFILED_STEPS):
+            box[0], _it = train_step(box[0], st, grid, tbatch, cfg)
+    wall, per, busy = profiled(train)
+    total = report("general h512 train step", N_PROFILED_STEPS, cs.N_RAYS,
+                   wall, per, busy)
+    for k in ("K1", "K3", "K4"):
+        ms = kernel_ms(per, PORT_KERNELS[k]) / N_PROFILED_STEPS
+        print(f"  {k}: {ms:.4f} ms each "
+              f"({100 * ms * N_PROFILED_STEPS / total:.1f}%)")
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -543,6 +596,8 @@ def main() -> None:
         mvs_section(cs)
     if "n2d" in sections:
         n2d_section(cs)
+    if "general" in sections:
+        general_section(cs)
     if "main" not in sections:
         return
     cfg = cs.slice_config()

@@ -999,7 +999,9 @@ def test_feedforward_step_launches_the_f32_kernels(dev):
 
 
 # the general kernels (csrc/fused_decode_any.cu, csrc/fused_decode_bwd_any.cu):
-# specs past the tuned kernels' limits, in both roundings. In bf16 each
+# specs past the tuned kernels' limits, in both roundings, on the tensor
+# cores (bf16) or the CUDA cores (f32, and bf16 in the workspace case "wide",
+# whose K4 tile does not fit shared memory). In bf16 each
 # output and gradient is held on its mean error and on its largest, each
 # relative to the plain version's scale, at bars that lie under the
 # control (the f32 plain version in place of the bf16 one). Readings on an
@@ -1009,6 +1011,10 @@ def test_feedforward_step_launches_the_f32_kernels(dev):
 K3_BF16_MAX_TOL = {"fagg": 3e-2, "alpha": 1e-2}
 GENERAL_K4_BF16_TOL = 1e-2
 GENERAL_K4_BF16_MAX_TOL = 0.15
+# At H = 512 the control of the largest error (the f32 plain version in
+# place of the bf16 one) reads 0.142, under 0.15 (H100 80GB HBM3, 700 W),
+# so that case is held at the tighter 5e-2, which the control fails
+GENERAL_K4_BF16_MAX_TOL_AT = {"h512": 5e-2}
 GENERAL_CASES = {
     "h48": dict(H=48),                          # not a multiple of 32
     "h320": dict(H=320, L1=1, L3=1),            # past 256 columns
@@ -1018,6 +1024,10 @@ GENERAL_CASES = {
                                                 # and f32 shared memory
     "k100": dict(H=40, K=100, L1=1, L3=1, G=30),  # a tile of one group
     "small": dict(Fi=4, Dd=3, E=0, Ff=0, Fd=0, H=20, L1=1, L3=1),
+    "h512": dict(H=512),                        # bench widths at H = 512
+    "k12": dict(K=12),                          # 5 groups = 60 of 64 rows
+    "wide": dict(Fi=400, H=40, L1=1, L3=1, G=40),  # x1 = 2,860: the
+                                                # workspace placement
 }
 
 
@@ -1063,12 +1073,33 @@ def _rel_max(a, b):
     return e / s if s > 0 else e
 
 
-def _hold_general(ins, params, spec, gf, ga):
+def _kernel_masks(ins, params, spec, gf, ga):
+    """The general K4's result and its leaky-ReLU branches: each layer's
+    [M, H] z > 0 as the kernel took it, read off the signs of the layer
+    outputs its phase A wrote (`general_bwd_scratch`), False on rows it did
+    not visit (no weight, no upstream gradient: zero there either way)."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    out, rows, acts, _gzs = fd.general_bwd_scratch(*ins, params, spec, gf,
+                                                   ga)
+    masks = []
+    for a in acts[1:]:
+        m = torch.zeros((ins[0].shape[0], spec.H), dtype=torch.bool,
+                        device=a.device)
+        m[rows] = a[:, :spec.H] > 0
+        masks.append(m)
+    return out, masks
+
+
+def _hold_general(ins, params, spec, gf, ga, max_tol=GENERAL_K4_BF16_MAX_TOL,
+                  masks=None):
     """K3 and K4 on the general route against their plain versions: f32
-    within 2e-4 of each output's or gradient's max|plain|; bf16 on the
-    mean error (K3_BF16_TOL, GENERAL_K4_BF16_TOL) and on the largest
-    (K3_BF16_MAX_TOL, GENERAL_K4_BF16_MAX_TOL), each bar under its
-    control. Returns the kernels' outputs."""
+    within 2e-4 of each output's or gradient's max|plain|, K4's plain
+    version fed the kernel's leaky-ReLU branches (`masks`, by default
+    `_kernel_masks`': a pre-activation within rounding of 0 may take either
+    branch in any f32 summation order, and its row's gradients then move by
+    up to 0.99 of one g_h element); bf16 on the mean error (K3_BF16_TOL,
+    GENERAL_K4_BF16_TOL) and on the largest (K3_BF16_MAX_TOL, `max_tol`),
+    each bar under its control. Returns the kernels' outputs."""
     from pointnerf_tpu_torch.ops import fused_decode as fd
     from pointnerf_tpu_torch.train.optim import tree_leaves
     assert fd.route(spec) == "general"
@@ -1080,12 +1111,20 @@ def _hold_general(ins, params, spec, gf, ga):
     assert fd.fused_decode.launches_by_route["general"] == n3 + 1
     assert fd.fused_decode_bwd.launches_by_route["general"] == n4 + 1
     fp = fd.fused_decode_plain(*ins, params, spec)
-    gp = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, spec, gf, ga))
     torch.cuda.synchronize()
     if not spec.bf16:
-        for a, b in zip(list(fk) + tree_leaves(gk), list(fp) + gp):
+        for a, b in zip(fk, fp):
+            assert _rel_max(a, b) <= 2e-4
+        if masks is None:
+            again, masks = _kernel_masks(ins, params, spec, gf, ga)
+            for a, b in zip(gk[:4], again[:4]):
+                assert torch.equal(a, b)
+        gp = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, spec, gf,
+                                                   ga, masks=masks))
+        for a, b in zip(tree_leaves(gk), gp):
             assert _rel_max(a, b) <= 2e-4
         return fk, gk
+    gp = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, spec, gf, ga))
     f32 = spec._replace(bf16=False)
     fc = fd.fused_decode_plain(*ins, params, f32)
     gc = tree_leaves(fd.fused_decode_bwd_plain(*ins, params, f32, gf, ga))
@@ -1097,14 +1136,16 @@ def _hold_general(ins, params, spec, gf, ga):
     assert max(_mean_rel(a, b) for a, b, _c in live) <= GENERAL_K4_BF16_TOL \
         < max(_mean_rel(c, b) for _a, b, c in live)
     assert max(_rel_max(a, b) for a, b, _c in live) \
-        <= GENERAL_K4_BF16_MAX_TOL < max(_rel_max(c, b) for _a, b, c in live)
+        <= max_tol < max(_rel_max(c, b) for _a, b, c in live)
     return fk, gk
 
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("case", sorted(GENERAL_CASES))
 def test_general_decode_matches_plain(dev, case, bf16):
-    _hold_general(*_general_inputs(dev, bf16=bf16, **GENERAL_CASES[case]))
+    _hold_general(*_general_inputs(dev, bf16=bf16, **GENERAL_CASES[case]),
+                  max_tol=GENERAL_K4_BF16_MAX_TOL_AT.get(
+                      case, GENERAL_K4_BF16_MAX_TOL))
 
 
 @pytest.mark.parametrize("case", ["k6", "small"])
@@ -1138,19 +1179,94 @@ def test_general_decode_bwd_bit_identical(dev, bf16):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_general_decode_bwd_in_batches(dev, bf16, monkeypatch):
+    """With the scratch cut to 3 tiles, K4 takes its live rows in many
+    batches (phase B adding to its partials, the slice sums carried, the
+    scratch reused): held at the bars, the row gradients the same bits as
+    one batch's, dW / db within the f32 bar of them, two calls the same
+    bits."""
+    from pointnerf_tpu_torch.ops import fused_decode as fd
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    ins, params, spec, gf, ga = _general_inputs(dev, bf16=bf16,
+                                                **GENERAL_CASES["k6"])
+    M = ins[0].shape[0]
+    one, masks = _kernel_masks(ins, params, spec, gf, ga)
+    T = fd.any_plan(spec, M, backward=True).T
+    monkeypatch.setattr(fd, "GENERAL_CAP_ROWS", 3 * T)
+    assert fd.any_plan(spec, M, backward=True).cap == 3 * T
+    live = int(fd.live_groups(ins[3], spec.K, gf, ga).numel()) * spec.K
+    assert live > 5 * 3 * T
+    _f, gk = _hold_general(ins, params, spec, gf, ga, masks=masks)
+    again = fd.fused_decode_bwd(*ins, params, spec, gf, ga)
+    for i, (a, b, c) in enumerate(zip(tree_leaves(gk), tree_leaves(one),
+                                      tree_leaves(again))):
+        assert torch.equal(a, c)
+        if i < 4:
+            assert torch.equal(a, b)
+        else:
+            assert _rel_max(a, b) <= 2e-4
+
+
 def test_general_decode_state_in_shared_and_global_memory(dev):
-    """The tile state lies in shared memory where it fits (the small spec)
-    and in the workspace where it does not (a 760-wide first layer): both
-    hold."""
-    from pointnerf_tpu_torch.ops.fused_decode import any_plan
-    for case, smem in (("small", True), ("fi100", False)):
-        ins, params, spec, gf, ga = _general_inputs(dev,
-                                                    **GENERAL_CASES[case])
-        M = ins[0].shape[0]
-        for backward in (False, True):
-            _grid, _ws, sm = any_plan(spec, M, backward)
-            assert (sm > 0) == smem, (case, backward)
-        _hold_general(ins, params, spec, gf, ga)
+    """The built kernels plan every case as the Python mirror does
+    (`general_plan`), K3 and K4 in both roundings: every case's tile state
+    in shared memory, but the workspace case "wide" (its f32 K3 and K4 and
+    its bf16 K4), which holds at the bars too."""
+    from pointnerf_tpu_torch.ops.fused_decode import (DecodeSpec, any_plan,
+                                                      general_plan)
+    for case, kw in GENERAL_CASES.items():
+        kw = dict(kw)
+        G = kw.pop("G", 301)
+        d = dict(Fi=32, Dd=6, E=7, Ff=3, Fd=5, H=256, K=8, L1=2, L3=2,
+                 neg_slope=0.01)
+        d.update(kw)
+        for bf16 in (False, True):
+            spec = DecodeSpec(bf16=bf16, **d)
+            for backward in (False, True):
+                got = any_plan(spec, G * spec.K, backward)
+                assert got.grid > 0 and (got.cap > 0) == backward
+                assert got._replace(grid=0, smem_b=0, dw_blocks=0, cap=0) \
+                    == general_plan(spec, backward), (case, bf16, backward)
+                in_ws = case == "wide" and (backward or not bf16)
+                assert (got.ws > 0) == in_ws, (case, bf16, backward)
+    for bf16 in (False, True):
+        _hold_general(*_general_inputs(dev, bf16=bf16,
+                                       **GENERAL_CASES["wide"]))
+
+
+@pytest.mark.parametrize("case", ["h512", "k6"])
+def test_general_decode_dense_f32(dev, case):
+    """A dense f32 step's layout: [R, SR, K] rows with ~1% of the groups
+    live, scattered over every ray, random features on every row. K3 and K4
+    hold at the f32 bar, every output of a dead group is exactly 0, and the
+    list the kernels decode (K3's rule and K4's) equals its plain
+    version."""
+    from pointnerf_tpu_torch.ops.fused_decode import (live_groups,
+                                                      live_groups_plain)
+    kw = dict(GENERAL_CASES[case])
+    ins, params, spec, gf, ga, live = _f32_inputs(
+        dev, "none", R=32, SR=80, **{k: kw.get(k, v) for k, v in
+                                    (("K", 8), ("H", 256))})
+    rng = np.random.RandomState(5)
+    G, K = live.shape[0], spec.K
+    pick = torch.from_numpy(rng.rand(G) < 0.01).to(dev)
+    w = torch.from_numpy(rng.rand(G * K, 1).astype(np.float32)).to(dev) \
+        * pick.repeat_interleave(K)[:, None]
+    gf = gf + torch.randn(gf.shape, generator=torch.Generator().manual_seed(
+        5)).to(dev) * pick[:, None]
+    ga = ga + pick[:, None].float()
+    ins = ins[:3] + [w]
+    (fagg, alpha), (g_feat, _gd, g_extras, g_w, _gp) = _hold_general(
+        ins, params, spec, gf, ga)
+    assert not bool(fagg[~pick].any()) and not bool(alpha[~pick].any())
+    for t in (g_feat, g_extras, g_w):
+        assert not bool(t.view(G, K, -1)[~pick].any())
+    for args in ((), (gf, ga)):
+        assert torch.equal(live_groups(w, K, *args).cpu(),
+                           live_groups_plain(w.cpu(), K,
+                                             *[a.cpu() for a in args]))
+    assert int(live_groups(w, K).numel()) == int(pick.sum())
 
 
 def test_general_autograd_launches_both_kernels(dev):
