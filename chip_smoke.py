@@ -203,8 +203,9 @@ Phases:
      state at 320 x 256 (widths kept), split at its cloud, at bars from
      readings, each beside its control — the cloud and the running stats
      (control: eval-mode BatchNorm), the render of the card's cloud on
-     both sides (the loss, the MLPs' and the cloud's gradients; control: a
-     bf16 decode), MVSNet's backward of one cotangent (control: eval-mode
+     both sides (the loss held on its parts, a ray's share of the color
+     items each and the rest, its scalar printed; the MLPs' and the
+     cloud's gradients; control: a bf16 decode), MVSNet's backward of one cotangent (control: eval-mode
      BatchNorm) —, the whole step's loss and gradients printed, and
      infer_cloud's num_active and xyz card vs CPU; then K3 f32 and K4 f32
      (the dists gradient included) against their plain versions on the
@@ -362,7 +363,11 @@ Phases:
      tables_parity); then tables of
      the same cloud at P = 30, 32 and 40 (QP 810, 864, 1,080) and K1
      bit-equal at K = 8 and 24 on a 9,216-ray request's inputs at each,
-     with times, plain times and bounds;
+     with times, plain times and bounds; each wide time and wrapper host
+     µs printed beside the first wide kernel's (FIRST_WIDE_MS,
+     FIRST_WIDE_HOST_US), the run failing where a time FIRST_WIDE_MS lists
+     is above the first kernel's or the
+     QP 702 eval chunk at K = 8 above WIDE_EVAL_SHARE of it;
  32. mvsnerf: a seeded random cost volume at MVSNeRF's widths (128
      planes, 8 channels, 1/4 of 640 x 512) and 3 views, ReferenceMVSNeRF
      v2 at the JAX defaults (D = 8, W = 256) with weights from a seed; the
@@ -504,9 +509,12 @@ MAX_TIE_SHARE = 0.25
 # reading and >= 3x under the least control.
 LOSS_BF16_TOL = 1e-4
 # the hybrid's loss: its field term (f32 on both sides) and the missed rays
-# dilute the decode's share, so the control sits lower too (hybrid path,
-# step 13: read 1.9e-06 to 5.3e-06, control 7.5e-05 to 1.5e-04; PERF.md §6)
-HYBRID_LOSS_BF16_TOL = 2e-5
+# dilute the decode's share, so the control sits lower too. Over 40 trained
+# states each of the hybrid and of the fine pass (scripts/parity_readings.py
+# --phase hybrid, an H100 80GB HBM3 at 700 W; PERF.md §6) it read up to
+# 2.042e-05 (the bar was 2e-05), its control (the CPU's f32 decode) from
+# 1.961e-04: the bar sits near their geometric mean, 6.3e-05
+HYBRID_LOSS_BF16_TOL = 6e-5
 GRAD_BF16_TOL = {"mlp": 1e-2, "points": 2.5e-3}
 # the hybrid paths (PERF.md §6; readings / controls at the trained state):
 # the field's gradients ("nerf") carry the bf16 decode only through the
@@ -841,6 +849,7 @@ def k1_run_stats(nbr_xyz, dslot, ok, centers, r2: float, block: int):
     if r2 > 0:
         in_r &= d2 <= r2
     return {"slots": C, "selecting": n, "distinct_rows": int(distinct.numel()),
+            "live_in_rows": int(live[distinct].sum()),
             "runs": int(new_run.sum()),
             "mean_run": n / int(new_run.sum()),
             "staged_runs": int(staged.sum()),
@@ -876,16 +885,26 @@ def check_k1(args, kw):
     ms = graph_ms(lambda: knn_select(*args, **kw))
     host = host_us(lambda: knn_select(*args, **kw))
     plain = cuda_ms(lambda: knn_select_plain(*args, K, r2), iters=10)
-    # bytes this run's data needs: each distinct table row read once
-    # (coordinates + ids), the slots' centers/dslot/ok, the [C, K] outputs
-    rows = st.get("distinct_rows", 0)
-    nbytes = rows * QP * 16 + C * (12 + 4 + 1) + C * K * 8
-    flops = st["selecting"] * QP * 8
+    # bytes this run's data needs, each read once: x of every candidate of
+    # the distinct rows the selecting slots read, y and z of their live
+    # ones, the ids of the winners (distinct row and id), the centers of
+    # the selecting slots, every slot's dslot and ok, the [C, K] outputs;
+    # operations: d2 of each selecting slot's live candidates
+    rows, n_sel = st.get("distinct_rows", 0), st["selecting"]
+    sel = ok & (dslot >= 0)
+    win = pid_p[sel]
+    keys = dslot[sel].long()[:, None] * 2 ** 32 + win.long()
+    n_win = int(torch.unique(keys[win >= 0]).numel())
+    nbytes = rows * QP * 4 + st.get("live_in_rows", 0) * 8 + n_win * 4 \
+        + n_sel * 12 + C * (4 + 1) + C * K * 8
+    flops = n_sel * st.get("live_per_slot", 0.0) * 8
     b, by = bound_ms(nbytes, flops, PEAK_F32)
     log(f"K1 device time {ms:.4f} ms (CUDA graph of 50 launches), wrapper "
         f"host time {host:.1f} us per call, plain {plain:.4f} ms, bound "
-        f"{b:.4f} ms ({by}: {rows} distinct rows), library: none (no single "
-        f"PyTorch call computes distance + masked K-selection)")
+        f"{b:.4f} ms ({by}: {nbytes / 1e6:.3f} MB; {rows} distinct rows, "
+        f"{st.get('live_in_rows', 0)} live candidates in them, {n_win} "
+        f"distinct winners), library: none (no single PyTorch call computes "
+        f"distance + masked K-selection)")
     return {"max_abs_err": err, "ms": ms, "host_us": host, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "run_stats": st}
@@ -2886,19 +2905,8 @@ def hybrid_run(cfg, kernels, name, warmup, steps, n_requests, step_launch,
     prims, pc, st, params, grid, views = hole_scene(cfg, dev)
     items = [view_item(prims, *v, DS_WH, n_rays=N_RAYS, seed=i, view_id=i)
              for i, v in enumerate(views)]
-    # the parity request: 512 rays of view 5 that hit the cloud (the hole
-    # scene fills a few percent of a frame: the decode's share of the
-    # colors, the loss and the gradients would be a few rays' otherwise)
-    pool = ray_batch_from_numpy(view_item(prims, *views[5], DS_WH,
-                                          n_rays=16384, seed=7, view_id=5),
-                                cfg, device=dev)
-    hit = eval_step({"mlp": params, "points": pc}, st, grid, pool,
-                    cfg).ray_mask.nonzero()[:512, 0]
-    if hit.numel() < 512:
-        fail(f"{name}: only {hit.numel()} of 16,384 rays of view 5 hit")
-    parity_batch = pool._replace(raydir=pool.raydir[hit],
-                                 pixel_idx=pool.pixel_idx[hit],
-                                 gt_image=pool.gt_image[hit])
+    parity_batch = hybrid_parity_batch(cfg, prims, views, params, pc, st,
+                                       grid, name)
     hybrid_parity(params, pc, st, grid, cfg, parity_batch)
     state = create_train_state(torch.Generator(device=dev).manual_seed(2),
                                params, pc, cfg)
@@ -2959,14 +2967,46 @@ def hybrid_run(cfg, kernels, name, warmup, steps, n_requests, step_launch,
         f"{routes}")
     hybrid_parity(state.params["mlp"], state.params["points"], st, grid, cfg,
                   parity_batch, bars=HYBRID_COLOR_TRAINED_BF16_TOL)
-    train_cpu_parity(state, st, grid, cfg, b_card=parity_batch._replace(
-        gt_image=torch.rand((512, 3), generator=torch.Generator().manual_seed(
-            5)).to(dev)), draws=hybrid_draws(cfg, 512, seed=6),
-        loss_bar=HYBRID_LOSS_BF16_TOL,
-        grad_bars=(FINE_GRAD_BF16_TOL if cfg.render.fine_sample_num
-                   else HYBRID_GRAD_BF16_TOL))
+    hybrid_train_parity(state, st, grid, cfg, parity_batch)
     del state
     return counts, routes, step_inputs, request_inputs, rates
+
+
+def hybrid_parity_batch(cfg, prims, views, params, pc, st, grid, name):
+    """The hybrid's parity request: 512 rays of view 5 that hit the cloud
+    (the hole scene fills a few percent of a frame: the decode's share of
+    the colors, the loss and the gradients would be a few rays'
+    otherwise)."""
+    from pointnerf_tpu_torch.data.procedural import view_item
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train.step import eval_step
+    pool = ray_batch_from_numpy(view_item(prims, *views[5], DS_WH,
+                                          n_rays=16384, seed=7, view_id=5),
+                                cfg, device=pc.xyz.device)
+    hit = eval_step({"mlp": params, "points": pc}, st, grid, pool,
+                    cfg).ray_mask.nonzero()[:512, 0]
+    if hit.numel() < 512:
+        fail(f"{name}: only {hit.numel()} of 16,384 rays of view 5 hit")
+    return pool._replace(raydir=pool.raydir[hit],
+                         pixel_idx=pool.pixel_idx[hit],
+                         gt_image=pool.gt_image[hit])
+
+
+def hybrid_train_parity(state, st, grid, cfg, parity_batch):
+    """A 512-ray train step of the hybrid (and the fine pass, when
+    configured) card vs CPU from `state` on the parity rays, random targets
+    and the same draws: the loss within HYBRID_LOSS_BF16_TOL, each gradient
+    group within its bar (train_cpu_parity)."""
+    import torch
+    b = parity_batch._replace(gt_image=torch.rand(
+        (512, 3), generator=torch.Generator().manual_seed(5)).to(
+            parity_batch.raydir.device))
+    train_cpu_parity(state, st, grid, cfg, b_card=b,
+                     draws=hybrid_draws(cfg, 512, seed=6),
+                     loss_bar=HYBRID_LOSS_BF16_TOL,
+                     grad_bars=(FINE_GRAD_BF16_TOL
+                                if cfg.render.fine_sample_num
+                                else HYBRID_GRAD_BF16_TOL))
 
 
 def hybrid_kernel_checks(name, step_inputs, request_inputs, fine: bool):
@@ -3346,15 +3386,21 @@ MVS_EMBED_TOL = 2e-4
 # printed, and each part is held on the same inputs. The running stats'
 # worst max |err| / max |CPU| and the cloud's sum |err| / sum |CPU|,
 # control the CPU with eval-mode BatchNorm (a wrong mode is the fault
-# these catch); the render of one cloud, the card's, its loss relative and
-# its MLP and cloud gradients sum |err| / sum |CPU|, control the CPU with
-# a bf16 decode; MVSNet's backward of one cotangent, sum |err| / sum
+# these catch); the render of one cloud, the card's, its loss split into
+# its parts (each ray's share of the color items, the rest as one; the
+# scalar's roundings cancel by chance, so its relative error is printed)
+# and its MLP and cloud gradients sum |err| / sum |CPU|, control the CPU
+# with a bf16 decode; MVSNet's backward of one cotangent, sum |err| / sum
 # |CPU|, control eval-mode BatchNorm. A pixel whose depth index rounds the
 # other way differs far beyond rounding in its confidence; the points
 # beyond FF_FLIP_TOL of a tensor's scale (at most FF_FLIP_MAX) carry no
 # cotangent into that backward. The bars sit between the readings of
-# scripts/parity_readings.py --phase ff and the controls (PERF.md §6)
-FF_TOL = {"stats": 1e-5, "cloud": 2e-4, "loss": 1e-5, "mlp": 1e-3,
+# scripts/parity_readings.py --phase ff and the controls (PERF.md §6); the
+# loss's, on its parts, near the geometric mean of the highest reading and
+# the lowest control over 42 trained states (--phase ff_render, an H100
+# 80GB HBM3 at 700 W): 1.289e-06 and 1.396e-03 (the scalar loss had read
+# up to 6.93e-07 against a control from 1.36e-06 over 35 states)
+FF_TOL = {"stats": 1e-5, "cloud": 2e-4, "loss": 4e-5, "mlp": 1e-3,
           "dcloud": 5e-4, "mvs": 5e-2}
 FF_FLIP_TOL = 1e-3
 FF_FLIP_MAX = 8
@@ -3826,10 +3872,36 @@ def ff_cloud(model, cap, mvs, stats, batch, train: bool = True):
     return mvs, pc, st, new_stats
 
 
+def color_loss_terms(out, gt, loss_cfg):
+    """Each ray's share of compute_losses's color items (their sum is the
+    total less its constant 1e-6 an item): the weighted squared color error
+    over the item's ray count, masked as the item is. [R] f32."""
+    import torch
+    R, C = gt.shape
+    terms = torch.zeros(R, device=gt.device)
+    for name, w in zip(loss_cfg.color_loss_items, loss_cfg.color_loss_weights):
+        base = name.split("_", 2)[-1] if name.startswith(
+            ("ray_masked_", "ray_miss_")) else name
+        se = ((getattr(out, base) - gt) ** 2).sum(-1)
+        if name.startswith("ray_masked_"):
+            m = out.ray_mask.float()
+            terms = terms + w * m * se / (m.sum() * C).clamp(min=1.0)
+        elif name.startswith("ray_miss_"):
+            m = (~out.ray_mask).float()
+            terms = terms + w * m * se * m.sum() / (m.sum() * C).clamp(
+                min=1.0)
+        else:
+            terms = terms + w * se / (R * C)
+    return terms
+
+
 def ff_render(cfg, mlp, pc, st, batch, u):
     """The step's training render and loss on a fixed cloud, on the device
-    of `batch`: (loss, the MLPs' gradients, the cloud's gradients), on the
-    CPU."""
+    of `batch`: (loss, the MLPs' gradients, the cloud's gradients, the
+    loss's parts), on the CPU. The parts, in float64: each ray's share of
+    the color items (color_loss_terms), then the rest of the loss (the
+    zero-one and sparse items) as one part; with the color items' constant
+    1e-6 each they sum to the loss."""
     import torch
     from pointnerf_tpu_torch.models.losses import compute_losses
     from pointnerf_tpu_torch.models.points import PointCloud
@@ -3848,10 +3920,15 @@ def ff_render(cfg, mlp, pc, st, batch, u):
                           u=u.to(dev))
         total, _ = compute_losses(out, batch.rays.gt_image, cfg.loss)
         g = torch.autograd.grad(total, wrt, allow_unused=True)
+        terms = color_loss_terms(out, batch.rays.gt_image, cfg.loss)
     g = [(torch.zeros_like(w) if x is None else x).cpu()
          for w, x in zip(wrt, g)]
     n = len(tree_leaves(mlp))
-    return float(total.detach()), g[:n], g[n:]
+    terms = terms.detach().cpu().double()
+    rest = (float(total.detach()) - float(terms.sum())
+            - 1e-6 * len(cfg.loss.color_loss_items))
+    parts = torch.cat([terms, torch.tensor([rest], dtype=torch.float64)])
+    return float(total.detach()), g[:n], g[n:], parts
 
 
 def ff_mvs_grads(mvs, pc, cot):
@@ -3871,24 +3948,15 @@ def ff_mvs_grads(mvs, pc, cot):
             for w, x in zip(wrt, g)]
 
 
-def ff_parity(state, cfg, model, ff_root: str):
-    """One feed-forward step card vs CPU from the same state at
-    FF_PARITY_WH (the dtu scene's group 0 at half resolution; widths and
-    depth planes kept), split at its cloud. The cloud (train-mode MVSNet
-    and the embedding) and the new running stats, beside the CPU with
-    eval-mode BatchNorm. The render of one cloud, the card's, on each side
-    (the loss, the MLPs' and the cloud's gradients), beside the CPU with a
-    bf16 decode. MVSNet's backward of one cotangent on each side, beside
-    eval-mode BatchNorm: the CPU render's cloud gradients, zero on the few
-    points (at most FF_FLIP_MAX) where the two clouds differ by more than
-    FF_FLIP_TOL of a tensor's scale. The whole step's loss and gradients
-    card vs CPU are printed. Then infer_cloud card vs CPU: num_active
-    equal, xyz within FF_XYZ_TOL."""
+def ff_parity_inputs(state, cfg, model, ff_root: str):
+    """The card-vs-CPU step's inputs at FF_PARITY_WH (the dtu scene's group
+    0 at half resolution; widths and depth planes kept): the batch on each
+    side, the cloud's capacity, the jitter, and the CPU's model, weights
+    and running stats."""
     import copy
     import torch
     from pointnerf_tpu_torch.config import DataConfig
     from pointnerf_tpu_torch.data.dtu import DtuDataset
-    from pointnerf_tpu_torch.train import feedforward as tff
     from pointnerf_tpu_torch.train.optim import tree_map
     ds = DtuDataset(DataConfig(dataset_name="dtu", data_root=ff_root,
                                scan=DTU_SCAN), split="train", nsrc=2,
@@ -3897,15 +3965,71 @@ def ff_parity(state, cfg, model, ff_root: str):
     item = ds.get_item(0, random_sample="random", random_sample_size=32,
                        seed=0)
     cpu = torch.device("cpu")
-    b_card = ff_batch(g, item, cfg, "cuda", half=True)
     b_cpu = ff_batch(g, item, cfg, cpu, half=True)
     W, H = FF_PARITY_WH
-    cap = (W // 4) * (H // 4)
     u = torch.rand((b_cpu.rays.raydir.shape[0], cfg.query.z_depth_dim),
                    generator=torch.Generator().manual_seed(3))
-    m_cpu = copy.deepcopy(model).to(cpu)
-    p_cpu = tree_map(lambda t: t.to(cpu), state.params)
-    s_cpu = {k: v.to(cpu) for k, v in state.mvs_stats.items()}
+    return {"b_card": ff_batch(g, item, cfg, "cuda", half=True),
+            "b_cpu": b_cpu, "cap": (W // 4) * (H // 4), "u": u,
+            "m_cpu": copy.deepcopy(model).to(cpu),
+            "p_cpu": tree_map(lambda t: t.to(cpu), state.params),
+            "s_cpu": {k: v.to(cpu) for k, v in state.mvs_stats.items()}}
+
+
+def ff_render_parity(state, cfg, inp, pc_g, st_g):
+    """The render of one cloud, the card's (pc_g, st_g), on each side,
+    beside the CPU with a bf16 decode, each held at FF_TOL: the loss split
+    into its parts (ff_render: each ray's share of the color items, the
+    rest as one; sum |card - CPU| / sum |CPU| over the parts, where the
+    scalar's roundings would cancel by chance: the bf16 decode once moved
+    the scalar only 1.4e-6), the MLPs' and the cloud's gradients (sum
+    |err| / sum |CPU|). The scalar loss's relative error is printed.
+    Returns (the readings by side, the CPU render's cloud gradients)."""
+    ren = {"card": ff_render(cfg, state.params["mlp"], pc_g, st_g,
+                             inp["b_card"], inp["u"]),
+           "cpu": ff_render(cfg, inp["p_cpu"]["mlp"], pc_g, st_g,
+                            inp["b_cpu"], inp["u"]),
+           "bf16": ff_render(cfg.replace(train=dataclasses.replace(
+               cfg.train, compute_dtype="bf16")), inp["p_cpu"]["mlp"], pc_g,
+               st_g, inp["b_cpu"], inp["u"])}
+    L_x, t_x = ren["cpu"][0], ren["cpu"][3]
+    err = {k: {"loss": float((ren[k][3] - t_x).abs().sum()
+                             / t_x.abs().sum()),
+               "mlp": _sum_rel(ren[k][1], ren["cpu"][1]),
+               "dcloud": _sum_rel(ren[k][2], ren["cpu"][2])}
+           for k in ("card", "bf16")}
+    log("feed-forward render of the card's cloud card vs CPU, the scalar "
+        "loss relative (printed): " + ", ".join(
+            f"{k} {abs(ren[k][0] - L_x) / abs(L_x):.3e}"
+            for k in ("card", "bf16")))
+    for name, key in (
+            ("the loss's parts (a ray's color share each, the rest), sum "
+             "|err| / sum |CPU|", "loss"),
+            ("the MLPs' gradients, sum |err| / sum |CPU|", "mlp"),
+            ("the cloud's gradients, sum |err| / sum |CPU|", "dcloud")):
+        hold_bf16(f"feed-forward the render of the card's cloud, {name}, "
+                  f"card vs CPU", err["card"][key], err["bf16"][key],
+                  FF_TOL[key], "a bf16 decode")
+    return err, ren["cpu"][2]
+
+
+def ff_parity(state, cfg, model, ff_root: str):
+    """One feed-forward step card vs CPU from the same state at
+    FF_PARITY_WH (ff_parity_inputs), split at its cloud. The cloud
+    (train-mode MVSNet and the embedding) and the new running stats,
+    beside the CPU with eval-mode BatchNorm. The render of one cloud, the
+    card's, on each side (ff_render_parity). MVSNet's backward of one
+    cotangent on each side, beside eval-mode BatchNorm: the CPU render's
+    cloud gradients, zero on the few points (at most FF_FLIP_MAX) where
+    the two clouds differ by more than FF_FLIP_TOL of a tensor's scale. The
+    whole step's loss and gradients card vs CPU are printed. Then
+    infer_cloud card vs CPU: num_active equal, xyz within FF_XYZ_TOL."""
+    import torch
+    from pointnerf_tpu_torch.train import feedforward as tff
+    inp = ff_parity_inputs(state, cfg, model, ff_root)
+    b_card, b_cpu, cap, u = inp["b_card"], inp["b_cpu"], inp["cap"], inp["u"]
+    m_cpu, p_cpu, s_cpu = inp["m_cpu"], inp["p_cpu"], inp["s_cpu"]
+    W, H = FF_PARITY_WH
     # the whole step, printed
     whole = {"card": tff.ff_loss_and_grads(cfg, model, cap, state.params,
                                            state.mvs_stats, b_card,
@@ -3934,17 +4058,9 @@ def ff_parity(state, cfg, model, ff_root: str):
                             for n in ref[3])} for k in ("card", "eval")}
     # the render of the card's cloud, on each side
     pc_g, st_g = clouds["card"][1], clouds["card"][2]
-    ren = {"card": ff_render(cfg, state.params["mlp"], pc_g, st_g, b_card,
-                             u),
-           "cpu": ff_render(cfg, p_cpu["mlp"], pc_g, st_g, b_cpu, u),
-           "bf16": ff_render(cfg.replace(train=dataclasses.replace(
-               cfg.train, compute_dtype="bf16")), p_cpu["mlp"], pc_g, st_g,
-               b_cpu, u)}
-    L_x = ren["cpu"][0]
-    for k in ("card", "bf16"):
-        err.setdefault(k, {}).update(loss=abs(ren[k][0] - L_x) / abs(L_x),
-                      mlp=_sum_rel(ren[k][1], ren["cpu"][1]),
-                      dcloud=_sum_rel(ren[k][2], ren["cpu"][2]))
+    ren_err, dcloud_cpu = ff_render_parity(state, cfg, inp, pc_g, st_g)
+    for k, v in ren_err.items():
+        err.setdefault(k, {}).update(v)
     # MVSNet's backward of one cotangent, on each side
     per_point = torch.stack([
         (a.detach().cpu() - b.detach()).abs().reshape(a.shape[0], -1)
@@ -3953,7 +4069,7 @@ def ff_parity(state, cfg, model, ff_root: str):
     keep = (per_point <= FF_FLIP_TOL).float()
     flips = int(keep.numel() - keep.sum())
     cot = [c * keep.reshape(-1, *([1] * (c.dim() - 1)))
-           for c in ren["cpu"][2]]
+           for c in dcloud_cpu]
     mvs_g = {k: ff_mvs_grads(clouds[k][0], clouds[k][1], cot)
              for k in clouds}
     for k in ("card", "eval"):
@@ -3974,13 +4090,7 @@ def ff_parity(state, cfg, model, ff_root: str):
             ("the cloud (train-mode MVSNet and the embedding), sum |err| / "
              "sum |CPU|", "cloud", "eval", "eval-mode BatchNorm"),
             ("MVSNet's backward of one cotangent, sum |err| / sum |CPU|",
-             "mvs", "eval", "eval-mode BatchNorm"),
-            ("the render of the card's cloud, loss relative", "loss", "bf16",
-             "a bf16 decode"),
-            ("the render of the card's cloud, the MLPs' gradients, sum "
-             "|err| / sum |CPU|", "mlp", "bf16", "a bf16 decode"),
-            ("the render of the card's cloud, the cloud's gradients, sum "
-             "|err| / sum |CPU|", "dcloud", "bf16", "a bf16 decode")):
+             "mvs", "eval", "eval-mode BatchNorm")):
         hold_bf16(f"feed-forward {name}, card vs CPU", err["card"][key],
                   err[ctl][key], FF_TOL[key], ctl_is)
     out = dict(err, flips=flips)
@@ -6155,6 +6265,28 @@ TABLES_MAX_D = 4096      # the first build; refresh_grid sizes it from num_dil
 TABLES_WIDE_P = (30, 32, 40)   # QP 810 (scene101), 864 (tt/family), 1,080
 TABLES_WIDE_K = (8, 24)        # K as the presets, and one past the run path
 JPEG_QUALITY = 95
+# the first kernel of K1's wide path (a warp per slot over every slot, its
+# running list in device memory) on phase 31's shapes, ms on a CUDA graph of
+# 50 launches and the wrapper's host µs a call, H100 80GB HBM3 at 700 W
+# (PERF.md §6): every time listed must not be above the first kernel's,
+# and the QP 702 eval chunk at K = 8 at most WIDE_EVAL_SHARE of it
+FIRST_WIDE_MS = {("scannet_tables_eval_chunk", 8): 0.0691,
+                 ("scannet_tables_eval_chunk", 24): 0.1394,
+                 ("scannet_tables_step", 8): 0.0265,
+                 ("scannet_tables_qp810", 8): 0.0735,
+                 ("scannet_tables_qp864", 8): 0.0747,
+                 ("scannet_tables_qp1080", 8): 0.0853}
+FIRST_WIDE_HOST_US = {("scannet_tables_eval_chunk", 8): 64.6,
+                      ("scannet_tables_eval_chunk", 24): 40.7,
+                      ("scannet_tables_step", 8): 42.1,
+                      ("scannet_tables_step", 24): 64.5,
+                      ("scannet_tables_qp810", 8): 63.8,
+                      ("scannet_tables_qp810", 24): 50.3,
+                      ("scannet_tables_qp864", 8): 67.7,
+                      ("scannet_tables_qp864", 24): 80.1,
+                      ("scannet_tables_qp1080", 8): 35.5,
+                      ("scannet_tables_qp1080", 24): 46.9}
+WIDE_EVAL_SHARE = 0.5
 MVSNERF_PLANES = 128           # MVSNeRF's depth planes
 MVSNERF_C = 8                  # its volume's channels
 MVSNERF_WH = (640, 512)        # the views; the volume at 1/4 of them
@@ -6216,6 +6348,38 @@ def check_k1_at(args, kw, what: str, Ks=TABLES_WIDE_K):
     res.update({f"K{k}": {n: v for n, v in out[k].items()
                           if n != "run_stats"} for k in Ks[1:]})
     return res
+
+
+def hold_wide_times(checks):
+    """Print K1's wide path at each of phase 31's shapes beside the first
+    wide kernel's (FIRST_WIDE_MS, FIRST_WIDE_HOST_US) and its bound; fail
+    where a time FIRST_WIDE_MS lists is above the first kernel's, or the
+    QP 702 eval chunk at K = 8 above WIDE_EVAL_SHARE of it."""
+    for where, res in checks.items():
+        r0 = res.get("knn_select_wide")
+        if r0 is None:
+            continue
+        for K in TABLES_WIDE_K:
+            r = r0 if K == TABLES_WIDE_K[0] else r0[f"K{K}"]
+            first = FIRST_WIDE_MS.get((where, K))
+            host = FIRST_WIDE_HOST_US.get((where, K))
+            log(f"K1 wide, {where}, K = {K}: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of "
+                f"it), "
+                + (f"the first kernel's {first:.4f} ms "
+                   f"({first / r['ms']:.2f}x faster)"
+                   if first else "the first kernel's not held")
+                + f"; wrapper host {r['host_us']:.1f} us a call"
+                + (f", the first kernel's {host:.1f} us" if host else ""))
+            if first is not None and r["ms"] > first:
+                fail(f"K1 wide at {where}, K = {K}: {r['ms']:.4f} ms, slower "
+                     f"than the first kernel's {first:.4f} ms")
+    where = ("scannet_tables_eval_chunk", TABLES_WIDE_K[0])
+    ms = checks[where[0]]["knn_select_wide"]["ms"]
+    if not ms <= WIDE_EVAL_SHARE * FIRST_WIDE_MS[where]:
+        fail(f"K1 wide at the QP 702 eval chunk, K = {where[1]}: {ms:.4f} "
+             f"ms, above {WIDE_EVAL_SHARE:g} x the first kernel's "
+             f"{FIRST_WIDE_MS[where]:.4f} ms")
 
 
 def scannet_tables_path(kernels, build: str):
@@ -6376,6 +6540,7 @@ def scannet_tables_path(kernels, build: str):
                     *seen["knn_select"], f"request at P = {P} (QP {qp})")}
         del gp, seen
         torch.cuda.empty_cache()
+    hold_wide_times(checks)
     return counts, routes, checks
 
 
@@ -6757,9 +6922,10 @@ def main() -> None:
         results[row_name] = {**agg_checks["h512"][row_name],
                              "k6": agg_checks["k6"][row_name],
                              "dense_step_f32": general_dense[kern]}
-    # K1's wide path at the scannet_tables eval chunk (QP = 702)
-    results["knn_select_wide"] = st_checks["scannet_tables_eval_chunk"][
-        "knn_select_wide"]
+    # K1's wide path at the scannet_tables eval chunk (QP = 702); phase 31
+    # logs the first wide kernel's times beside it (hold_wide_times)
+    results["knn_select_wide"] = \
+        st_checks["scannet_tables_eval_chunk"]["knn_select_wide"]
     # K2's wide kernel at the shapes it runs at: a feature request, C = 128
     results["fused_march_wide"] = n2_checks.pop("n2d_request")[
         "fused_march_wide"]

@@ -46,22 +46,43 @@
 // lexicographically across the warp with shuffles; the owner lane retires
 // its winner.
 //
-// Design, QP > 512 (the wide path, knn_select_wide_warp_kernel, any K): a
-// row no longer fits the run path's register staging (CH <= 16 chunks of
-// 32) or the warp path's MAXC per lane, so the row is streamed in fixed
-// chunks of kChunk = 512 candidates and each chunk merged into a running
-// top-K. A warp per slot holds a chunk in registers (16 candidates a lane)
-// and merges it with the running list, kept sorted in device memory ([C, K]
-// in the output and a scratch buffer of the same shape, alternating so the
-// last chunk writes the output): K rounds, each taking the smaller of the
-// list's head and the chunk's warp minimum, the list's head on a tie. Every
-// candidate of an earlier chunk sits before every candidate of a later
-// one, so the list-first tie keeps the plain version's order, ties to the
-// lowest candidate, across chunk edges. The run path's sharing of a staged
-// row across a run of slots is left out here: at the reference ScanNet
-// scene ~4% of the slots select and their runs average 1.0 slot, and a
-// run kernel that carried its lists across the chunks measured slower than
-// this one (PERF.md, Findings).
+// Design, QP > 512 and K <= 32 (the wide path: knn_select_wide_tiles_kernel
+// then knn_select_wide_kernel): a row no longer fits the run path's
+// register staging (CH <= 16 chunks of 32) or the warp path's MAXC per
+// lane. At the reference ScanNet scene (QP 702, K 8) ~4% of the slots
+// select, often whole rays of them side by side, ~98 of a row's 702
+// candidates are live, and the [C, K] outputs are 62% of the bytes bound:
+// - Pass 1, a block per tile of 128 consecutive slots (more past
+//   kWideMaxTiles tiles), lists the tile's selecting slots (ok && dslot >=
+//   0) in order with ballots and a prefix in shared memory, counts them,
+//   and writes every other slot's (-1, inf) with all threads, coalesced.
+// - Pass 2, as many blocks as the card holds at once, sums the tiles'
+//   counts into a prefix in shared memory and gives every warp an equal,
+//   contiguous share of all selecting slots, however they cluster: a tile
+//   whose slots all select is spread over many warps, not one block's. No
+//   host sync and no counter to reset: the scratch holds only the lists.
+// - A warp holds a whole row in registers, J = 22, 27 or 34 candidates a
+//   lane (QP <= 704 / 864 / 1,088; wider rows in chunks of 32 J), every
+//   load issued before the first use. A candidate is a 64-bit key, (d2's
+//   bits, candidate index): d2 >= 0, so the keys ascend as d2 does, ties
+//   to the lowest index, the plain version's stable order.
+// - The running top-K stays in registers, entry k in lane k. A chunk's
+//   candidates are cut to those at or below its K-th least lane minimum
+//   (K candidates lie at or below it, so none past it is among the chunk's
+//   K nearest) and under the list's K-th key, a float compare and a ballot
+//   a register; the few left (~10 of a row's 702 at K 8) merge with the
+//   list in batches of at most 32 by their ranks in the union, counted
+//   against a copy in shared memory, so no round of shuffles walks the row.
+// - At the end the K lanes of the list gather the winners' ids in one load
+//   and write the slot's pid and d2 coalesced.
+// For K > 32 (knn_select_wide_warp_kernel) the list no longer fits a lane
+// an entry: a warp per slot streams the row in chunks of kChunk = 512
+// candidates and merges each into a running list kept sorted in device
+// memory ([C, K] in the output and a scratch buffer of the same shape,
+// alternating so the last chunk writes the output), K rounds, each taking
+// the smaller of the list's head and the chunk's warp minimum, the list's
+// head on a tie (every candidate of an earlier chunk has a lower index).
+// The main paths use K 8 (checked also at 24); no path runs K > 32.
 //
 // Both paths are built with -fmad=false and written with
 // __fsub_rn/__fmul_rn/__fadd_rn: the plain PyTorch twin rounds each product
@@ -69,6 +90,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -390,11 +415,317 @@ __global__ void knn_select_warp_kernel(const float* __restrict__ nbr_xyz,
 
 // ---- the wide path (QP > 512) ---------------------------------------------
 
-constexpr int kChunk = 512;            // candidates a chunk of a wide row
+constexpr int kWideThreads = 128;           // threads a block of both kernels
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxTiles = 11000;        // tiles whose prefix fits
+                                            // 44 KB of shared memory
+constexpr int kWideList = 32;               // the largest K of the register list
+typedef unsigned long long u64;
+constexpr u64 kNoKey = ~0ull;               // no candidate
+constexpr unsigned kNoHalf = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf's bits: keys at or past
+                                            // (inf, .) are padding
+constexpr float kFltMax = 3.402823466e38f;
 
-// One warp per slot, any K: each chunk of the row in registers, merged with
-// the running list (sorted, K entries) of the previous chunks into the
-// other buffer.
+// The tiling of C slots: tiles of 128 m slots, m the least that keeps the
+// tile count within kWideMaxTiles.
+int wide_tile_slots(int C) {
+  const int n = (C + kWideThreads - 1) / kWideThreads;
+  const int m = (n + kWideMaxTiles - 1) / kWideMaxTiles;
+  return kWideThreads * (m > 1 ? m : 1);
+}
+
+// A candidate's key: d2's bits above its index. d2 >= 0, so its bits order
+// as its values, and equal d2 order by index, as the stable sort does.
+__device__ __forceinline__ u64 wide_key(float d, int q) {
+  return ((u64)__float_as_uint(d) << 32) | (unsigned)q;
+}
+
+// The K-entry list's padding: (inf, 2^31 + k), distinct, after every
+// candidate and before kNoKey.
+__device__ __forceinline__ u64 wide_pad(int k) {
+  return ((u64)kInfBits << 32) | (0x80000000u + (unsigned)k);
+}
+
+// Merge the n <= 32 keys of buf into the list (lk: entry k in lane k < K,
+// kNoKey in the others; lst: its copy in shared memory). Each key's new
+// position is its rank in the union: for a candidate, the keys of buf and
+// the list below it; for entry k, k plus the keys of buf below it. Keys are
+// distinct, so the ranks 0..K-1 are taken once each.
+__device__ __forceinline__ u64 wide_merge(u64 lk, const u64* buf, int n,
+                                          int K, u64* lst, u64* nxt,
+                                          int lane) {
+  __syncwarp();
+  const u64 ck = lane < n ? buf[lane] : kNoKey;
+  int pc = 0, pl = lane;
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const u64 b = buf[i];
+    pc += b < ck;
+    pl += b < lk;
+  }
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) pc += lst[k] < ck;
+  if (lane < n && pc < K) nxt[pc] = ck;
+  if (lane < K && pl < K) nxt[pl] = lk;
+  __syncwarp();
+  lk = lane < K ? nxt[lane] : kNoKey;
+  lst[lane] = lk;
+  __syncwarp();
+  return lk;
+}
+
+// The chunk's K-th least lane minimum: K candidates lie at or below it, so
+// none past it is among the chunk's K nearest (kNoHalf when fewer than K
+// lanes hold a candidate). K rounds, each taking the least and retiring
+// one lane that holds it.
+__device__ __forceinline__ unsigned wide_kth_lane_min(float lm, int K,
+                                                      int lane) {
+  unsigned v = lm < CUDART_INF_F ? __float_as_uint(lm) : kNoHalf;
+  unsigned mh = kNoHalf;
+  for (int k = 0; k < K; ++k) {
+    mh = __reduce_min_sync(kFull, v);
+    if (mh == kNoHalf) break;
+    if (lane == __ffs(__ballot_sync(kFull, v == mh)) - 1) v = kNoHalf;
+  }
+  return mh;
+}
+
+// A chunk's x plane: 32 J candidates from q0, every load issued at once.
+template <int J>
+__device__ __forceinline__ void wide_load_x(const float* __restrict__ xs,
+                                            int QP, int q0, int lane,
+                                            float (&x)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int q = q0 + 32 * j + lane;
+    x[j] = q < QP ? xs[q] : kDead;
+  }
+}
+
+// Its y and z planes where x is live: a table voxel's live entries come
+// first in its P, so the dead ones' sectors are not read.
+template <int J>
+__device__ __forceinline__ void wide_load_yz(const float* __restrict__ xs,
+                                             int QP, int q0, int lane,
+                                             const float (&x)[J],
+                                             float (&y)[J], float (&z)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int q = q0 + 32 * j + lane;
+    const bool live = x[j] < kDead;
+    y[j] = live ? xs[QP + q] : 0.f;
+    z[j] = live ? xs[2 * QP + q] : 0.f;
+  }
+}
+
+// Merge one chunk of a slot's row into its list lk (K <= 32, entry k in
+// lane k): d2 (+inf where the candidate is dead, cut, out of the row or not
+// finite: r2c is r2, or FLT_MAX without a cut, and the plain version pads
+// an infinite or NaN d2), cut to the candidates at or below the chunk's
+// K-th least lane minimum and under the list's K-th key tk (the list, from
+// lower indices, keeps a tie), merged in batches of at most 32.
+template <int J>
+__device__ __forceinline__ u64 wide_merge_chunk(
+    const float (&x)[J], const float (&y)[J], const float (&z)[J], int q0,
+    u64 lk, int K, float cx, float cy, float cz, float r2c, u64* buf,
+    u64* lst, u64* nxt, int lane) {
+  const unsigned lt = (1u << lane) - 1u;
+  float d[J];
+  float lm = CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float dd = dist2(x[j], y[j], z[j], cx, cy, cz);
+    d[j] = x[j] < kDead && dd <= r2c ? dd : CUDART_INF_F;
+    lm = fminf(lm, d[j]);
+  }
+  const unsigned mh = wide_kth_lane_min(lm, K, lane);
+  u64 tk = __shfl_sync(kFull, lk, K - 1);
+  float thr = fminf(fminf(mh == kNoHalf ? kFltMax : __uint_as_float(mh),
+                          __uint_as_float((unsigned)(tk >> 32))),
+                    kFltMax);
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (__ballot_sync(kFull, d[j] <= thr)) {
+      const u64 key = wide_key(d[j], q0 + 32 * j + lane);
+      bool p = d[j] <= thr && key < tk;
+      unsigned m = __ballot_sync(kFull, p);
+      if (cnt + __popc(m) > 32) {
+        lk = wide_merge(lk, buf, cnt, K, lst, nxt, lane);
+        tk = __shfl_sync(kFull, lk, K - 1);
+        thr = fminf(thr, __uint_as_float((unsigned)(tk >> 32)));
+        cnt = 0;
+        p = d[j] <= thr && key < tk;
+        m = __ballot_sync(kFull, p);
+      }
+      if (p) buf[cnt + __popc(m & lt)] = key;
+      cnt += __popc(m);
+    }
+  }
+  if (cnt) lk = wide_merge(lk, buf, cnt, K, lst, nxt, lane);
+  return lk;
+}
+
+// A slot's output: the K lanes of its list gather the winners' ids in one
+// load and write pid and d2 coalesced.
+__device__ __forceinline__ void wide_write(u64 lk, int K,
+                                           const int* __restrict__ ps,
+                                           int* __restrict__ out_pid,
+                                           float* __restrict__ out_d2,
+                                           int lane) {
+  if (lane < K) {
+    const unsigned h = (unsigned)(lk >> 32);
+    const bool fin = h < kInfBits;
+    out_pid[lane] = fin ? ps[(unsigned)lk] : -1;
+    out_d2[lane] = fin ? __uint_as_float(h) : CUDART_INF_F;
+  }
+}
+
+// Pass 1: a block per tile of T slots (one a thread, T / 128 rounds) finds
+// its selecting slots (ok && dslot >= 0) with ballots and a prefix in
+// shared memory, lists them in order at slots[tile * T ...], counts them in
+// counts[tile], and writes every other slot's (-1, inf), coalesced.
+__global__ void __launch_bounds__(kWideThreads)
+    knn_select_wide_tiles_kernel(const int* __restrict__ dslot,
+                                 const uint8_t* __restrict__ ok, int C, int K,
+                                 int T, int* __restrict__ slots,
+                                 int* __restrict__ counts,
+                                 int* __restrict__ out_pid,
+                                 float* __restrict__ out_d2) {
+  __shared__ int warp_cnt[kWideWarps];
+  extern __shared__ uint8_t sel_flag[];        // [T]
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int c0 = blockIdx.x * T;
+  const int n = C - c0 < T ? C - c0 : T;
+  int base = 0;                                // the same in every thread
+  for (int r = 0; r < T; r += kWideThreads) {
+    const int c = c0 + r + t;
+    const bool sel = r + t < n && ok[c] != 0 && dslot[c] >= 0;
+    const unsigned m = __ballot_sync(kFull, sel);
+    if (lane == 0) warp_cnt[w] = __popc(m);
+    sel_flag[r + t] = sel;
+    __syncthreads();
+    int before = base;
+#pragma unroll
+    for (int v = 0; v < kWideWarps; ++v) {
+      before += v < w ? warp_cnt[v] : 0;
+      base += warp_cnt[v];
+    }
+    if (sel) slots[(size_t)c0 + before + __popc(m & ((1u << lane) - 1u))] = c;
+    __syncthreads();
+  }
+  if (t == 0) counts[blockIdx.x] = base;
+  int* op = out_pid + (size_t)c0 * K;
+  float* od = out_d2 + (size_t)c0 * K;
+  for (int e = t; e < n * K; e += kWideThreads)
+    if (!sel_flag[e / K]) {
+      op[e] = -1;
+      od[e] = CUDART_INF_F;
+    }
+}
+
+// Pass 2: every warp of the grid takes an equal share of all selecting
+// slots, whichever tiles hold them: each block sums the tiles' counts into
+// a prefix in shared memory, and warp g takes the selecting slots
+// [S g / G, S (g + 1) / G) of the S in all, G warps in all, in batches of
+// 32 whose slots, rows and centers its lanes look up at once. Each slot's
+// row, chunk by chunk of 32 J candidates, merges into its list (K <= 32)
+// in registers.
+template <int J>
+__global__ void __launch_bounds__(kWideThreads)
+    knn_select_wide_kernel(const float* __restrict__ nbr_xyz,
+                           const int* __restrict__ nbr_pid,
+                           const float* __restrict__ centers,
+                           const int* __restrict__ dslot,
+                           const int* __restrict__ slots,
+                           const int* __restrict__ counts, int ntiles, int T,
+                           int QP, int K, float r2, int* __restrict__ out_pid,
+                           float* __restrict__ out_d2) {
+  extern __shared__ int pre[];                 // [ntiles + 1]
+  __shared__ int wsum[kWideWarps];
+  __shared__ u64 buf[kWideWarps][32], lst[kWideWarps][32],
+      nxt[kWideWarps][32];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  // the prefix of the counts: read coalesced into shared memory, then
+  // each thread sums a run of `per` tiles
+#pragma unroll 8
+  for (int i = t; i < ntiles; i += kWideThreads) pre[i] = counts[i];
+  __syncthreads();
+  const int per = (ntiles + kWideThreads - 1) / kWideThreads;
+  const int s0 = t * per < ntiles ? t * per : ntiles;
+  const int s1 = s0 + per < ntiles ? s0 + per : ntiles;
+  int sum = 0;
+  for (int i = s0; i < s1; ++i) sum += pre[i];
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) wsum[w] = incl;
+  __syncthreads();
+  int run = incl - sum;
+#pragma unroll
+  for (int v = 0; v < kWideWarps; ++v) run += v < w ? wsum[v] : 0;
+  for (int i = s0; i < s1; ++i) {
+    const int c = pre[i];
+    pre[i] = run;
+    run += c;
+  }
+  if (t == kWideThreads - 1) pre[ntiles] = run;
+  __syncthreads();
+  const long long S = pre[ntiles];
+  const long long G = (long long)gridDim.x * kWideWarps;
+  const long long g = (long long)blockIdx.x * kWideWarps + w;
+  const int i0 = (int)(S * g / G), i1 = (int)(S * (g + 1) / G);
+  const float r2c = r2 > 0.f ? r2 : kFltMax;
+  for (int b = i0; b < i1; b += 32) {
+    const int nb = i1 - b < 32 ? i1 - b : 32;
+    // lane l looks up slot b + l: its tile (the last whose prefix is at
+    // most b + l), the slot, its row and its center
+    int my_cs = 0, my_row = 0;
+    float my_cx = 0.f, my_cy = 0.f, my_cz = 0.f;
+    if (lane < nb) {
+      const int i = b + lane;
+      int lo = 0, hi = ntiles - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (pre[mid] <= i) lo = mid; else hi = mid - 1;
+      }
+      my_cs = slots[(size_t)lo * T + (i - pre[lo])];
+      my_row = dslot[my_cs];
+      my_cx = centers[3 * my_cs];
+      my_cy = centers[3 * my_cs + 1];
+      my_cz = centers[3 * my_cs + 2];
+    }
+    for (int k = 0; k < nb; ++k) {
+      const int cs = __shfl_sync(kFull, my_cs, k);
+      const int row = __shfl_sync(kFull, my_row, k);
+      const float cx = __shfl_sync(kFull, my_cx, k),
+                  cy = __shfl_sync(kFull, my_cy, k),
+                  cz = __shfl_sync(kFull, my_cz, k);
+      const float* xs = nbr_xyz + (size_t)3 * QP * row;
+      u64 lk = lane < K ? wide_pad(lane) : kNoKey;
+      lst[w][lane] = lk;
+      for (int q0 = 0; q0 < QP; q0 += 32 * J) {
+        float x[J], y[J], z[J];
+        wide_load_x<J>(xs, QP, q0, lane, x);
+        wide_load_yz<J>(xs, QP, q0, lane, x, y, z);
+        lk = wide_merge_chunk<J>(x, y, z, q0, lk, K, cx, cy, cz, r2c, buf[w],
+                                 lst[w], nxt[w], lane);
+      }
+      wide_write(lk, K, nbr_pid + (size_t)row * QP, out_pid + (size_t)cs * K,
+                 out_d2 + (size_t)cs * K, lane);
+    }
+  }
+}
+
+constexpr int kChunk = 512;            // candidates a chunk, K > 32
+
+// K > 32: one warp per slot, each chunk of the row in registers, merged
+// with the running list (sorted, K entries) of the previous chunks into
+// the other buffer.
 __global__ void knn_select_wide_warp_kernel(
     const float* __restrict__ nbr_xyz, const int* __restrict__ nbr_pid,
     const int* __restrict__ dslot, const float* __restrict__ centers,
@@ -493,12 +824,81 @@ __global__ void knn_select_wide_warp_kernel(
   }
 }
 
+// The bytes of scratch a wide launch needs (knn_select_scratch_bytes):
+// K <= 32, pass 1's slot lists and counts; past it the [C, K] pid / d2
+// pair of the K > 32 kernel.
+long long wide_scratch_need(int C, int K) {
+  if (K > kWideList) return 8ll * C * K;
+  const int T = wide_tile_slots(C);
+  const long long nt = (C + T - 1) / T;
+  return 4 * (nt * T + nt);
+}
+
+// Pass 2's grid: as many blocks as fit the current device at once, kept
+// for each device and shared-memory size (C sets the latter).
+template <int J>
+int wide_grid(int smem, int* grid) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> grids;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(dev, smem);
+  auto it = grids.find(key);
+  if (it == grids.end()) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, knn_select_wide_kernel<J>, kWideThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    it = grids.emplace(key, sms * (per_sm > 0 ? per_sm : 1)).first;
+  }
+  *grid = it->second;
+  return 0;
+}
+
+template <int J>
+int launch_wide_list(const float* nbr_xyz, const int* nbr_pid,
+                     const int* dslot, const float* centers,
+                     const uint8_t* ok, int C, int QP, int K, float r2,
+                     int* out_pid, float* out_d2, int* slots,
+                     cudaStream_t s) {
+  const int T = wide_tile_slots(C);
+  const int ntiles = (C + T - 1) / T;
+  int* counts = slots + (size_t)ntiles * T;
+  knn_select_wide_tiles_kernel<<<ntiles, kWideThreads, T, s>>>(
+      dslot, ok, C, K, T, slots, counts, out_pid, out_d2);
+  const int smem = (ntiles + 1) * (int)sizeof(int);
+  int grid = 0;
+  const int e = wide_grid<J>(smem, &grid);
+  if (e) return e;
+  knn_select_wide_kernel<J><<<grid, kWideThreads, smem, s>>>(
+      nbr_xyz, nbr_pid, centers, dslot, slots, counts, ntiles, T, QP, K, r2,
+      out_pid, out_d2);
+  return 0;
+}
+
 int launch_wide(const float* nbr_xyz, const int* nbr_pid, const int* dslot,
                 const float* centers, const uint8_t* ok, int C, int QP, int K,
-                float r2, int* out_pid, float* out_d2, int* tmp_pid,
-                float* tmp_d2, cudaStream_t s) {
-  if (tmp_pid == nullptr || tmp_d2 == nullptr)
+                float r2, int* out_pid, float* out_d2, void* scratch,
+                long long scratch_bytes, cudaStream_t s) {
+  if (scratch == nullptr || scratch_bytes < wide_scratch_need(C, K))
     return (int)cudaErrorInvalidValue;
+  if (K <= kWideList) {
+    int* slots = static_cast<int*>(scratch);
+    if (QP <= 32 * 22)
+      return launch_wide_list<22>(nbr_xyz, nbr_pid, dslot, centers, ok, C,
+                                  QP, K, r2, out_pid, out_d2, slots, s);
+    if (QP <= 32 * 27)
+      return launch_wide_list<27>(nbr_xyz, nbr_pid, dslot, centers, ok, C,
+                                  QP, K, r2, out_pid, out_d2, slots, s);
+    return launch_wide_list<34>(nbr_xyz, nbr_pid, dslot, centers, ok, C, QP,
+                                K, r2, out_pid, out_d2, slots, s);
+  }
+  int* tmp_pid = static_cast<int*>(scratch);
+  float* tmp_d2 = reinterpret_cast<float*>(tmp_pid + (size_t)C * K);
   knn_select_wide_warp_kernel<<<(C + 7) / 8, 256, 0, s>>>(
       nbr_xyz, nbr_pid, dslot, centers, ok, C, QP, K, r2, out_pid, out_d2,
       tmp_pid, tmp_d2);
@@ -530,22 +930,21 @@ int launch_runs(const float* nbr_xyz, const int* nbr_pid, const int* dslot,
 // route: the register top-K's capacity of the run path (8 or 16, K <=
 // route), or 0 for the warp path (any K <= QP). The wrapper picks it from K
 // (ops/knn_select.py `route_for`). Rows of more than kMaxRow = 512
-// candidates take the wide path at any route, its warp kernel keeping the
-// running lists in the output and in tmp_pid / tmp_d2 ([C, K], given only
-// for rows that wide).
+// candidates take the wide path at any route, with `scratch_bytes` of
+// scratch, as knn_select_scratch_bytes counts it.
 extern "C" int knn_select_launch(const float* nbr_xyz, const int* nbr_pid,
                                  const int* dslot, const float* centers,
                                  const uint8_t* ok, int C, int QP, int K,
                                  float r2, int route, int* out_pid,
-                                 float* out_d2, int* tmp_pid, float* tmp_d2,
-                                 void* stream) {
+                                 float* out_d2, void* scratch,
+                                 long long scratch_bytes, void* stream) {
   if (C == 0) return 0;
   if (K <= 0 || K > QP) return (int)cudaErrorInvalidValue;
   if (route > 0 && K > route) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (QP > kMaxRow) {
     const int e = launch_wide(nbr_xyz, nbr_pid, dslot, centers, ok, C, QP, K,
-                              r2, out_pid, out_d2, tmp_pid, tmp_d2, s);
+                              r2, out_pid, out_d2, scratch, scratch_bytes, s);
     return e ? e : (int)cudaGetLastError();
   }
   int err = 0;
@@ -573,4 +972,13 @@ extern "C" int knn_select_launch(const float* nbr_xyz, const int* nbr_pid,
     return (int)cudaErrorInvalidValue;
   }
   return err ? err : (int)cudaGetLastError();
+}
+
+// The bytes of scratch a launch over C slots of QP candidates at K needs:
+// pass 1's slot lists and counts on the wide path for K <= kWideList, the
+// K > 32 kernel's second [C, K] list pair past it, none for rows of at
+// most kMaxRow. The wrapper allocates it.
+extern "C" long long knn_select_scratch_bytes(int C, int QP, int K) {
+  if (C <= 0 || QP <= kMaxRow) return 0;
+  return wide_scratch_need(C, K);
 }

@@ -11,9 +11,15 @@ table row of each run of consecutive slots in shared memory once, four lanes
 per slot keep register top-K lists that merge with shuffles) and the warp
 path for larger K (a warp per slot, K shuffle reductions); for wider rows
 (QP > 512, the ScanNet and Tanks-and-Temples presets' P = 26-32) the wide
-path, which streams each row in chunks of 512 candidates and merges each
-into a running top-K, a warp per slot with the running list in device
-memory, at any K. All give the plain version's bits.
+path at any K: for K <= 32 two passes, the first listing each tile's
+selecting slots (and padding the others), the second giving every warp of
+the card an equal share of them, a warp per slot with the row in
+registers, cut to the candidates that can enter and merged into a top-K
+kept in registers; for larger K a warp per slot streams the row in chunks
+of 512 merged into a running list in device memory (the output and a
+[C, K] scratch pair). Both take one scratch buffer, of the size the
+kernel's library gives (`scratch_bytes`). All give the plain version's
+bits.
 
 Contract (both versions): nbr_xyz [D, 3*QP] f32 coordinate-major rows,
 nbr_pid [D, QP] i32, dslot [C] i32 (row per slot, -1 none), centers [C, 3]
@@ -74,15 +80,26 @@ def knn_select_plain(nbr_xyz, nbr_pid, dslot, centers, ok, K: int,
 
 
 def _lib():
+    """The library's (launch, scratch size) functions."""
     lib = _build.load("knn_select")
-    f = lib.knn_select_launch
+    f, need = lib.knn_select_launch, lib.knn_select_scratch_bytes
     if f.argtypes is None:
         vp = ctypes.c_void_p
         f.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int, vp, vp, vp,
-                      vp, vp]
+                      ctypes.c_longlong, vp]
         f.restype = ctypes.c_int
-    return f
+        need.argtypes = [ctypes.c_int] * 3
+        need.restype = ctypes.c_longlong
+    return f, need
+
+
+def scratch_bytes(C: int, QP: int, K: int) -> int:
+    """The scratch a launch over C slots of QP candidates at K needs, as the
+    kernel counts it (csrc/knn_select.cu knn_select_scratch_bytes): on the
+    wide path the first pass's slot lists and counts, or past K = 32 a
+    [C, K] pid / d2 pair; none for rows of at most MAX_ROW."""
+    return int(_lib()[1](C, QP, K))
 
 
 def _check(nbr_xyz, nbr_pid, dslot, centers, ok, K):
@@ -114,13 +131,13 @@ def knn_select(nbr_xyz, nbr_pid, dslot, centers, ok, K: int, r2: float):
     d2 = torch.empty((C, K), dtype=torch.float32, device=centers.device)
     p = _build.ptr
     route, path = route_for(K), path_for(K, QP)
-    # the wide kernel's second [C, K] list buffer
-    tmp = ((torch.empty_like(pid), torch.empty_like(d2))
-           if path == "wide" else None)
-    err = _lib()(p(nbr_xyz), p(nbr_pid), p(dslot), p(centers),
+    launch, need = _lib()
+    nb = int(need(C, QP, K))
+    scratch = (torch.empty(nb, dtype=torch.uint8, device=centers.device)
+               if nb else None)
+    err = launch(p(nbr_xyz), p(nbr_pid), p(dslot), p(centers),
                  p(ok.view(torch.uint8)), C, QP, K, float(r2), route, p(pid),
-                 p(d2), p(tmp[0]) if tmp else None,
-                 p(tmp[1]) if tmp else None,
+                 p(d2), None if scratch is None else p(scratch), nb,
                  _build.stream_handle(centers.device))
     _build.check(err, "knn_select")
     knn_select.launches += 1

@@ -73,8 +73,17 @@ and K4 named; the kernel table shows each general kernel apart (K3's
 k3_tc and its list pass; K4's list pass, k4_rows_tc, k4_dw_tc, k4_slices,
 k4_reduce).
 
+ScanNet on prebuilt tables (scannet_tables): chip_smoke's phase-31 scene
+(phase 26's ScanNet scene as JPEG under build/scannet_tables, trained
+TABLES_STEPS steps at scene_preset("scannet/scene241") with the production
+query: P = 26, QP = 702, K = 8, bf16), per train step (N_PROFILED_STEPS
+after two warm-up steps on the first batch, 3,136 rays) and per eval chunk
+(N_PROFILED_CHUNKS of the test frame's 9,216-ray chunks from its middle,
+after one warm-up), with K1 (its wide path's two passes), K3, K4 and K2
+named beside everything else, and K1 wide's share of the device time.
+
     python3 scripts/port_profile.py [--sections main dataset hybrid mvs n2d
-                                     general]
+                                     general scannet_tables]
 
 Needs one CUDA card.
 """
@@ -89,7 +98,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_PROFILED_STEPS = 4
 N_PROFILED_CHUNKS = 4
-SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d", "general")  # main:
+SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d", "general",
+            "scannet_tables")  # main:
 # serve, train, probe
 # kernel names (substrings) of each port kernel, every route: K1 is
 # knn_select_runs_kernel (K <= 16) or knn_select_warp_kernel, K3
@@ -97,7 +107,8 @@ SECTIONS = ("main", "dataset", "hybrid", "mvs", "n2d", "general")  # main:
 # fused_decode_f32 (f32) or the general k3_tc / k3_cc, K4 the three
 # fused_decode_bwd_tc_* launches (bf16) or its live-list pass
 # (live_*<true>) and fused_decode_bwd_f32_* (f32) or the general k4_*
-PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel"),
+PORT_KERNELS = {"K1": ("knn_select_runs_kernel", "knn_select_warp_kernel",
+                       "knn_select_wide"),
                 "K3": ("fused_decode_tc_fwd", "fused_decode_f32",
                        "live_flags<false>", "live_compact<false>", "k3_tc",
                        "k3_cc"),
@@ -573,6 +584,85 @@ def general_section(cs) -> None:
               f"({100 * ms * N_PROFILED_STEPS / total:.1f}%)")
 
 
+def scannet_tables_section(cs) -> None:
+    """Per train step and per eval chunk of phase 31's scannet_tables
+    path."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig
+    from pointnerf_tpu_torch.data.scannet import ScannetDataset
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train.step import eval_step, train_step
+    build = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build")
+    root = os.path.join(build, cs.TABLES_DIR)
+    cs.jpeg_scannet_scene(os.path.join(build, "scannet", cs.SCANNET_SCAN),
+                          os.path.join(root, cs.SCANNET_SCAN))
+    cfg = cs.tables_config()
+    kernels = cs.kernel_wrappers()
+    rec = cs.FirstBatchRecorder(cfg, kernels, cs.TRAIN_KERNELS,
+                                cs.RENDER_KERNELS)
+    rec.install()
+    try:
+        with cs.tempfile_dir(build) as run_dir:
+            td.train_dataset_scene("scannet_ft", root, cs.SCANNET_SCAN,
+                                   run_dir, max_steps=cs.TABLES_STEPS,
+                                   cfg=cfg, resume=False, device="cuda")
+    finally:
+        rec.restore()
+    _s0, st, grid, batch, _c = rec.first
+    box = [rec.last]
+    del rec
+    for _ in range(2):
+        box[0], _it = train_step(box[0], st, grid, batch, cfg)
+
+    def train():
+        for _ in range(N_PROFILED_STEPS):
+            box[0], _it = train_step(box[0], st, grid, batch, cfg)
+    n = N_PROFILED_STEPS
+    wall, per, busy = profiled(train)
+    total = report("scannet_tables train step", n,
+                   batch.raydir.shape[0], wall, per, busy)
+    tables_breakdown("per scannet_tables train step", per, total, n,
+                     ("K1", "K3", "K4"))
+    item = ScannetDataset(DataConfig(dataset_name="scannet_ft",
+                                     data_root=root, scan=cs.SCANNET_SCAN),
+                          split="test").get_item(0)
+    chunk = 9216
+    mid = len(item["raydir"]) // 2 - chunk * (N_PROFILED_CHUNKS + 1) // 2
+    chunks = [ray_batch_from_numpy(
+        {**item, "raydir": item["raydir"][s:s + chunk],
+         "pixel_idx": np.asarray(item["pixel_idx"])[s:s + chunk],
+         "gt_image": None}, cfg, device="cuda")
+        for s in range(mid, mid + chunk * (N_PROFILED_CHUNKS + 1), chunk)]
+    p = {"mlp": box[0].params["mlp"], "points": box[0].params["points"]}
+    with torch.no_grad():
+        eval_step(p, st, grid, chunks[0], cfg)
+
+    def evaluate():
+        with torch.no_grad():
+            for b in chunks[1:]:
+                eval_step(p, st, grid, b, cfg)
+    n = N_PROFILED_CHUNKS
+    wall, per, busy = profiled(evaluate)
+    total = report("scannet_tables eval, per chunk", n, chunk, wall, per,
+                   busy)
+    tables_breakdown("per scannet_tables eval chunk (the middle of the test "
+                     "frame)", per, total, n, ("K1", "K3", "K2"))
+
+
+def tables_breakdown(what, per, total, n, names) -> None:
+    """The named port kernels' device ms each and share, the rest's."""
+    parts = {k: kernel_ms(per, PORT_KERNELS[k]) for k in names}
+    rest = total - sum(parts.values())
+    print(f"{what}, device ms: " + ", ".join(
+        f"{k} {ms / n:.4f} ({100 * ms / total:.1f}%)"
+        for k, ms in parts.items())
+        + f", everything else {rest / n:.4f} ({100 * rest / total:.1f}%); "
+        f"kernel total {total / n:.4f}", flush=True)
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -598,6 +688,8 @@ def main() -> None:
         n2d_section(cs)
     if "general" in sections:
         general_section(cs)
+    if "scannet_tables" in sections:
+        scannet_tables_section(cs)
     if "main" not in sections:
         return
     cfg = cs.slice_config()

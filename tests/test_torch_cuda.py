@@ -143,16 +143,137 @@ def _wide_inputs(QP, seed=0, D=60, C=1500):
 @pytest.mark.parametrize("QP", [513, 702, 810, 864, 1080])
 @pytest.mark.parametrize("K", [1, 8, 16, 17, 24, "QP"])
 def test_knn_select_wide_matches_plain(dev, QP, K):
-    """The wide path (QP > 512: a warp per slot, its list in device memory
-    across the 512-candidate chunks) bit-equal to the plain version, with
-    and without the r2 cut, ties across chunk edges, dead and invalid
-    slots, an all-dead row and a dense one."""
+    """The wide path (QP > 512: for K <= 32 a warp per selecting slot with
+    the row in registers and the list in registers; K = QP takes the K > 32
+    kernel, its list in device memory across 512-candidate chunks)
+    bit-equal to the plain version, with and without the r2 cut, ties
+    across the 512 edges, dead and invalid slots, an all-dead row and a
+    dense one."""
     K = QP if K == "QP" else K
     args = _wide_inputs(QP, seed=QP + K)
     for r2 in (0.0, 0.004):
         pk = _hold_k1(dev, args, K, r2)
         assert bool((pk >= 0).any())
         assert bool((pk[60:180][(args[2][60:180] == 5).to(dev)] == -1).all())
+
+
+def _wide_edge_inputs(QP, seed=0, D=60, C=1500):
+    """`_wide_inputs` with exact d2 ties also at the register-list kernel's
+    edges: candidate 0 copied to 31 / 32 / 33 (lanes 31, 0, 1 of registers
+    0 and 1), candidates 40-55 to either side of 768 (the 24-a-lane row)
+    and of 1,088 (the 34-a-lane chunk) where the row holds them; the first
+    tile of 128 slots all selecting, the second none; C = 1,500 is not a
+    multiple of the tile."""
+    args = _wide_inputs(QP, seed=seed, D=D, C=C)
+    base = args[0].view(D, 3, QP)
+    base[:, :, 31:34] = base[:, :, 0:1]
+    for edge in (768, 1088):
+        if edge + 8 <= QP:
+            base[:, :, edge - 8:edge + 8] = base[:, :, 40:56]
+    dslot, ok = args[2], args[4]
+    dslot[:128] = torch.where(dslot[:128] < 0, 7, dslot[:128])
+    ok[:128] = True
+    ok[128:256] = False
+    return args
+
+
+@pytest.mark.parametrize("QP", [702, 1080, 2048])
+@pytest.mark.parametrize("K", [1, 8, 24, 32, 33])
+def test_knn_select_wide_edges_match_plain(dev, QP, K):
+    """The wide path's register list (K <= 32) and, at K = 33, its K > 32
+    kernel, bit-equal to the plain version with ties planted across lanes,
+    registers, the 768 row and the 1,088 chunk edges, at a QP past the
+    register cap (2,048: two chunks), a tile all selecting and one with no
+    selecting slot, with and without the r2 cut."""
+    args = _wide_edge_inputs(QP, seed=QP + K)
+    for r2 in (0.0, 0.004):
+        pk = _hold_k1(dev, args, K, r2)
+        assert bool((pk[:128, 0] >= 0).any())
+        assert bool((pk[128:256] == -1).all())
+
+
+@pytest.mark.parametrize("QP", [702, 1080])
+@pytest.mark.parametrize("K", [8, 24])
+def test_knn_select_wide_sparse_slots(dev, QP, K):
+    """A scannet_tables-like launch: 30,000 slots, ~4% of them selecting at
+    random over 441 rows with ~14% live candidates (as the reference
+    ScanNet scene's eval chunk), bit-equal to the plain version with and
+    without the r2 cut."""
+    g = torch.Generator().manual_seed(QP + K)
+    D, C = 441, 30000
+    base = torch.rand((D, 3, QP), generator=g) * 0.2
+    base[:, 0][torch.rand((D, QP), generator=g) > 0.14] = 1.0e8
+    base[:, :, 300:310] = base[:, :, 0:10]               # exact ties
+    dslot = torch.randint(0, D, (C,), generator=g, dtype=torch.int32)
+    sel = torch.rand((C,), generator=g) < 0.04
+    # the others: ok = 0 with a row, or no row (ok either way)
+    none = ~sel & (torch.rand((C,), generator=g) < 0.5)
+    dslot[none] = -1
+    ok = sel | (none & (torch.rand((C,), generator=g) < 0.5))
+    centers = torch.rand((C, 3), generator=g) * 0.2
+    pid = torch.randint(0, 10 ** 6, (D, QP), generator=g, dtype=torch.int32)
+    args = [base.reshape(D, 3 * QP), pid, dslot, centers, ok]
+    for r2 in (0.0, 0.004):
+        pk = _hold_k1(dev, args, K, r2)
+        assert bool((pk >= 0).any())
+
+
+def test_knn_select_wide_many_tiles(dev):
+    """Past 11,000 tiles of 128 slots the first pass takes tiles of 256
+    (1,408,001 slots), as the library's scratch size says: the selecting
+    slots (2,000 at random, the first and the last slot among them)
+    bit-equal to the plain version run on them alone, every other slot
+    (-1, inf). The scratch sizes: a tile's slot list and its count, or the
+    [C, K] pair past K = 32, none below QP 513."""
+    from pointnerf_tpu_torch.ops.knn_select import (knn_select,
+                                                    knn_select_plain,
+                                                    scratch_bytes)
+    C, QP, K, D = 128 * 11000 + 1, 702, 8, 60
+    nt = -(-C // 256)
+    assert scratch_bytes(C, QP, K) == 4 * (nt * 256 + nt)
+    assert scratch_bytes(128 * 11000, QP, K) == 4 * (11000 * 128 + 11000)
+    assert scratch_bytes(300, 2048, 32) == 4 * (3 * 128 + 3)
+    assert scratch_bytes(300, 702, 33) == 8 * 300 * 33
+    assert scratch_bytes(300, 512, 8) == scratch_bytes(0, 702, 8) == 0
+    args = _wide_inputs(QP, seed=5, D=D, C=1500)
+    g = torch.Generator().manual_seed(6)
+    sel = torch.randperm(C, generator=g)[:2000]
+    sel[:2] = torch.tensor([0, C - 1])
+    dslot = torch.full((C,), -1, dtype=torch.int32)
+    dslot[sel] = torch.randint(0, D, (2000,), generator=g,
+                               dtype=torch.int32)
+    ok = torch.zeros(C, dtype=torch.bool)
+    ok[sel] = True
+    centers = torch.rand((C, 3), generator=g) * 0.2
+    full = [a.to(dev) for a in (args[0], args[1], dslot, centers, ok)]
+    for r2 in (0.0, 0.004):
+        pk, dk = knn_select(*full, K=K, r2=r2)
+        part = [a.to(dev) for a in (args[0], args[1], dslot[sel],
+                                    centers[sel], ok[sel])]
+        pp, dp = knn_select_plain(*part, K, r2)
+        torch.cuda.synchronize()
+        s = sel.to(dev)
+        assert torch.equal(pk[s], pp) and torch.equal(dk[s], dp)
+        rest = torch.ones(C, dtype=torch.bool, device=dev)
+        rest[s] = False
+        assert bool((pk[rest] == -1).all()) and bool(torch.isinf(dk[rest]).all())
+
+
+def test_knn_select_wide_makes_no_host_sync(dev):
+    """The wide path's launches (the register list, and past K = 32 the
+    scratch pair's allocation) make no host sync."""
+    from pointnerf_tpu_torch.ops.knn_select import knn_select
+    k1 = [a.to(dev) for a in _wide_inputs(702)]
+    for K in (8, 24, 33):                        # build and load first
+        knn_select(*k1, K=K, r2=0.004)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for K in (8, 24, 33):
+            knn_select(*k1, K=K, r2=0.004)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("SR", [1, 31, 80, 129])
