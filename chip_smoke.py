@@ -377,7 +377,37 @@ Phases:
      [3600, 128, 4] input recorded from a request served outside
      torch.no_grad (K2 all the same: the card's rule); a 512-ray request card vs CPU (the plain march
      there) within MVSNERF_TOL;
- 33. the kernels JSON line (one row per kernel of a source: K1 has a row
+ 33. the sharded path (pointnerf_tpu_torch/parallel): a world of two
+     ranks sharing the card (gloo: NCCL refuses two ranks on one device —
+     the port's refusal and NCCL's own error on a raw two-rank world are
+     printed) and the same world on the CPU, each rank loading the kernels
+     phase 2 built. (a) serving at bench_config on the 65,536-point sphere
+     at (dp 1, mp 2), the counts set to 0: 4 requests of 3,600 rays
+     through make_sharded_eval_step, each launching K1 (run path), K3
+     (tensor cores) and K2 once on every rank; a 512-ray request card vs
+     CPU world (integers equal, the colors of the rays that hit within
+     phase 5's bar, control the CPU's f32 decode); the single-device
+     build's fullest voxel at 65,536 points (P = 9 truncates) and at
+     16,384, where the merged d2 of the dense decode equals single-device
+     K1's bit for bit at the same shading points and so do the colors
+     (SHARD_D2_COLOR_TOL). (b) 3 + 10 train steps of 3,600 rays (K1,
+     K3, K4 once a step on every rank), the loss finite and falling, the
+     MLP parameters bit-equal on both ranks, the train rays/s, the bytes
+     and host ms of each step's all_to_all and the collectives' share of
+     the step; a 512-ray step's loss and gradients card vs CPU world
+     (phase 8's bars, f32 controls). (c) train_scene_sharded for 8 steps
+     on phase 9's cut sphere at 128 x 128: a prune (the kept count read
+     from the state before it), a probe-grow (every candidate added),
+     an eval's PSNR, rank 0's checkpoint of the gathered shards read back
+     bit for bit. (d) (dp 2, mp 1): each rank's loss and gradients against
+     the mean of the single-device rows' (the same jitter fed to both
+     rows), two steps, the replicas bit-equal. (e) two waymo_ft sequences
+     of the cluster written as the loaders phase writes one, through
+     load_multiseq and partition_points_multiseq onto mp 2, 3 sharded
+     neural2d steps with the CNN head at C = 128 (K1, K3, K4 bf16 once a
+     step on every rank). None of its numbers is a multi-GPU figure: both
+     ranks share one card and every collective goes through host memory;
+ 34. the kernels JSON line (one row per kernel of a source: K1 has a row
      for its run and warp paths and one for its wide path, K2 a row
      for its tiled kernel and one for its wide kernel, K3 and K4 a
      tensor-core row, a CUDA-core row and a general row, counted by route
@@ -386,7 +416,8 @@ Phases:
      path: serve, train, maintenance, dataset, flags_off, hybrid (phases
      14-16), loaders, mvs (phases 21-22), n2d (phase 23), import, edit,
      scannet, llff, video (phases 24-28), whole_agg (phase 30),
-     scannet_tables (phase 31), mvsnerf (phase 32); each kernel's numbers on the maintenance path's probe and eval chunks, on
+     scannet_tables (phase 31), mvsnerf (phase 32), sharded (phase 33,
+     both ranks); each kernel's numbers on the maintenance path's probe and eval chunks, on
      the flags-off path's train step and request, at the hybrid's and the
      fine pass's shapes, on the feed-forward step and the dtu_ft eval
      chunk, on the neural2d step and the feature requests, and on the
@@ -6739,6 +6770,856 @@ def mvsnerf_path(kernels):
     return counts, routes, checks
 
 
+# ---- phase 33: the sharded path (pointnerf_tpu_torch/parallel) on a world
+# of ranks that share the one card ----------------------------------------
+SHARD_WORLD = 2               # ranks of each world, all on the one card
+SHARD_REQUESTS = 4
+SHARD_WARMUP = 3
+SHARD_STEPS = 10
+SHARD_PARITY_RAYS = 512
+# the single-device build truncates the 65,536-point sphere's buckets at
+# P = 9 (18 points in its fullest voxel); at 16,384 points the fullest
+# voxel holds 8, so there the merged top-K must be the single-device KNN
+SHARD_D2_POINTS = 16384
+# colors, sharded vs single-device at that count, both decoded by K3 row by
+# row: first held at 1e-5, now at the readings — the same bits in three runs
+# on an H100 80GB HBM3 at 700 W (PERF.md §6)
+SHARD_D2_COLOR_TOL = 0.0
+SHARD_MAINT_STEPS = 8         # a prune at 4, a probe-grow at 6, an eval at 8
+SHARD_MAINT_WH = (128, 128)
+SHARD_N2D_STEPS = 3
+SHARD_WAYMO_WH = (64, 64)     # each sequence's bundle frames
+SHARD_WAYMO_VIEWS = 6         # view 0 the test frame
+SHARD_WAYMO_POINTS = 131072   # the cluster's cloud, half to each sequence
+SHARD_TIMEOUT_S = 600
+SHARD_STEP_KERNELS = ("knn_select", "fused_decode", "fused_decode_bwd")
+
+
+def shard_rank(dp: int, mp: int, device: str):
+    """A rank's mesh; on the card, first that phase 2 built every kernel (a
+    rank loads the libraries and builds none)."""
+    import torch
+    from pointnerf_tpu_torch.ops import _build
+    from pointnerf_tpu_torch.parallel import make_mesh
+    if device != "cpu":
+        missing = [n for n in _build.KERNELS
+                   if not _build.library_path(n).exists()]
+        if missing:
+            raise RuntimeError(f"kernels not built by phase 2: {missing}")
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // SHARD_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return make_mesh(dp, mp, device=device)
+
+
+def shard_state(cfg, mesh, n_pts=N_POINTS):
+    """The sphere_scene cloud (seed 0) dealt round-robin onto the mesh's mp
+    shards, features drawn shard by shard from seed 0, MLP weights from
+    seed 1: the rank's shard, its grids and a fresh train state (jitter
+    from seed 2 on every rank)."""
+    import torch
+    from pointnerf_tpu_torch.data.synthetic import sphere_scene
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.parallel.sharded import (
+        build_sharded_scene, create_sharded_train_state, partition_points)
+    xyz, color, normals = sphere_scene(n_pts=n_pts, seed=0)
+    pc, num_active = partition_points(
+        xyz, torch.Generator().manual_seed(0), cfg, mesh.mp, color=color,
+        dirs=normals, shard=mesh.m, device=mesh.device)
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                    device=mesh.device)
+    scene = build_sharded_scene(pc, num_active, cfg, mesh)
+    return create_sharded_train_state(
+        torch.Generator(device=mesh.device).manual_seed(2), params, pc, scene,
+        cfg, mesh)
+
+
+def kernel_tally(kernels):
+    """The wrappers' launches and launches by route, read now."""
+    total = ({}, {})
+    add_counts(total, kernels)
+    return total
+
+
+def tree_hash(tree) -> str:
+    import hashlib
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tree_numpy(tree):
+    from pointnerf_tpu_torch.train.optim import tree_map
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def counted_steps(step, state, scene, batch, n: int, what: str, **kw):
+    """n steps; on the card each must launch K1, K3 and K4 once (K2 never:
+    training takes the plain march). Returns (state, losses)."""
+    kernels = kernel_wrappers()
+    on_card = batch.raydir.is_cuda
+    losses = []
+    for i in range(n):
+        before = {k: kernels[k].launches for k in kernels}
+        state, items = step(state, scene, batch, **kw)
+        for k in kernels if on_card else ():
+            want = before[k] + (k in SHARD_STEP_KERNELS)
+            if kernels[k].launches != want:
+                raise RuntimeError(
+                    f"{what} step {i}: {k} launched "
+                    f"{kernels[k].launches - before[k]} times, not "
+                    f"{int(k in SHARD_STEP_KERNELS)}")
+        losses.append(float(items["loss_total"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{what}: a loss is not finite: {losses}")
+    return state, losses
+
+
+def shard_serve_job(device: str, counted: bool):
+    """(a) With `counted` (the card's world): the counts set to 0,
+    SHARD_REQUESTS requests of N_RAYS rays through make_sharded_eval_step,
+    each launching K1 (run path), K3 (tensor cores) and K2 (tiled) once on
+    this rank. Then, outside the counts: the SHARD_PARITY_RAYS-ray parity
+    request (in the CPU world also with an f32 decode, the control)."""
+    import torch
+    from pointnerf_tpu_torch.parallel.sharded import make_sharded_eval_step
+    cfg = slice_config()
+    mesh = shard_rank(1, SHARD_WORLD, device)
+    state, scene = shard_state(cfg, mesh)
+    dev = mesh.device
+    eval_fn = make_sharded_eval_step(cfg, mesh)
+    res = {"num_active": scene.num_active.tolist()}
+    if counted:
+        reqs = batches(cfg, N_RAYS, SHARD_REQUESTS, dev)
+        kernels = kernel_wrappers()
+        reset_counts(kernels)
+        mesh.comm.reset()
+        sync(dev)
+        t0 = time.perf_counter()
+        hits = []
+        for i, b in enumerate(reqs):
+            before = {k: kernels[k].launches for k in RENDER_KERNELS}
+            out = eval_fn(state.params, scene, b)
+            for k in RENDER_KERNELS if dev.type == "cuda" else ():
+                if kernels[k].launches != before[k] + 1:
+                    raise RuntimeError(
+                        f"sharded request {i}: {k} launched "
+                        f"{kernels[k].launches - before[k]} times, not once")
+            col = out.coarse_raycolor
+            if col.shape != (N_RAYS, 3) or not bool(torch.isfinite(col).all()):
+                raise RuntimeError(f"sharded request {i}: colors not finite "
+                                   f"or of shape {tuple(col.shape)}")
+            hits.append(int(out.ray_mask.sum()))
+        sync(dev)
+        res.update(seconds=time.perf_counter() - t0, hits=hits,
+                   comm=mesh.comm.snapshot(),
+                   routes=kernel_routes(kernels, "sharded serving"),
+                   tally=kernel_tally(kernels))
+    b = batches(cfg, SHARD_PARITY_RAYS, 1, dev, seed0=7)[0]
+    decodes = {"bf16": cfg}
+    if not counted:
+        decodes["f32"] = cfg.replace(train=dataclasses.replace(
+            cfg.train, compute_dtype="f32"))
+    for name, c in decodes.items():
+        out = make_sharded_eval_step(c, mesh)(state.params, scene, b)
+        res[name] = {f: getattr(out, f).cpu().numpy() for f in
+                     ("ray_mask", "ray_valid", "coarse_raycolor")}
+    return res
+
+
+def shard_d2_job(device: str):
+    """(a) at SHARD_D2_POINTS on the dense decode: the merged d2 of the
+    rank's block against single-device K1 on the whole cloud at the same
+    shading points (bit for bit), and the sharded request's colors
+    against the single-device request's. Also the single-device build's
+    largest bucket count at N_POINTS and here."""
+    import torch
+    from pointnerf_tpu_torch.data.synthetic import sphere_scene
+    from pointnerf_tpu_torch.models.points import PointCloud, PointCloudStatic
+    from pointnerf_tpu_torch.ops.grid import flat_vid, grid_meta, voxel_coords
+    from pointnerf_tpu_torch.ops.query import knn_query
+    from pointnerf_tpu_torch.parallel import sharded as ps
+    from pointnerf_tpu_torch.train.step import eval_step, refresh_grid
+    cfg = slice_config()
+    cfg = cfg.replace(query=dataclasses.replace(cfg.query,
+                                                decode_capacity=0.0))
+    mesh = shard_rank(1, SHARD_WORLD, device)
+    dev = mesh.device
+    meta = grid_meta(cfg.query)
+    fullest = {}
+    for n in (N_POINTS, SHARD_D2_POINTS):
+        xyz = torch.tensor(sphere_scene(n_pts=n, seed=0)[0], device=dev)
+        vid, _ = flat_vid(voxel_coords(xyz, meta), meta)
+        fullest[n] = int(torch.bincount(vid.long()).max())
+    state, scene = shard_state(cfg, mesh, n_pts=SHARD_D2_POINTS)
+    b = batches(cfg, SHARD_PARITY_RAYS, 1, dev, seed0=7)[0]
+    rec = {}
+    real_merge, real_knn = ps._merge_candidates, ps.knn_query
+
+    def merge(*a, **k):
+        out = real_merge(*a, **k)
+        rec["d2"] = out[1]
+        return out
+
+    def knn(loc, mask, *a, **k):
+        rec["slots"] = (loc, mask)
+        return real_knn(loc, mask, *a, **k)
+    ps._merge_candidates, ps.knn_query = merge, knn
+    try:
+        o_sh = ps.make_sharded_eval_step(cfg, mesh)(state.params, scene, b)
+    finally:
+        ps._merge_candidates, ps.knn_query = real_merge, real_knn
+    # the whole cloud on one device, the shards' rows dealt back in order
+    xyz, color, normals = sphere_scene(n_pts=SHARD_D2_POINTS, seed=0)
+    shards, num_active = ps.partition_points(
+        xyz, torch.Generator().manual_seed(0), cfg, mesh.mp, color=color,
+        dirs=normals, device=dev)
+    n = int(num_active.sum())
+    order = torch.arange(n, device=dev)
+    full = PointCloud(*[t[order % mesh.mp, order // mesh.mp] for t in shards])
+    cap = full.xyz.shape[0]
+    pad = 4096 * -(-cap // 4096) - cap
+    full = PointCloud(*[torch.cat([t, torch.full((pad,) + t.shape[1:],
+                                                 1e8 if i == 0 else 0.0,
+                                                 device=dev)])
+                        for i, t in enumerate(full)])
+    st = PointCloudStatic(num_active=torch.tensor(n, dtype=torch.int32,
+                                                  device=dev),
+                          Rw2c=torch.eye(3, device=dev))
+    grid, _ = refresh_grid(full, st, cfg)
+    loc, mask = rec["slots"]
+    _pidx, d2_single = knn_query(loc, mask, full.xyz, grid, cfg.query)
+    rs = loc.shape[0] // mesh.mp
+    d2_single = d2_single[mesh.m * rs:(mesh.m + 1) * rs]
+    d2_single = torch.where(torch.isfinite(d2_single), d2_single,
+                            torch.full_like(d2_single, float("inf")))
+    o_1 = eval_step({"mlp": state.params["mlp"], "points": full}, st, grid,
+                    b, cfg)
+    hit = o_1.ray_mask
+    return {"fullest": fullest,
+            "d2_equal": bool(torch.equal(rec["d2"], d2_single)),
+            "d2_mismatch": int((rec["d2"] != d2_single).sum()),
+            "d2_slots": int(rec["d2"].numel()),
+            "mask_equal": bool(torch.equal(o_sh.ray_mask, o_1.ray_mask)),
+            "color_err": float((o_sh.coarse_raycolor[hit]
+                                - o_1.coarse_raycolor[hit]).abs().max()),
+            "hits": int(hit.sum())}
+
+
+def shard_train_job(device: str):
+    """(b) The counts set to 0: SHARD_WARMUP + SHARD_STEPS train steps of
+    N_RAYS rays on one batch (K1, K3, K4 once a step on this rank), the
+    collectives' bytes and seconds of the timed steps; then, outside the
+    counts, the loss and gradients of a SHARD_PARITY_RAYS-ray step from
+    the state the steps leave, and that state for the CPU world."""
+    import torch
+    from pointnerf_tpu_torch.parallel.sharded import (make_sharded_train_step,
+                                                      sharded_loss_and_grads)
+    cfg = slice_config()
+    mesh = shard_rank(1, SHARD_WORLD, device)
+    dev = mesh.device
+    state, scene = shard_state(cfg, mesh)
+    step = make_sharded_train_step(cfg, mesh)
+    tbatch = batches(cfg, N_RAYS, 1, dev)[0]
+    kernels = kernel_wrappers()
+    reset_counts(kernels)
+    state, warm = counted_steps(step, state, scene, tbatch, SHARD_WARMUP,
+                                "sharded warm-up")
+    sync(dev)
+    mesh.comm.reset()
+    t0 = time.perf_counter()
+    state, losses = counted_steps(step, state, scene, tbatch, SHARD_STEPS,
+                                  "sharded train")
+    sync(dev)
+    dt = time.perf_counter() - t0
+    res = {"seconds": dt, "losses": warm + losses, "comm": mesh.comm.snapshot(),
+           "routes": kernel_routes(kernels, "sharded training"),
+           "tally": kernel_tally(kernels),
+           "mlp_hash": tree_hash(state.params["mlp"]),
+           "num_active": scene.num_active.tolist()}
+    b = batches(cfg, SHARD_PARITY_RAYS, 1, dev, seed0=11)[0]
+    u = torch.rand((SHARD_PARITY_RAYS, cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(3))
+    total, items, grads = sharded_loss_and_grads(state, scene, b, cfg, mesh,
+                                                 u=u.to(dev))
+    res.update(loss=float(total), grads=tree_numpy(grads),
+               params=tree_numpy(state.params),
+               dropped=float(items["n_decode_dropped"]))
+    return res
+
+
+def shard_train_cpu_job(params_by_rank, num_active):
+    """(b) on the CPU world: the parity step's loss and gradients from the
+    card's state, with the bf16 decode's plain versions and with an f32
+    decode (the control)."""
+    import torch
+    from pointnerf_tpu_torch.convert import params_from_jax
+    from pointnerf_tpu_torch.models.points import PointCloud
+    from pointnerf_tpu_torch.parallel.sharded import (build_sharded_scene,
+                                                      sharded_loss_and_grads)
+    from pointnerf_tpu_torch.train.step import TrainState
+    cfg = slice_config()
+    mesh = shard_rank(1, SHARD_WORLD, "cpu")
+    p = params_by_rank[mesh.rank]
+    params = {"mlp": params_from_jax(p["mlp"], "cpu"),
+              "points": PointCloud(*[torch.tensor(a) for a in p["points"]])}
+    scene = build_sharded_scene(params["points"], torch.tensor(num_active),
+                                cfg, mesh)
+    state = TrainState(params=params, opt_state=None,
+                       step=torch.zeros((), dtype=torch.int32),
+                       key=torch.Generator())
+    b = batches(cfg, SHARD_PARITY_RAYS, 1, "cpu", seed0=11)[0]
+    u = torch.rand((SHARD_PARITY_RAYS, cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(3))
+    res = {}
+    for name, c in (("cpu", cfg), ("control", cfg.replace(
+            train=dataclasses.replace(cfg.train, compute_dtype="f32")))):
+        total, items, grads = sharded_loss_and_grads(state, scene, b, c,
+                                                     mesh, u=u)
+        res[name] = (float(total), tree_numpy(grads),
+                     float(items["n_decode_dropped"]))
+    return res
+
+
+def shard_maint_scene():
+    """maintenance_scene's cloud (the silhouette band cut, every 8th point
+    below prune_thresh) and views at SHARD_MAINT_WH."""
+    import numpy as np
+    from pointnerf_tpu_torch.data.synthetic import (ring_cameras, sphere_scene,
+                                                    view_ray_batch)
+    xyz, color, normals = sphere_scene(n_pts=N_POINTS, seed=0)
+    views = ring_cameras(n_views=MAINT_VIEWS, wh=SHARD_MAINT_WH)
+    d = float(np.linalg.norm(views[0][0]))
+    ang = np.arccos(np.clip(normals @ (views[0][0] / d), -1.0, 1.0))
+    keep = np.abs(ang - np.arccos(0.5 / d)) > np.radians(SILHOUETTE_BAND_DEG)
+    pts = (xyz[keep], color[keep], normals[keep])
+    conf = np.full((pts[0].shape[0], 1), 0.5, np.float32)
+    conf[::8] = 0.05
+
+    def train_item(step):
+        v = step % MAINT_VIEWS
+        return view_ray_batch(*views[v], SHARD_MAINT_WH, n_rays=N_RAYS,
+                              seed=step, view_id=v)
+    probe = [view_ray_batch(*views[0], SHARD_MAINT_WH, view_id=0)]
+    test = [view_ray_batch(*views[4], SHARD_MAINT_WH, view_id=4)]
+    return pts, conf, train_item, probe, test
+
+
+def shard_maint_job(run_dir: str, device: str):
+    """(c) train_scene_sharded for SHARD_MAINT_STEPS steps with the counts
+    set to 0: each prune keeps exactly the points with conf > prune_thresh
+    (read from the state before it, summed over the shards), the probe-grow
+    adds every candidate and the shards' counts add up; then the
+    checkpoint (rank 0's, of the gathered shards) reads back bit for bit."""
+    import torch
+    from pointnerf_tpu_torch.parallel import sharded as ps
+    from pointnerf_tpu_torch.parallel.collectives import psum
+    from pointnerf_tpu_torch.train import driver as td
+    from pointnerf_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                      load_checkpoint)
+    from pointnerf_tpu_torch.train.optim import tree_leaves
+    cfg = slice_config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, maximum_step=SHARD_MAINT_STEPS, prune_iter=4,
+        prune_max_iter=4, prune_thresh=0.1, prob_freq=6, prob_num_step=1,
+        prob_thresh=0.0, test_freq=SHARD_MAINT_STEPS, print_freq=4,
+        save_iter_freq=0, random_sample_size=60))
+    mesh = shard_rank(1, SHARD_WORLD, device)
+    pts, conf, train_item, probe, test = shard_maint_scene()
+    events = []
+    real_prune, real_grow = ps.sharded_prune, ps.sharded_grow
+
+    def prune(state, scene, c, m):
+        n = int(scene.num_active[m.m])
+        keep = (state.params["points"].conf[:n, 0] > c.train.prune_thresh)
+        want = int(psum(keep.sum().reshape(1).float(), m, "mp")[0])
+        t0 = time.perf_counter()
+        out = real_prune(state, scene, c, m)
+        if out[2] != want or int(out[1].num_active[m.m]) != int(keep.sum()):
+            raise RuntimeError(f"sharded prune kept {out[2]} points, the "
+                               f"state before it has {want} above the bar")
+        events.append(("prune", int(scene.num_active.sum()), out[2],
+                       time.perf_counter() - t0))
+        return out
+
+    def grow(state, scene, cand, c, m):
+        before = int(scene.num_active.sum())
+        t0 = time.perf_counter()
+        out = real_grow(state, scene, cand, c, m)
+        n_cand = cand.xyz.shape[0]
+        if not (n_cand > 0 and out[2] == n_cand
+                and int(out[1].num_active.sum()) == before + n_cand):
+            raise RuntimeError(f"sharded grow added {out[2]} of {n_cand} "
+                               f"candidates to {before} points")
+        events.append(("grow", before, out[2], time.perf_counter() - t0))
+        return out
+    kernels = kernel_wrappers()
+    reset_counts(kernels)
+    ps.sharded_prune, ps.sharded_grow = prune, grow
+    t0 = time.perf_counter()
+    try:
+        state, scene, hist = td.train_scene_sharded(
+            cfg, mesh, pts, train_item, test, SHARD_MAINT_WH, run_dir=run_dir,
+            max_steps=SHARD_MAINT_STEPS, probe_items=probe, conf=conf)
+    finally:
+        ps.sharded_prune, ps.sharded_grow = real_prune, real_grow
+    seconds = time.perf_counter() - t0
+    tally = kernel_tally(kernels)
+    if [e[0] for e in events] != ["prune", "grow"]:
+        raise RuntimeError(f"sharded maintenance events {events}")
+    full = ps.gather_shards(state, mesh)
+    loaded, meta = load_checkpoint(latest_checkpoint(run_dir), full)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((loaded.params, loaded.opt_state, loaded.step)),
+        tree_leaves((full.params, full.opt_state, full.step))))
+    if not same or meta["num_active"] != scene.num_active.tolist():
+        raise RuntimeError("the sharded checkpoint does not read back bit "
+                           "for bit")
+    return {"events": events, "seconds": seconds, "tally": tally,
+            "psnr": hist["eval"][-1]["psnr"], "loss": hist["loss"],
+            "num_active": scene.num_active.tolist()}
+
+
+def shard_dp_job(device: str):
+    """(d) (dp 2, mp 1): each rank's gradient against the mean of the
+    single-device gradients of the two rows' rays (the same jitter draw fed
+    to each row, as every dp row draws it), with an f32 decode of the same
+    as the control; then, the counts set to 0, two sharded train steps."""
+    import torch
+    from pointnerf_tpu_torch.models.points import PointCloudStatic
+    from pointnerf_tpu_torch.parallel.sharded import (make_sharded_train_step,
+                                                      sharded_loss_and_grads)
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from pointnerf_tpu_torch.train.step import loss_and_grads, refresh_grid
+    cfg = slice_config()
+    mesh = shard_rank(SHARD_WORLD, 1, device)
+    dev = mesh.device
+    state, scene = shard_state(cfg, mesh)
+    b = batches(cfg, N_RAYS, 1, dev)[0]
+    Rl = N_RAYS // mesh.dp
+    u = torch.rand((Rl, cfg.query.z_depth_dim),
+                   generator=torch.Generator().manual_seed(5)).to(dev)
+    st = PointCloudStatic(num_active=scene.num_active[0],
+                          Rw2c=torch.eye(3, device=dev))
+    grid, _ = refresh_grid(state.params["points"], st, cfg)
+    rows = [b._replace(raydir=b.raydir[r * Rl:(r + 1) * Rl],
+                       pixel_idx=b.pixel_idx[r * Rl:(r + 1) * Rl],
+                       gt_image=b.gt_image[r * Rl:(r + 1) * Rl])
+            for r in range(mesh.dp)]
+
+    def single(c):
+        outs = [loss_and_grads(state.params, st, grid, row, c, u=u)
+                for row in rows]
+        loss = sum(float(o[0]) for o in outs) / len(outs)
+        grads = tree_map(lambda *g: sum(g) / len(g), *[o[2] for o in outs])
+        return loss, grads
+    ref_loss, ref = single(cfg)
+    ctl_loss, ctl = single(cfg.replace(train=dataclasses.replace(
+        cfg.train, compute_dtype="f32")))
+    total, _items, grads = sharded_loss_and_grads(state, scene, b, cfg, mesh,
+                                                  u=u)
+    res = {"loss": (float(total), ref_loss, ctl_loss),
+           "readings": grad_readings(grads, ref),
+           "control": grad_readings(ctl, ref)}
+    step = make_sharded_train_step(cfg, mesh)
+    kernels = kernel_wrappers()
+    reset_counts(kernels)
+    state, losses = counted_steps(step, state, scene, b, 2, "dp", u=u)
+    res.update(tally=kernel_tally(kernels), losses=losses,
+               mlp_hash=tree_hash(state.params["mlp"]),
+               points_hash=tree_hash(state.params["points"]))
+    return res
+
+
+def write_waymo_sequences(root: str, device: str):
+    """Two sequences of the procedural cluster written as the loaders phase
+    writes its waymo_ft bundle (frames_to_npz on the card, full-resolution
+    frames twice the bundle's): root/seq0.npz and seq1.npz, each with its
+    own SHARD_WAYMO_VIEWS views of SHARD_WAYMO_WH (view 0 the test frame)
+    and its own half of a SHARD_WAYMO_POINTS-point cloud."""
+    import numpy as np
+    from pointnerf_tpu_torch.camera import get_dtu_raydir
+    from pointnerf_tpu_torch.config import PointsConfig
+    from pointnerf_tpu_torch.data.procedural import (SCENES, gt_render,
+                                                      sample_cloud,
+                                                      sphere_cameras)
+    from pointnerf_tpu_torch.data.waymo_export import frames_to_npz
+    prims = SCENES[DS_SCAN]()
+    xyz, _color, _n = sample_cloud(prims, SHARD_WAYMO_POINTS, seed=0)
+    W, H = SHARD_WAYMO_WH
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H))
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    os.makedirs(root, exist_ok=True)
+    for s in range(2):
+        part = xyz[s::2]
+        views = sphere_cameras(SHARD_WAYMO_VIEWS, radius=2.4, focal=70.0,
+                               wh=SHARD_WAYMO_WH, seed=1 + s)
+        frames = []
+        for i, (campos, rot, K) in enumerate(views):
+            rd = get_dtu_raydir(pix, K, rot).astype(np.float32)
+            img = gt_render(prims, campos.astype(np.float32),
+                            rd).reshape(H, W, 3)
+            c2w = np.eye(4)
+            c2w[:3, :3], c2w[:3, 3] = rot, campos
+            pre = np.stack([-c2w[:, 2], -c2w[:, 0], c2w[:, 1], c2w[:, 3]], 1)
+            k_full = K.copy()
+            k_full[:2] *= 2.0
+            frames.append({
+                "image": np.repeat(np.repeat(img, 2, 0), 2, 1),
+                "c2w": pre.astype(np.float32), "K": k_full.astype(np.float32),
+                "points_world": (None if i == 0 else
+                                 part[(i - 1)::SHARD_WAYMO_VIEWS - 1])})
+        frames_to_npz(frames, os.path.join(root, f"seq{s}.npz"), step=10,
+                      scale_factor=4.0, target_upscale=2,
+                      vox_res=PointsConfig().vox_res, device=device)
+
+
+def shard_waymo_job(root: str, device: str):
+    """(e) The two sequences through load_multiseq, onto mp = 2 with
+    partition_points_multiseq (one sequence a shard), at n2d_config's
+    widths (C = 128, bf16) with the AABB of their clouds; the counts set to
+    0, SHARD_N2D_STEPS sharded neural2d steps with the CNN head on 48 x 48
+    patches of the sequences' frames in turn, K1, K3 and K4 once a step on
+    this rank."""
+    import numpy as np
+    import torch
+    from pointnerf_tpu_torch.config import DataConfig, ranges_from_cloud
+    from pointnerf_tpu_torch.data.waymo import load_multiseq
+    from pointnerf_tpu_torch.models import neural_render as nr
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.models.renderer import ray_batch_from_numpy
+    from pointnerf_tpu_torch.parallel.sharded import (
+        build_sharded_scene, create_sharded_neural2d_state,
+        make_sharded_neural2d_step, partition_points_multiseq)
+    mesh = shard_rank(1, SHARD_WORLD, device)
+    dev = mesh.device
+    seqs = load_multiseq(DataConfig(dataset_name="waymo_ft", data_root=root,
+                                    scan="seq0"), ["seq0", "seq1"])
+    clouds = [ds.load_init_points() for ds in seqs]
+    allp = np.concatenate([c["xyz"] for c in clouds])
+    cfg = n2d_config()
+    cfg = cfg.replace(
+        query=dataclasses.replace(cfg.query, ranges=ranges_from_cloud(allp)),
+        render=dataclasses.replace(cfg.render, near_plane=1.0, far_plane=4.0))
+    pc, num_active, shard_seq = partition_points_multiseq(
+        clouds, torch.Generator().manual_seed(0), cfg, mesh.mp, shard=mesh.m,
+        device=dev)
+    if shard_seq.tolist() != [0, 1]:
+        raise RuntimeError(f"shards own sequences {shard_seq.tolist()}")
+    params = init_aggregator_params(cfg.agg, torch.Generator().manual_seed(1),
+                                    device=dev)
+    head = nr.NeuralRenderer(n_feat=128, input_dim=N2D_C, img_size=64,
+                             min_feat=32)
+    hp = nr.init_neural_render(head, torch.Generator().manual_seed(20), dev)
+    scene = build_sharded_scene(pc, num_active, cfg, mesh)
+    state, scene = create_sharded_neural2d_state(
+        torch.Generator(device=dev).manual_seed(2), params, pc, hp, scene,
+        cfg, mesh)
+    step = make_sharded_neural2d_step(cfg, mesh, head, N2D_PATCH)
+    kernels = kernel_wrappers()
+    reset_counts(kernels)
+    losses = []
+    for i in range(SHARD_N2D_STEPS):
+        ds = seqs[i % 2]
+        item = ds.get_item(i % len(ds), "patch", N2D_PATCH, seed=i)
+        b = ray_batch_from_numpy(dict(item, gt_image=None), cfg, device=dev)
+        gt = torch.tensor(item["gt_image"], device=dev).reshape(
+            N2D_PATCH, N2D_PATCH, 3)
+        before = {k: kernels[k].launches for k in kernels}
+        state, items = step(state, scene, b, gt[None])
+        for k in kernels if dev.type == "cuda" else ():
+            if kernels[k].launches != before[k] + (k in SHARD_STEP_KERNELS):
+                raise RuntimeError(f"waymo neural2d step {i}: {k} launched "
+                                   f"{kernels[k].launches - before[k]} times")
+        losses.append(float(items["loss_total"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"waymo neural2d losses {losses}")
+    return {"losses": losses, "tally": kernel_tally(kernels),
+            "routes": kernel_routes(kernels, "sharded waymo neural2d"),
+            "num_active": num_active.tolist(),
+            "hash": tree_hash((state.params["mlp"], state.params["head"]))}
+
+
+def _nccl_rank(rank: int, init_file: str, out) -> None:
+    """A rank of a two-rank NCCL world on card 0, both ranks on it."""
+    import datetime as _dt
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                                world_size=2, rank=rank,
+                                timeout=_dt.timedelta(seconds=60))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out.put((rank, f"no error: all_reduce gave {x.tolist()}"))
+    except Exception as e:  # the error is what this probe reports
+        out.put((rank, f"{type(e).__name__}: {e}"))
+
+
+def nccl_on_one_card():
+    """Print why a world of ranks sharing the card runs gloo: the port
+    refuses nccl there before any process starts, and NCCL itself (a raw
+    two-rank world on card 0, bypassing the port) errs."""
+    import queue as _queue
+    import tempfile
+    import torch
+    from pointnerf_tpu_torch.parallel.multihost import check_backend
+    try:
+        check_backend("nccl", "cuda", SHARD_WORLD)
+        log("phase 33: the port took nccl for two ranks on one card")
+    except ValueError as e:
+        log(f"phase 33: the port refuses nccl on one card: {e}")
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=_nccl_rank, daemon=True,
+                             args=(r, os.path.join(d, "rdv"), out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        deadline = time.time() + 90
+        while len(got) < 2 and time.time() < deadline:
+            try:
+                r, msg = out.get(timeout=1.0)
+                got[r] = msg
+            except _queue.Empty:
+                continue
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    for r in range(2):
+        log(f"phase 33: raw NCCL world, both ranks on card 0, rank {r}: "
+            f"{got.get(r, 'no answer in 90 s (terminated)')}"[:600])
+
+
+# phase 33's train-step comparisons, each within phase 8's bar: (b) the
+# card's sharded step vs the CPU world's from the state the timed steps
+# leave, (d) the (dp 2, mp 1) step vs the mean of the single-device rows'
+# from the fresh state. Their f32 controls sit lower than phase 8's (the
+# MLP gradients' under its 1e-2), so each bar is set from 40 states of
+# scripts/parity_readings.py --phase sharded (an H100 80GB HBM3 at 700 W;
+# PERF.md §6) near the geometric mean of the highest reading and the
+# lowest control. (b): loss 1.45e-05 vs 2.26e-04, MLP 4.79e-04 vs
+# 7.49e-03, points 5.56e-04 vs 2.85e-03. (d) sums the same terms in
+# another order: loss 3.7e-08 vs 2.9e-05, points 2.2e-08 vs 2.1e-02, MLP
+# 0 (equal bits) vs 6.4e-03, its bar at the points' order of size
+SHARD_TRAIN_TOL = {"loss": 5e-5, "mlp": 2e-3, "points": 1.25e-3}
+SHARD_DP_TOL = {"loss": 1e-6, "mlp": 1e-5, "points": 2e-5}
+
+
+def shard_train_parity(tr, trc) -> None:
+    """(b): each rank's card step against the CPU world's (bf16 plain
+    versions), the CPU's f32 decode the control."""
+    for r, (c, p) in enumerate(zip(tr, trc)):
+        (l_cpu, g_cpu, d_cpu), (l_ctl, g_ctl, _d) = p["cpu"], p["control"]
+        if c["dropped"] != d_cpu:
+            fail("phase 33 (b): n_decode_dropped differs between the card "
+                 "and the CPU world")
+        hold_bf16(f"phase 33 (b) rank {r}: sharded card vs CPU train loss, "
+                  "relative", abs(c["loss"] - l_cpu) / abs(l_cpu),
+                  abs(l_ctl - l_cpu) / abs(l_cpu), SHARD_TRAIN_TOL["loss"])
+        card_r = grad_readings(tree_map_np(c["grads"]), tree_map_np(g_cpu))
+        ctl_r = grad_readings(tree_map_np(g_ctl), tree_map_np(g_cpu))
+        for grp in card_r:
+            hold_bf16(f"phase 33 (b) rank {r}: sharded card vs CPU {grp} "
+                      "gradients, sum |err| / sum |CPU|", card_r[grp][0],
+                      ctl_r[grp][0], SHARD_TRAIN_TOL[grp])
+
+
+def shard_dp_parity(dpr) -> None:
+    """(d): each rank's loss and gradients against the mean of the
+    single-device rows', their f32 decode the control."""
+    for r, res in enumerate(dpr):
+        sh, ref, ctl = res["loss"]
+        hold_bf16(f"phase 33 (d) rank {r}: (dp 2, mp 1) loss vs the mean of "
+                  "the single-device rows', relative", abs(sh - ref) / abs(ref),
+                  abs(ctl - ref) / abs(ref), SHARD_DP_TOL["loss"])
+        for grp in res["readings"]:
+            hold_bf16(f"phase 33 (d) rank {r}: {grp} gradients vs the mean of "
+                      "the single-device rows', sum |err| / sum |ref|",
+                      res["readings"][grp][0], res["control"][grp][0],
+                      SHARD_DP_TOL[grp])
+
+
+def shard_run(world, fn, *args):
+    """world.run; a rank that raised fails the run with its traceback."""
+    try:
+        return world.run(fn, *args)
+    except RuntimeError as e:
+        fail(f"phase 33, {fn.__name__}: {e}")
+
+
+def sharded_path(build: str, device: str = "cuda"):
+    """Phase 33: a world of SHARD_WORLD ranks sharing the card (gloo) and
+    the same world on the CPU. Returns (launch counts, launches by route)
+    of the counted runs, summed over the sub-phases and the ranks.
+    `device="cpu"` rehearses the phase with the plain versions (nothing
+    counts there)."""
+    import numpy as np
+    from pointnerf_tpu_torch.parallel.multihost import World
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        nccl_on_one_card()
+    waymo = os.path.join(build, "sharded_waymo")
+    t0 = time.perf_counter()
+    write_waymo_sequences(waymo, device)
+    log(f"phase 33: two waymo_ft sequences written under {waymo} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    total = ({}, {})
+
+    def add(tally):
+        counts, routes = tally
+        for n, v in counts.items():
+            total[0][n] = total[0].get(n, 0) + v
+        for n, r in routes.items():
+            for k, v in r.items():
+                total[1].setdefault(n, {})[k] = (
+                    total[1].get(n, {}).get(k, 0) + v)
+    with World(SHARD_WORLD, "gloo", device=device,
+               timeout_s=SHARD_TIMEOUT_S) as card, \
+            World(SHARD_WORLD, "gloo", device="cpu",
+                  timeout_s=SHARD_TIMEOUT_S) as cpu:
+        # (a) serving
+        t0 = time.perf_counter()
+        serve = shard_run(card, shard_serve_job, device, True)
+        serve_cpu = shard_run(cpu, shard_serve_job, "cpu", False)
+        for r in serve:
+            add(r["tally"])
+        dt = max(r["seconds"] for r in serve)
+        a2a = serve[0]["comm"].get("all_to_all", {})
+        log(f"phase 33 (a): sharded serving, (dp 1, mp {SHARD_WORLD}) on one "
+            f"card through gloo, shards {serve[0]['num_active']} points: "
+            f"{SHARD_REQUESTS} requests x {N_RAYS} rays in {dt:.4f} s = "
+            f"{SHARD_REQUESTS * N_RAYS / dt:.1f} rays/s (host clock, "
+            f"synchronized; not a multi-GPU number), rays hit "
+            f"{serve[0]['hits']}, rank 0's all_to_all "
+            f"{a2a.get('bytes', 0) / SHARD_REQUESTS / 1e6:.3f} MB and "
+            f"{a2a.get('seconds', 0.0) / SHARD_REQUESTS * 1e3:.3f} ms a "
+            f"request, routes {serve[0]['routes']}")
+        card0, cpu0 = serve[0]["bf16"], serve_cpu[0]
+        for f in ("ray_mask", "ray_valid"):
+            if not np.array_equal(card0[f], cpu0["bf16"][f]):
+                fail(f"phase 33 (a): sharded {f} differs between the card "
+                     "and the CPU world")
+        hit = cpu0["bf16"]["ray_mask"]
+        col = card0["coarse_raycolor"][hit]
+        hold_bf16("phase 33 (a): sharded card vs CPU colors of the rays "
+                  "that hit", float(np.abs(col - cpu0["bf16"][
+                      "coarse_raycolor"][hit]).max()),
+                  float(np.abs(col - cpu0["f32"]["coarse_raycolor"][
+                      hit]).max()), COLOR_BF16_TOL)
+        log(f"phase 33 (a): {SHARD_PARITY_RAYS}-ray request card vs CPU "
+            f"world: integers equal, {int(hit.sum())} rays hit, "
+            f"{time.perf_counter() - t0:.2f} s")
+        d2 = shard_run(card, shard_d2_job, device)
+        log(f"phase 33 (a): the single-device build's fullest voxel holds "
+            f"{d2[0]['fullest'][N_POINTS]} points at {N_POINTS} (P = 9: its "
+            f"buckets truncate, the shards' fewer) and "
+            f"{d2[0]['fullest'][SHARD_D2_POINTS]} at {SHARD_D2_POINTS}")
+        for r, res in enumerate(d2):
+            log(f"phase 33 (a) at {SHARD_D2_POINTS} points, rank {r}: merged "
+                f"d2 vs single-device K1 {res['d2_mismatch']} of "
+                f"{res['d2_slots']} differ; ray masks equal "
+                f"{res['mask_equal']}; colors of the {res['hits']} rays "
+                f"that hit, max |sharded - single| {res['color_err']:.3e} "
+                f"(bar {SHARD_D2_COLOR_TOL:.1e})")
+            if not (res["d2_equal"] and res["mask_equal"]):
+                fail("phase 33 (a): the merged top-K is not the "
+                     "single-device KNN")
+            if not res["color_err"] <= SHARD_D2_COLOR_TOL:
+                fail("phase 33 (a): sharded colors differ from the "
+                     "single-device request's")
+        # (b) training
+        t0 = time.perf_counter()
+        tr = shard_run(card, shard_train_job, device)
+        for r in tr:
+            add(r["tally"])
+        if len({r["mlp_hash"] for r in tr}) != 1:
+            fail("phase 33 (b): the MLP parameters differ between the ranks")
+        losses = tr[0]["losses"]
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        if not last < first:
+            fail(f"phase 33 (b): the sharded loss did not fall: {losses}")
+        dt = max(r["seconds"] for r in tr)
+        comm = tr[0]["comm"]
+        a2a = comm.get("all_to_all", {"bytes": 0, "seconds": 0.0,
+                                      "calls": 0})
+        coll = sum(v["seconds"] for v in comm.values())
+        log(f"phase 33 (b): sharded training, {SHARD_STEPS} steps x {N_RAYS} "
+            f"rays after {SHARD_WARMUP} warm-up steps in {dt:.4f} s = "
+            f"{SHARD_STEPS * N_RAYS / dt:.1f} train rays/s over the mesh "
+            f"(host clock, synchronized; ranks share one card through gloo, "
+            f"not a multi-GPU number); rank 0 per step: all_to_all "
+            f"{a2a['calls'] / SHARD_STEPS:.0f} calls, "
+            f"{a2a['bytes'] / SHARD_STEPS / 1e6:.3f} MB sent, "
+            f"{a2a['seconds'] / SHARD_STEPS * 1e3:.3f} ms; all collectives "
+            f"{coll / SHARD_STEPS * 1e3:.3f} ms = {coll / dt:.1%} of the "
+            f"step ({ {k: v['calls'] // SHARD_STEPS for k, v in comm.items()} }"
+            f" calls a step); losses {[round(v, 6) for v in losses]}; MLP "
+            f"bit-equal on both ranks; routes {tr[0]['routes']}")
+        trc = shard_run(cpu, shard_train_cpu_job,
+                        [r["params"] for r in tr], tr[0]["num_active"])
+        shard_train_parity(tr, trc)
+        log(f"phase 33 (b): {time.perf_counter() - t0:.2f} s")
+        # (c) maintenance
+        t0 = time.perf_counter()
+        with tempfile_dir(build) as run_dir:
+            mt = shard_run(card, shard_maint_job, run_dir, device)
+        for r in mt:
+            add(r["tally"])
+        ev = mt[0]["events"]
+        log(f"phase 33 (c): train_scene_sharded {SHARD_MAINT_STEPS} steps: "
+            f"prune of {ev[0][1]} points kept {ev[0][2]} ({ev[0][3]:.3f} s), "
+            f"probe-grow added {ev[1][2]} to {ev[1][1]} ({ev[1][3]:.3f} s), "
+            f"shards {mt[0]['num_active']}, losses {mt[0]['loss']}, eval "
+            f"PSNR {mt[0]['psnr']:.4f} dB (random weights), checkpoint read "
+            f"back bit for bit; loop {mt[0]['seconds']:.2f} s, phase "
+            f"{time.perf_counter() - t0:.2f} s")
+        # (d) data parallel
+        t0 = time.perf_counter()
+        dpr = shard_run(card, shard_dp_job, device)
+        for r in dpr:
+            add(r["tally"])
+        if len({r["mlp_hash"] for r in dpr}) != 1 or \
+                len({r["points_hash"] for r in dpr}) != 1:
+            fail("phase 33 (d): the replicas differ between the dp ranks")
+        shard_dp_parity(dpr)
+        log(f"phase 33 (d): two (dp 2, mp 1) steps, losses "
+            f"{dpr[0]['losses']}, replicas bit-equal, "
+            f"{time.perf_counter() - t0:.2f} s")
+        # (e) two Waymo sequences
+        t0 = time.perf_counter()
+        wy = shard_run(card, shard_waymo_job, waymo, device)
+        for r in wy:
+            add(r["tally"])
+        if len({r["hash"] for r in wy}) != 1:
+            fail("phase 33 (e): the MLP and head differ between the ranks")
+        log(f"phase 33 (e): two waymo_ft sequences on mp 2 (shards "
+            f"{wy[0]['num_active']} points), {SHARD_N2D_STEPS} sharded "
+            f"neural2d steps with the CNN head at C = {N2D_C}: losses "
+            f"{wy[0]['losses']}, routes {wy[0]['routes']}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    shutil.rmtree(waymo, ignore_errors=True)
+    log(f"phase 33 wall seconds: {time.perf_counter() - t_phase:.2f}; "
+        f"launches over both ranks {total[0]}")
+    return total
+
+
+def tree_map_np(tree):
+    """A tree of numpy arrays as CPU tensors."""
+    import torch
+    from pointnerf_tpu_torch.train.optim import tree_map
+    return tree_map(torch.as_tensor, tree)
+
+
 def main() -> None:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -6878,6 +7759,8 @@ def main() -> None:
     mn_counts, mn_routes, mn_checks = mvsnerf_path(kernel_wrappers())
     log(f"phases 31-32 wall seconds: scannet_tables {t1 - t0:.2f}, mvsnerf "
         f"{time.perf_counter() - t1:.2f}")
+    # phase 33: the sharded path, on ranks that share the card
+    sh_counts, sh_routes = sharded_path(build)
 
     csrc = "pointnerf_tpu_torch/csrc/"
     # one row per kernel source: K3 and K4 have two, the tensor-core
@@ -6947,7 +7830,8 @@ def main() -> None:
              "n2d": (n2_counts, n2_routes), **io_paths,
              "whole_agg": whole_agg,
              "scannet_tables": (st_counts, st_routes),
-             "mvsnerf": (mn_counts, mn_routes)}
+             "mvsnerf": (mn_counts, mn_routes),
+             "sharded": (sh_counts, sh_routes)}
     rows = []
     for row_name, (wrapper, route_name, src, rep) in meta.items():
         r = results[row_name]

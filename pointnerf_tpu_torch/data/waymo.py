@@ -6,18 +6,17 @@ writes it (images, c2w poses, intrinsic, and the LiDAR cloud as
 points_xyz_all or points_xyz); every 10th frame is the test split. Items
 are dicts of numpy arrays with the JAX package's keys and values.
 
-A scene of several sequences (`load_multiseq`) maps each sequence's cloud
-onto the point axis of a multi-device run, which the port does not have
-yet: it raises.
+A scene of several sequences (`load_multiseq`) is one dataset per
+sequence; `parallel/sharded.partition_points_multiseq` maps their clouds
+onto the mp point axis of a sharded run.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .. import not_ported
 from ..camera import get_dtu_raydir
 from ..config import DataConfig
 from . import register_dataset
@@ -89,8 +88,11 @@ class WaymoDataset:
         return {"xyz": self.points_xyz.reshape(-1, 3)}
 
 
-def load_multiseq(cfg: DataConfig, scans: Sequence[str], split: str = "train"):
-    """A scene of several sequences, one cloud each on the sharded point
-    axis: not ported (the port runs on one device)."""
-    raise not_ported("Waymo multi-sequence scenes (load_multiseq)",
-                     "Queue 1, multi-GPU")
+def load_multiseq(cfg: DataConfig, scans: Sequence[str], split: str = "train"
+                  ) -> List[WaymoDataset]:
+    """A multi-sequence scene: one dataset (and point cloud) per sequence
+    (`<data_root>/<scan>.npz` each), in the order of `scans`."""
+    return [WaymoDataset(DataConfig(
+        dataset_name=cfg.dataset_name, data_root=cfg.data_root, scan=s,
+        img_wh=cfg.img_wh, dir_norm=cfg.dir_norm, split=split))
+        for s in scans]

@@ -50,5 +50,8 @@ register_model(
     "neural_points_volumetric_multiseq",
     trainer="pointnerf_tpu_torch.train.neural2d",
     notes="multi-sequence point clouds + StyleGAN2 head with per-frame "
-          "style codes (fork train_ddp.py); the sharded multi-sequence "
-          "step is not ported yet (ROADMAP.md, Queue 1 item 19)")
+          "style codes; sequences map to the mp point-shard axis "
+          "(data/waymo.load_multiseq, parallel/sharded."
+          "partition_points_multiseq; the sharded step, "
+          "make_sharded_neural2d_step, takes the CNN head, as JAX's does) "
+          "(fork train_ddp.py)")

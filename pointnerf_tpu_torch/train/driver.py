@@ -3,6 +3,8 @@
 Counterpart of `pointnerf_tpu/train/driver.py`: `ItemPrefetcher`,
 `init_mlp_params`, `evaluate`, `train_scene`, `mvs_init_cloud`,
 `train_dataset_scene`, `test_dataset_scene`, `render_video`,
+`eval_rays_sharded`, `probe_hole_sharded`, `train_scene_sharded` (the
+sharded loop over a `parallel` mesh of ranks),
 `render_video_from_checkpoint`, `demo`, `ff_demo`,
 `train_feedforward_dataset`, `n2d_demo` and `main` (`--demo`,
 `--dataset`, `--test`, `--video`, `--ff-demo`, `--ff-dataset`,
@@ -547,6 +549,197 @@ def render_video(params, st, grid, cfg: PointNeRFConfig, items: List[Dict],
                                  prob=False)
         frames.append(np.clip(maps["coarse_raycolor"][..., :3], 0, 1))
     return vis.gen_video(frames, name=name, fps=fps, container=container)
+
+
+def _chunk_batch(item: Dict, raydir: np.ndarray, n: int, chunk: int,
+                 cfg: PointNeRFConfig, dev) -> "RayBatch":
+    """A batch of `chunk` rays of `item` (the last chunk padded with zero
+    directions) without ground truth."""
+    from ..models.renderer import RayBatch
+    if n < chunk:
+        raydir = np.concatenate([raydir, np.zeros((chunk - n, 3), np.float32)])
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    return RayBatch(campos=t(item["campos"]), camrotc2w=t(item["camrotc2w"]),
+                    raydir=t(raydir),
+                    pixel_idx=torch.zeros((chunk, 2), dtype=torch.int32,
+                                          device=dev),
+                    near=t(cfg.render.near_plane), far=t(cfg.render.far_plane))
+
+
+def eval_rays_sharded(eval_fn, params, scene, item: Dict,
+                      cfg: PointNeRFConfig, n_devices: int,
+                      chunk: int = 9216) -> np.ndarray:
+    """Chunked sharded inference over any ray count (every rank calls it and
+    gets the whole result): chunks are padded to a multiple of the mesh's
+    size, so that every rank gets an equal block, and bounded so a full
+    frame never holds [R, SR, mp * K] merged tensors at once."""
+    dev = params["points"].xyz.device
+    raydir = np.asarray(item["raydir"], np.float32)
+    chunk = max(n_devices, (chunk // n_devices) * n_devices)
+    outs = []
+    for s in range(0, raydir.shape[0], chunk):
+        rd = raydir[s:s + chunk]
+        out = eval_fn(params, scene,
+                      _chunk_batch(item, rd, rd.shape[0], chunk, cfg, dev))
+        outs.append(out.coarse_raycolor[:rd.shape[0]].cpu().numpy())
+    return np.concatenate(outs)
+
+
+SHARDED_PROBE_KEYS = ("coarse_raycolor", "ray_mask", "ray_max_sample_loc_w",
+                      "ray_max_shading_opacity", "shading_avg_color",
+                      "shading_avg_dir", "shading_avg_conf",
+                      "shading_avg_embedding")
+
+
+def probe_hole_sharded(eval_prob_fn, params, scene, cfg: PointNeRFConfig,
+                       items: List[Dict], wh: Tuple[int, int],
+                       n_devices: int, chunk: int = 9216):
+    """The sharded probe-hole scan: full-frame prob-mode renders assembled
+    across the mesh (every rank gets every chunk's outputs), then the
+    single-device probe's hole / dilation / opacity candidate logic
+    (train/grow.py). The candidates are the same on every rank."""
+    from .grow import (NERF_PROBE_KEYS, accumulate_probe_candidates,
+                       finalize_probe_candidates)
+    W, H = wh
+    dev = params["points"].xyz.device
+    bg = np.asarray(cfg.render.bg_color, np.float32)
+    adds = {k: [] for k in ("xyz", "embedding", "color", "dirs", "conf")}
+    keys = SHARDED_PROBE_KEYS + (NERF_PROBE_KEYS
+                                 if cfg.render.nerf_importance > 0 else ())
+    chunk = max(n_devices, (chunk // n_devices) * n_devices)
+    for item in items:
+        raydir = np.asarray(item["raydir"], np.float32)
+        pix = np.asarray(item["pixel_idx"], np.int64)
+        maps: Dict[str, np.ndarray] = {}
+        for s in range(0, raydir.shape[0], chunk):
+            rd = raydir[s:s + chunk]
+            n = rd.shape[0]
+            out = eval_prob_fn(params, scene,
+                               _chunk_batch(item, rd, n, chunk, cfg, dev))
+            px, py = pix[s:s + n, 0], pix[s:s + n, 1]
+            for k in keys:
+                v = getattr(out, k)[:n].cpu().numpy()
+                if v.ndim == 1:
+                    v = v[:, None]
+                if k not in maps:
+                    maps[k] = np.zeros((H, W, v.shape[-1]), v.dtype)
+                maps[k][py, px] = v
+        accumulate_probe_candidates(adds, maps, item, cfg, wh, bg)
+    return finalize_probe_candidates(adds, cfg)
+
+
+def train_scene_sharded(cfg: PointNeRFConfig, mesh,
+                        scene_pts: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                        train_items_fn, test_items: List[Dict],
+                        wh: Tuple[int, int], run_dir: str = "runs/sharded",
+                        max_steps: Optional[int] = None,
+                        log_every: Optional[int] = None,
+                        probe_items: Optional[List[Dict]] = None,
+                        features: Optional[np.ndarray] = None,
+                        conf: Optional[np.ndarray] = None):
+    """Per-scene optimization over a (dp, mp) mesh (every rank of the mesh
+    calls it): rays data-parallel, the cloud, its grids and its Adam
+    moments sharded; prune and probe-grow per shard; evals assembled across
+    the mesh. The multi-device counterpart of `train_scene` (JAX's
+    train_scene_sharded, the reference's DDP loop). `features` / `conf`
+    seed the point payloads when given, as train_scene's do. Seeds as
+    train_scene's: the features from cfg.train.seed, the MLP from seed + 1,
+    the jitter from seed + 2 — the same on every rank. The schedule: prune, then probe and grow,
+    then the step, then the eval. At the end rank 0 writes a checkpoint of
+    the shards gathered into [mp, cap, ...] leaves (`parallel.sharded.
+    gather_shards`; meta: num_active per shard, mp) after every rank has
+    gathered; `train/checkpoint.load_checkpoint` reads it back into a
+    gathered template. Returns (state, scene, history) on every rank."""
+    from ..parallel.collectives import barrier
+    from ..parallel.sharded import (build_sharded_scene,
+                                    create_sharded_train_state,
+                                    gather_shards, make_sharded_eval_step,
+                                    make_sharded_train_step, partition_points,
+                                    sharded_grow, sharded_prune)
+    xyz, color, normals = scene_pts
+    dev = mesh.device
+    lead = mesh.rank == 0
+    vis = Visualizer(run_dir, name=os.path.basename(run_dir)) if lead else None
+    if lead:
+        vis.save_options(cfg.to_json())
+    seed = cfg.train.seed
+    pc_s, num_active = partition_points(
+        xyz, torch.Generator().manual_seed(seed), cfg, mesh.mp,
+        features=features, color=color, dirs=normals, conf=conf,
+        shard=mesh.m, device=dev)
+    params = init_mlp_params(torch.Generator().manual_seed(seed + 1), cfg,
+                             device=dev)
+    scene = build_sharded_scene(pc_s, num_active, cfg, mesh)
+    state, scene = create_sharded_train_state(
+        torch.Generator(device=dev).manual_seed(seed + 2), params, pc_s,
+        scene, cfg, mesh)
+    step_fn = make_sharded_train_step(cfg, mesh)
+    eval_fn = make_sharded_eval_step(cfg, mesh)
+    eval_prob_fn = (make_sharded_eval_step(cfg, mesh, prob=True)
+                    if probe_items else None)
+
+    t = cfg.train
+    max_steps = max_steps or t.maximum_step
+    log_every = log_every or t.print_freq
+    history: Dict[str, list] = {"loss": [], "eval": [], "prune": [],
+                                "grow": []}
+    losses: List[torch.Tensor] = []
+    step_i = int(state.step)
+    prefetch = ItemPrefetcher(train_items_fn, start_step=step_i)
+    try:
+        while step_i < max_steps:
+            step_i += 1
+            if (t.prune_iter > 0 and step_i % t.prune_iter == 0
+                    and step_i <= t.prune_max_iter):
+                state, scene, kept = sharded_prune(state, scene, cfg, mesh)
+                history["prune"].append((step_i, kept))
+                if lead:
+                    print(f"[prune] step {step_i}: kept {kept} points")
+            if t.prob_freq > 0 and step_i % t.prob_freq == 0 and probe_items:
+                cand = probe_hole_sharded(eval_prob_fn, state.params, scene,
+                                          cfg, probe_items, wh, mesh.size)
+                state, scene, added = sharded_grow(state, scene, cand, cfg,
+                                                   mesh)
+                history["grow"].append((step_i, added))
+                if lead:
+                    print(f"[grow] step {step_i}: +{added} points "
+                          f"(total {int(scene.num_active.sum())})")
+            fetched_step, item = prefetch.get()
+            if fetched_step != step_i:
+                raise RuntimeError(f"prefetched item of step {fetched_step} "
+                                   f"at step {step_i}")
+            state, items = step_fn(state, scene,
+                                   ray_batch_from_numpy(item, cfg, device=dev))
+            losses.append(items["loss_total"])
+            if lead:
+                vis.accumulate_losses(items)
+            if step_i % log_every == 0:
+                history["loss"].append(
+                    (step_i, float(torch.stack(losses).mean())))
+                losses = []
+                if lead:
+                    vis.print_losses(step_i)
+            if t.test_freq > 0 and step_i % t.test_freq == 0 and test_items:
+                psnrs = [psnr(eval_rays_sharded(eval_fn, state.params, scene,
+                                                item_t, cfg, mesh.size),
+                              np.asarray(item_t["gt_image"], np.float32))
+                         for item_t in test_items]
+                m = {"step": step_i, "psnr": float(np.mean(psnrs))}
+                history["eval"].append(m)
+                if lead:
+                    print(f"[eval] step {step_i}: psnr={m['psnr']:.2f}")
+    finally:
+        prefetch.close()
+    full = gather_shards(state, mesh)
+    if lead:
+        save_checkpoint(run_dir, full,
+                        {"num_active": [int(n) for n in scene.num_active],
+                         "mp": mesh.mp,
+                         "capacity": state.params["points"].capacity})
+    barrier(mesh)
+    return state, scene, history
 
 
 def render_video_from_checkpoint(dataset_name: str, data_root: str,

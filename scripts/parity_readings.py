@@ -3,7 +3,7 @@
 several trained states, on the card.
 
     python3 scripts/parity_readings.py \
-        --phase ff|ff_render|n2d|general|hybrid [--states N]
+        --phase ff|ff_render|n2d|general|hybrid|sharded [--states N]
 
 --phase ff: writes chip_smoke's DTU-format scene under build/, then for
 each state trains the feed-forward path anew (chip_smoke's ff_path: its
@@ -42,6 +42,15 @@ CPU (hybrid_train_parity: the loss within HYBRID_LOSS_BF16_TOL beside the
 CPU's f32 decode, each gradient group at its bar). This is how
 HYBRID_LOSS_BF16_TOL was set.
 
+--phase sharded: starts phase 33's two worlds of two ranks (gloo), one
+sharing the card and one on the CPU, then for each state runs its (b) and
+(d) anew: (b) trains the sharded sphere from the fresh state (its warm-up
+and timed steps; the payload gather's backward adds with atomics, so each
+run's trained state differs) and holds its 512-ray train step card vs the
+CPU world (shard_train_parity), (d) holds the (dp 2, mp 1) step against
+the mean of the single-device rows' (shard_dp_parity). This is how
+SHARD_TRAIN_TOL and SHARD_DP_TOL were set.
+
 Each reading is printed beside its control and bar. A reading beyond its
 bar, or a control under it, is printed, not fatal, so that one run reads
 them all. At the end each held quantity's readings are summed up: how
@@ -63,7 +72,8 @@ sys.path.insert(0, ROOT)
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", required=True,
-                    choices=("ff", "ff_render", "n2d", "general", "hybrid"))
+                    choices=("ff", "ff_render", "n2d", "general", "hybrid",
+                             "sharded"))
     ap.add_argument("--states", type=int, default=9)
     args = ap.parse_args()
     import torch
@@ -87,6 +97,8 @@ def main() -> None:
         general_readings(cs, args.states)
     elif args.phase == "hybrid":
         hybrid_readings(cs, args.states)
+    elif args.phase == "sharded":
+        sharded_readings(cs, args.states)
     else:
         state_readings(cs, args.phase, args.states, kernels,
                        ff_root if args.phase != "n2d" else None)
@@ -199,6 +211,24 @@ def general_readings(cs, states: int) -> None:
                         f"{name}, state {i}",
                         hold_largest=cs.hold_general_k4)
             print(f"{name} state {i} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+
+
+def sharded_readings(cs, states: int) -> None:
+    """--phase sharded (module docstring)."""
+    from pointnerf_tpu_torch.parallel.multihost import World
+    with World(cs.SHARD_WORLD, "gloo", device="cuda",
+               timeout_s=cs.SHARD_TIMEOUT_S) as card, \
+            World(cs.SHARD_WORLD, "gloo", device="cpu",
+                  timeout_s=cs.SHARD_TIMEOUT_S) as cpu:
+        for i in range(states):
+            t0 = time.perf_counter()
+            tr = card.run(cs.shard_train_job, "cuda")
+            trc = cpu.run(cs.shard_train_cpu_job, [r["params"] for r in tr],
+                          tr[0]["num_active"])
+            cs.shard_train_parity(tr, trc)
+            cs.shard_dp_parity(card.run(cs.shard_dp_job, "cuda"))
+            print(f"sharded state {i} ({time.perf_counter() - t0:.1f} s)",
                   flush=True)
 
 

@@ -1408,3 +1408,59 @@ def test_general_autograd_launches_both_kernels(dev):
     assert fd.fused_decode_bwd.launches_by_route["general"] == n4 + 1
     for x, y in zip(got, gk):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------------------
+# the sharded path (pointnerf_tpu_torch/parallel): ranks of a gloo world
+# sharing the card, held against the same world on the CPU
+
+def test_collectives_on_the_card_match_the_cpu(dev):
+    """The collectives on CUDA tensors in a two-rank gloo world sharing the
+    card (each collective staged through host memory): all_to_all and
+    all_gather forward and backward, psum / pmax, equal to the CPU world's
+    results and to their numpy definitions."""
+    from pointnerf_tpu_torch.parallel.multihost import spawn
+    from test_torch_parallel import hold_collectives, job_collectives
+    for dp, mp in ((1, 2), (2, 1)):
+        card = spawn(job_collectives, 2, "gloo", device="cuda",
+                     args=(dp, mp, "cuda"))
+        cpu = spawn(job_collectives, 2, "gloo", device="cpu",
+                    args=(dp, mp, "cpu"))
+        hold_collectives(card, dp, mp)
+        for a, b in zip(card, cpu):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_sharded_request_on_the_card_matches_the_cpu(dev):
+    """One 512-ray request through make_sharded_eval_step at (dp 1, mp 2)
+    on prebuilt tables with the compacted decode: each rank on the card
+    launches K1, K3 and K2 once, and the integers (ray and slot masks)
+    equal the CPU world's."""
+    import dataclasses
+    from pointnerf_tpu_torch.config import tiny_test_config
+    from pointnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from pointnerf_tpu_torch.parallel.multihost import spawn
+    from pointnerf_tpu_torch.parallel.sharded import partition_points
+    from pointnerf_tpu_torch.train.optim import tree_map
+    from test_torch_parallel import batch_arrays, job_eval, synthetic_scene
+    cfg = tiny_test_config()
+    cfg = cfg.replace(query=dataclasses.replace(
+        cfg.query, shell_layered=False, prebuild_neighbors=True, max_d=1024,
+        decode_capacity=0.5))
+    xyz, campos, camrot = synthetic_scene()
+    pc, num_active = partition_points(xyz, torch.Generator().manual_seed(0),
+                                      cfg, 2, device="cpu")
+    mlp = tree_map(lambda t: t.numpy(), init_aggregator_params(
+        cfg.agg, torch.Generator().manual_seed(1), device="cpu"))
+    args = (cfg.to_json(), tuple(a.numpy() for a in pc), num_active.numpy(),
+            mlp, batch_arrays(campos, camrot, n=512), 1, 2, False)
+    card = spawn(job_eval, 2, "gloo", device="cuda", args=args + ("cuda",))
+    cpu = spawn(job_eval, 2, "gloo", device="cpu", args=args + ("cpu",))
+    for c, p in zip(card, cpu):
+        assert c.pop("launches") == [1, 1, 1]
+        assert sorted(c) == sorted(p)
+        assert p["ray_mask"].sum() > 50
+        for k in ("ray_mask", "ray_valid"):
+            np.testing.assert_array_equal(c[k], p[k], err_msg=k)
+        assert np.isfinite(c["coarse_raycolor"]).all()

@@ -23,7 +23,6 @@ from pointnerf_tpu.config import DataConfig as JData
 from pointnerf_tpu.data import find_dataset_class_by_name as j_find
 from pointnerf_tpu.data.waymo_export import frames_to_npz as j_export
 from pointnerf_tpu.train import driver as jd
-from pointnerf_tpu_torch import SliceNotPorted
 from pointnerf_tpu_torch import config as tcfg
 from pointnerf_tpu_torch.config import DataConfig as TData
 from pointnerf_tpu_torch.convert import params_from_jax
@@ -165,9 +164,15 @@ def test_waymo_items_match_jax(tmp_path):
             _same_item(dt.get_item(i, seed=i), dj.get_item(i, seed=i))
             _same_item(dt.get_item(i, "no_crop"), dj.get_item(i, "no_crop"))
         _same_item(dt.load_init_points(), dj.load_init_points())
+    # a scene of several sequences: one dataset each, as JAX loads them
+    from pointnerf_tpu.data.waymo import load_multiseq as j_multi
     from pointnerf_tpu_torch.data.waymo import load_multiseq
-    with pytest.raises(SliceNotPorted, match="multi-GPU"):
-        load_multiseq(TData(data_root=str(tmp_path)), ["seq0", "seq0"])
+    ts = load_multiseq(TData(data_root=str(tmp_path)), ["seq0", "seq0"])
+    js = j_multi(JData(data_root=str(tmp_path)), ["seq0", "seq0"])
+    assert len(ts) == len(js) == 2
+    for dt, dj in zip(ts, js):
+        assert dt.id_list == dj.id_list
+        _same_item(dt.get_item(0, seed=0), dj.get_item(0, seed=0))
 
 
 @pytest.fixture

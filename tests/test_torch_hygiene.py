@@ -46,6 +46,11 @@ MODULES = [
     "pointnerf_tpu_torch.train.torch_import", "pointnerf_tpu_torch.edit",
     "pointnerf_tpu_torch.data.llff", "pointnerf_tpu_torch.data.scannet",
     "pointnerf_tpu_torch.utils.profiling", "pointnerf_tpu_torch.models",
+    "pointnerf_tpu_torch.parallel", "pointnerf_tpu_torch.parallel.mesh",
+    "pointnerf_tpu_torch.parallel.multihost",
+    "pointnerf_tpu_torch.parallel.sharded",
+    "pointnerf_tpu_torch.parallel.collectives",
+    "pointnerf_tpu_torch.data.waymo",
 ]
 
 
@@ -140,3 +145,49 @@ def test_build_hashes_sources_into_the_build_directory():
     assert "-fmad=false" in _build._flags("knn_select")
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "build/" in f.read().split()
+
+
+def _world_rank():
+    import torch.distributed as dist
+    return dist.get_rank(), dist.get_world_size(), dist.get_backend()
+
+
+def test_mesh_and_spawn_default_to_the_card(monkeypatch):
+    """make_mesh, spawn and World run on the card unless given
+    device="cpu", and raise without one before any process starts."""
+    from pointnerf_tpu_torch.parallel import make_mesh
+    from pointnerf_tpu_torch.parallel.multihost import World, spawn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(_world_rank, 2, "gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        World(2, "gloo")
+    assert make_mesh(1, 1, device="cpu").device.type == "cpu"
+    assert spawn(_world_rank, 2, "gloo", device="cpu") == [
+        (0, 2, "gloo"), (1, 2, "gloo")]
+
+
+def test_nccl_on_one_shared_card_is_refused(monkeypatch):
+    """A world of ranks sharing one card with backend="nccl" raises a clear
+    error before any process starts (NCCL refuses two ranks on one device)
+    and does not switch to gloo on its own; the backend must be named."""
+    import torch.distributed as dist
+    from pointnerf_tpu_torch.parallel.multihost import (check_backend,
+                                                        initialize, spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="refuses two ranks on one device"):
+        spawn(_world_rank, 2, "nccl")
+    with pytest.raises(ValueError, match="refuses two ranks on one device"):
+        check_backend("nccl", "cuda:0", 2)
+    with pytest.raises(ValueError, match="CUDA devices only"):
+        check_backend("nccl", "cpu", 1)
+    with pytest.raises(ValueError, match="name the backend"):
+        check_backend(None, "cuda", 2)
+    with pytest.raises(ValueError, match="name the backend"):
+        initialize("file:///nonexistent", world_size=2, rank=0)
+    assert check_backend("nccl", "cuda", 1).type == "cuda"
+    assert check_backend("gloo", "cuda", 2).type == "cuda"
+    assert not dist.is_initialized()
