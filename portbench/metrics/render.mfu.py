@@ -1,0 +1,20 @@
+"""The whole frame's share of the card's bf16 peak: the aggregator's MLP
+operations a frame needs for its inputs (block1, block3 and alpha
+on the rows with a nonzero weight, the color head on the live shading
+samples), counted in the traced stretch,
+times the frame rate of the run's untraced window, over 989 TFLOP/s."""
+from portbench.cell import mlp_dims
+from portbench.counting import PEAK_BF16, color_flops, decode_flops
+
+PASSES = 1
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.calls.k3 or ctx.stretch_units <= 0:
+        return None
+    dims = mlp_dims(ctx.cell.raw["agg"])["color"]
+    flops = sum(decode_flops(c["rows"], c["widths"])
+                + color_flops(c["live"], dims) for c in ctx.calls.k3)
+    per_unit = PASSES * flops / ctx.stretch_units
+    rate = ctx.window["units"] / ctx.window["wall_s"]
+    return 100.0 * per_unit * rate / PEAK_BF16
